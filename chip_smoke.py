@@ -1,0 +1,319 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch port's detection forward on one NVIDIA GPU.
+
+Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
+card and the CUDA toolkit (``nvcc``); it builds the kernels from
+``iou3dmatch_tpu_torch/csrc/`` into ``build/kernels/`` itself. Phases, each
+reported on its own line; a failed check raises and the exit code is not 0:
+
+1. the card (``nvidia-smi`` name and power limit), versions, TF32 flags;
+2. the kernels' build, one ``nvcc`` per source, all in parallel;
+3. each kernel against its plain PyTorch version on the card, at the shapes
+   of the full-width ScanNet forward, required exactly equal, with CUDA-event
+   timings of kernel, plain version and library call;
+4. the whole forward on the card against the CPU on one 40,000-point scene;
+5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
+   and IoU-guided class-aware NMS, with the kernels' launch counts.
+
+The model is the full-width ScanNet VoteNet (128 proposals, height channel,
+SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
+uniform points in a [-3, 3]^2 x [0, 2.5] room with the height channel
+z - min z, made from a NumPy seed. The last two lines are the kernels' JSON
+and the device JSON.
+"""
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from iou3dmatch_tpu_torch.eval.ap_helper import eval_config_dict, parse_predictions
+from iou3dmatch_tpu_torch.models.factory import build_votenet
+from iou3dmatch_tpu_torch.ops import _build
+from iou3dmatch_tpu_torch.ops.ball_query import (ball_query, ball_query_plain,
+                                                 group_points, group_points_plain)
+from iou3dmatch_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_plain
+from iou3dmatch_tpu_torch.train.steps import make_eval_forward
+
+B, N, NPOINT = 8, 40_000, 2048
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+REPS = 20
+KERNELS = {
+    "fps": furthest_point_sample,
+    "ball_query": ball_query,
+    "gather": group_points,
+}
+REPLACES = {
+    "fps": "iou3dmatch_tpu/ops/fps_pallas.py:46",
+    "ball_query": "iou3dmatch_tpu/ops/ball_query.py:35",
+    "gather": "iou3dmatch_tpu/ops/gather_pallas.py:35",
+}
+
+
+def say(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def make_scenes(seed: int, b: int, n: int) -> np.ndarray:
+    rng = np.random.RandomState(seed)
+    pc = np.zeros((b, n, 4), np.float32)
+    pc[..., 0:2] = rng.uniform(-3.0, 3.0, (b, n, 2))
+    pc[..., 2] = rng.uniform(0.0, 2.5, (b, n))
+    pc[..., 3] = pc[..., 2] - pc[..., 2].min(axis=1, keepdims=True)
+    return pc
+
+
+def cuda_ms(fn, inner: int = 1) -> float:
+    """Median over REPS CUDA-event timings of ``inner`` back-to-back calls.
+    A ~1 ms spin kernel goes first so the calls are queued before the start
+    event runs and host launch overhead stays out of the reading."""
+    fn()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def ball_query_scanned(idx: torch.Tensor, n: int) -> int:
+    """(center, point) pairs an in-order scan tests before it holds nsample
+    hits: up to the nsample-th hit where there is one (the slots are then
+    strictly rising), else the whole cloud."""
+    if idx.shape[-1] < 2:
+        return int(idx.numel()) * n
+    full = idx[..., -1] > idx[..., -2]
+    return int(torch.where(full, idx[..., -1].long() + 1, n).sum())
+
+
+def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, inner):
+    """Kernel against plain version on ``args``, then timings. ``ops_of``
+    counts the f32 operations the plain result says the work needs."""
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    ok = bool(torch.equal(got, want))
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops_of(want) / F32_OPS_PER_S
+    row = {
+        "shape": label, "ok": ok, "max_abs_err": err,
+        "ms": cuda_ms(lambda: kernel(*args), inner),
+        "plain_ms": cuda_ms(lambda: plain(*args), 1),
+        "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "library_ms": None if library is None else cuda_ms(lambda: library(*args), inner),
+    }
+    say(phase="kernel", name=name, **row)
+    if not ok:
+        raise AssertionError(f"{name} at {label} differs from its plain version (max {err})")
+    return got, row
+
+
+def phase_kernels(dev) -> dict:
+    pc = torch.from_numpy(make_scenes(1, B, N)).to(dev)
+    xyz = pc[..., :3].contiguous()
+    rows = {}
+
+    inds, r = check_kernel(
+        "fps", f"({B},{N},3)->{NPOINT}", furthest_point_sample, furthest_point_sample_plain,
+        None, (xyz, NPOINT), B * N * 12 + B * NPOINT * 4,
+        lambda _: (NPOINT - 1) * B * N * 9, 3)  # per point and step: 3 sub, 3 mul, 2 add, 1 min
+    rows["fps"] = [r]
+
+    def bq(label, radius, ns, pts, ctr):
+        b, n = pts.shape[:2]
+        m = ctr.shape[1]
+        nbytes = b * n * 12 + b * m * 12 + b * m * ns * 4
+        got, r = check_kernel("ball_query", label, ball_query, ball_query_plain, None,
+                              (radius, ns, pts, ctr), nbytes,
+                              lambda want: ball_query_scanned(want, n) * 9,  # 3 sub, 3 mul, 2 add, 1 cmp
+                              5)
+        rows.setdefault("ball_query", []).append(r)
+        return got
+
+    rows_idx = torch.arange(B, device=dev)[:, None]
+    sa1_xyz = xyz[rows_idx, inds.long()]  # FPS-ordered, as SA1 gives SA2
+    idx1 = bq(f"sa1 r0.2 ns64 ({B},{N})x{NPOINT}", 0.2, 64, xyz, sa1_xyz)
+    votes = sa1_xyz[:, :1024] + torch.from_numpy(
+        np.random.RandomState(2).normal(0, 0.1, (B, 1024, 3)).astype(np.float32)).to(dev)
+    bq(f"vote_agg r0.3 ns16 ({B},1024)x128", 0.3, 16, votes, votes[:, :128].contiguous())
+
+    def gather(label, table, idx):
+        b, n, c = table.shape
+        q = idx.shape[1] * idx.shape[2]
+        nbytes = b * n * c * 4 + b * q * 4 + b * q * c * 4
+        flat = idx.long().clamp(0, n - 1)
+        library = lambda t, i: t[rows_idx[:, :, None], flat]  # noqa: E731
+        _, r = check_kernel("gather", label, group_points, group_points_plain, library,
+                            (table, idx), nbytes, lambda _: 0, 10)
+        rows.setdefault("gather", []).append(r)
+
+    gather(f"sa1 ({B},{N},4)x({B},{NPOINT},64)", pc, idx1)
+    feats = torch.from_numpy(
+        np.random.RandomState(3).randn(B, NPOINT, 128).astype(np.float32)).to(dev)
+    idx2 = ball_query(0.4, 32, sa1_xyz, sa1_xyz[:, :1024].contiguous())
+    gather(f"sa2 ({B},{NPOINT},131)x({B},1024,32)", torch.cat([sa1_xyz, feats], -1), idx2)
+    return rows
+
+
+def phase_forward(model_gpu, dev):
+    model_cpu, _ = build_votenet("scannet", device="cpu")  # same seed, same weights
+    pc = torch.from_numpy(make_scenes(4, 1, N))
+    with torch.inference_mode():
+        t = time.perf_counter()
+        ep_gpu = model_gpu(pc.to(dev))
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ep_cpu = model_cpu(pc)
+        cpu_s = time.perf_counter() - t
+    if not torch.equal(ep_gpu["sa1_inds"].cpu(), ep_cpu["sa1_inds"]):
+        raise AssertionError("sa1_inds differ between the card and the CPU")
+    diffs = {}
+    for k in ("center", "objectness_scores", "sem_cls_scores", "size_residuals", "iou_scores"):
+        a, b = ep_gpu[k].cpu(), ep_cpu[k]
+        diffs[k] = max_err(a, b)
+        if not torch.isfinite(a).all() or not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"{k} differs between the card and the CPU: max {diffs[k]}")
+    say(phase="forward_vs_cpu", scenes=1, points=N, sa1_inds_equal=True, tol="atol 1e-3 rtol 1e-3",
+        max_abs_diff=diffs, gpu_s=gpu_s, cpu_s=cpu_s)
+
+
+def phase_serve(model, cfg, dev) -> dict:
+    forward = make_eval_forward(model)
+    config = eval_config_dict(cfg, use_iou_for_nms=True)
+    batches = [torch.from_numpy(make_scenes(10 + i, B, N)).to(dev) for i in range(3)]
+    forward(batches[0])  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t_all = time.perf_counter()
+    for i, pc in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(pc)
+        end.record()
+        end.synchronize()
+        t = time.perf_counter()
+        picks = parse_predictions(out, config)
+        host_ms = (time.perf_counter() - t) * 1e3
+        for k, v in out.items():
+            if v.shape[0] != B or not torch.isfinite(v).all():
+                raise AssertionError(f"request {i}: {k} has shape {tuple(v.shape)} or non-finite values")
+        if out["center"].shape != (B, 128, 3) or out["iou_scores"].shape != (B, 128, 18):
+            raise AssertionError(f"request {i}: unexpected output shapes")
+        # per-class proposals: one entry per class for each box NMS kept
+        say(phase="request", i=i, device_ms=start.elapsed_time(end), host_nms_ms=host_ms,
+            boxes_kept_per_scene=[len(p) // cfg.num_class for p in picks])
+    wall_s = time.perf_counter() - t_all
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    expect = {"fps": 3, "ball_query": 15, "gather": 18}
+    say(phase="serve", requests=3, scenes_per_s=3 * B / wall_s, wall_s=wall_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches)
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches}, expected {expect}")
+    phase_profile(model, forward, batches[0])
+    return launches
+
+
+def phase_profile(model, forward, pc):
+    """Where one request's forward spends its time: CUDA-event spans per
+    layer (host launch time included, as the request sees it), then the
+    kernels by device time under torch.profiler and the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bb = model.backbone_net
+    layers = {"sa1": bb.sa1, "sa2": bb.sa2, "sa3": bb.sa3, "sa4": bb.sa4, "fp1": bb.fp1,
+              "fp2": bb.fp2, "vgen": model.vgen, "pnet": model.pnet, "grid_conv": model.grid_conv}
+    marks, hooks = {}, []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.setdefault(name, []).append(ev)
+
+    for name, mod in layers.items():
+        hooks.append(mod.register_forward_pre_hook(lambda m, a, name=name: mark(name)))
+        hooks.append(mod.register_forward_hook(lambda m, a, o, name=name: mark(name)))
+    try:
+        forward(pc)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    layer_ms = {n: s.elapsed_time(e) for n, (s, e) in marks.items()}
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        forward(pc)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    say(phase="profile", layer_ms=layer_ms, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        busy_share=busy_ms / wall_ms,
+        top_kernels=[[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in kern[:12]])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    model, cfg = build_votenet("scannet", device=dev)  # also switches TF32 off
+    flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    say(phase="card", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
+        device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), tf32=flags)
+    if any(flags.values()):
+        raise AssertionError(f"TF32 is on: {flags}")
+
+    t = time.perf_counter()
+    logs = _build.build()
+    say(phase="build", seconds=time.perf_counter() - t, built=sorted(logs),
+        ptxas=[ln.strip() for log in logs.values() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln])
+
+    rows = phase_kernels(dev)
+    phase_forward(model, dev)
+    launches = phase_serve(model, cfg, dev)
+
+    kernels = []
+    for name, checks in rows.items():
+        first = max(checks, key=lambda c: c["bound_ms"])  # the heaviest main-path shape
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"iou3dmatch_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "shape": first["shape"], "ok": all(c["ok"] for c in checks), "checks": checks,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                            "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,45 @@
+"""Model construction."""
+from typing import Optional
+
+import torch
+
+from ..data.config import get_config
+from .votenet import VoteNet
+
+# Tiny geometry for CPU tests: same architecture, fewer points.
+TINY_SA_NPOINTS = (128, 64, 32, 16)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else CUDA; raises when CUDA is absent and no
+    device was given, so nothing drops to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def build_votenet(dataset: str = "scannet", num_proposal: Optional[int] = None,
+                  input_feature_dim: int = 1, tiny: bool = False, device=None,
+                  generator: Optional[torch.Generator] = None):
+    """Returns (model in eval mode on ``device``, dataset config). Defaults
+    mirror the JAX ``build_votenet`` (num_proposal 128, or 16 when tiny).
+
+    Weights are drawn on the CPU from ``generator`` (seed 0 when None) and
+    then moved, so one seed gives the same model on every device. On CUDA,
+    float32 means float32: TF32 is switched off for matmuls and cuDNN."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    cfg = get_config(dataset)
+    model = VoteNet(
+        num_class=cfg.num_class, num_heading_bin=cfg.num_heading_bin,
+        num_size_cluster=cfg.num_size_cluster, mean_size_arr=cfg.mean_size_arr,
+        generator=generator, input_feature_dim=input_feature_dim,
+        num_proposal=num_proposal or (16 if tiny else 128),
+        sa_npoints=TINY_SA_NPOINTS if tiny else (2048, 1024, 512, 256))
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return model.to(device).eval(), cfg
