@@ -7,13 +7,22 @@ card and the CUDA toolkit (``nvcc``); it builds the kernels from
 reported on its own line; a failed check raises and the exit code is not 0:
 
 1. the card (``nvidia-smi`` name and power limit), versions, TF32 flags;
-2. the kernels' build, one ``nvcc`` per source, all in parallel;
-3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the full-width ScanNet forward, required exactly equal, with CUDA-event
-   timings of kernel, plain version and library call;
+2. the kernels' build, one ``nvcc`` per source, all in parallel, and each
+   FPS variant's registers and spills from the compiler output kept beside
+   its library;
+3. each kernel against its plain PyTorch version on the card, at every shape
+   the full-width ScanNet forward launches it at (FPS also at the SSL step's
+   24 clouds), required exactly equal, with CUDA-event timings of kernel,
+   plain version and library call; it fails if a planned FPS variant spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene;
 5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
    and IoU-guided class-aware NMS, with the kernels' launch counts.
+
+``--kernels-only`` stops after phase 3 and prints neither of the last two
+lines. It also runs from another checkout's root, one whose FPS has no
+launch plan (one block per scene) included, so that two versions of the
+kernels are timed on one card in one call. ``--fps-sweep`` adds FPS over
+every cluster x block size of FPS_SWEEP at the serving shape to phase 3.
 
 The model is the full-width ScanNet VoteNet (128 proposals, height channel,
 SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
@@ -21,7 +30,9 @@ uniform points in a [-3, 3]^2 x [0, 2.5] room with the height channel
 z - min z, made from a NumPy seed. The last two lines are the kernels' JSON
 and the device JSON.
 """
+import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -35,12 +46,20 @@ from iou3dmatch_tpu_torch.ops import _build
 from iou3dmatch_tpu_torch.ops.ball_query import (ball_query, ball_query_plain,
                                                  group_points, group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_plain
+from iou3dmatch_tpu_torch.ops.interpolate import three_nn
 from iou3dmatch_tpu_torch.train.steps import make_eval_forward
+
+try:
+    from iou3dmatch_tpu_torch.ops.fps import fps_plan, fps_variant
+except ImportError:  # an FPS of one block per scene, timed with --kernels-only
+    fps_plan = fps_variant = None
 
 B, N, NPOINT = 8, 40_000, 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPS = 20
+PLAIN_FPS_REPS = 3  # the plain FPS is a Python loop of npoint steps, ~0.35 s a call
+FPS_SWEEP = [(s, t) for s in (8, 16) for t in (128, 256, 512, 1024)]  # (cluster, threads)
 KERNELS = {
     "fps": furthest_point_sample,
     "ball_query": ball_query,
@@ -66,13 +85,13 @@ def make_scenes(seed: int, b: int, n: int) -> np.ndarray:
     return pc
 
 
-def cuda_ms(fn, inner: int = 1) -> float:
-    """Median over REPS CUDA-event timings of ``inner`` back-to-back calls.
+def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
+    """Median over ``reps`` CUDA-event timings of ``inner`` back-to-back calls.
     A ~1 ms spin kernel goes first so the calls are queued before the start
     event runs and host launch overhead stays out of the reading."""
     fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
@@ -99,9 +118,11 @@ def ball_query_scanned(idx: torch.Tensor, n: int) -> int:
     return int(torch.where(full, idx[..., -1].long() + 1, n).sum())
 
 
-def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, inner):
+def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, inner,
+                 plain_reps=REPS, main=True):
     """Kernel against plain version on ``args``, then timings. ``ops_of``
-    counts the f32 operations the plain result says the work needs."""
+    counts the f32 operations the plain result says the work needs; ``main``
+    marks a shape of the serving forward."""
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     err = max_err(got, want)
@@ -110,10 +131,11 @@ def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, inne
     row = {
         "shape": label, "ok": ok, "max_abs_err": err,
         "ms": cuda_ms(lambda: kernel(*args), inner),
-        "plain_ms": cuda_ms(lambda: plain(*args), 1),
+        "plain_ms": cuda_ms(lambda: plain(*args), 1, plain_reps),
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "library_ms": None if library is None else cuda_ms(lambda: library(*args), inner),
+        "main": main,
     }
     say(phase="kernel", name=name, **row)
     if not ok:
@@ -121,16 +143,49 @@ def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, inne
     return got, row
 
 
-def phase_kernels(dev) -> dict:
-    pc = torch.from_numpy(make_scenes(1, B, N)).to(dev)
-    xyz = pc[..., :3].contiguous()
-    rows = {}
-
+def fps_rows(dev, b, main):
+    """FPS at (b, N) -> NPOINT with the planned launch, µs per step beside it."""
+    xyz = torch.from_numpy(make_scenes(1, b, N)[..., :3].copy()).to(dev)
     inds, r = check_kernel(
-        "fps", f"({B},{N},3)->{NPOINT}", furthest_point_sample, furthest_point_sample_plain,
-        None, (xyz, NPOINT), B * N * 12 + B * NPOINT * 4,
-        lambda _: (NPOINT - 1) * B * N * 9, 3)  # per point and step: 3 sub, 3 mul, 2 add, 1 min
+        "fps", f"({b},{N},3)->{NPOINT}", furthest_point_sample, furthest_point_sample_plain,
+        None, (xyz, NPOINT), b * N * 12 + b * NPOINT * 4,
+        lambda _: (NPOINT - 1) * b * N * 9,  # per point and step: 3 sub, 3 mul, 2 add, 1 min
+        3, PLAIN_FPS_REPS, main)
+    r["us_per_step"] = r["ms"] * 1e3 / (NPOINT - 1)
+    if fps_plan is not None:
+        launch, answers = fps_plan(dev, b, N)
+        r.update(variant=launch.variant, launch=launch._asdict(), max_active_clusters=answers)
+    say(phase="fps_plan", shape=r["shape"], **{k: r[k] for k in (
+        "us_per_step", "variant", "launch", "max_active_clusters") if k in r})
+    return xyz, inds, r
+
+
+def fps_sweep(xyz, want):
+    """Every (cluster, threads) of FPS_SWEEP at the serving shape, each
+    checked equal to the plain result; times only, nothing counted."""
+    b = xyz.shape[0]
+    rows = []
+    for s, t in FPS_SWEEP:
+        launch = fps_variant(N, s, t)
+        got = furthest_point_sample(xyz, NPOINT, launch)
+        ok = bool(torch.equal(got, want))
+        ms = cuda_ms(lambda: furthest_point_sample(xyz, NPOINT, launch), 3, 5)
+        rows.append({"cluster": s, "threads": launch.threads, "ppt": launch.ppt, "ok": ok,
+                     "ms": ms, "us_per_step": ms * 1e3 / (NPOINT - 1)})
+        if not ok:
+            raise AssertionError(f"FPS with {launch} differs from its plain version")
+    say(phase="fps_sweep", shape=f"({b},{N},3)->{NPOINT}", rows=rows)
+    return rows
+
+
+def phase_kernels(dev, sweep: bool = False) -> dict:
+    pc = torch.from_numpy(make_scenes(1, B, N)).to(dev)
+    rows = {}
+    xyz, inds, r = fps_rows(dev, B, True)
     rows["fps"] = [r]
+    if sweep:
+        fps_sweep(xyz, inds)
+    rows["fps"].append(fps_rows(dev, 24, False)[2])  # the SSL step's shared SA1 FPS
 
     def bq(label, radius, ns, pts, ctr):
         b, n = pts.shape[:2]
@@ -144,28 +199,65 @@ def phase_kernels(dev) -> dict:
         return got
 
     rows_idx = torch.arange(B, device=dev)[:, None]
-    sa1_xyz = xyz[rows_idx, inds.long()]  # FPS-ordered, as SA1 gives SA2
-    idx1 = bq(f"sa1 r0.2 ns64 ({B},{N})x{NPOINT}", 0.2, 64, xyz, sa1_xyz)
-    votes = sa1_xyz[:, :1024] + torch.from_numpy(
-        np.random.RandomState(2).normal(0, 0.1, (B, 1024, 3)).astype(np.float32)).to(dev)
-    bq(f"vote_agg r0.3 ns16 ({B},1024)x128", 0.3, 16, votes, votes[:, :128].contiguous())
 
     def gather(label, table, idx):
         b, n, c = table.shape
         q = idx.shape[1] * idx.shape[2]
-        nbytes = b * n * c * 4 + b * q * 4 + b * q * c * 4
         flat = idx.long().clamp(0, n - 1)
+        # the table rows the indices name, each read once; the indices; the output
+        rows_read = sum(int(torch.unique(flat[i]).numel()) for i in range(b))
+        nbytes = rows_read * c * 4 + b * q * 4 + b * q * c * 4
         library = lambda t, i: t[rows_idx[:, :, None], flat]  # noqa: E731
         _, r = check_kernel("gather", label, group_points, group_points_plain, library,
                             (table, idx), nbytes, lambda _: 0, 10)
         rows.setdefault("gather", []).append(r)
 
-    gather(f"sa1 ({B},{N},4)x({B},{NPOINT},64)", pc, idx1)
-    feats = torch.from_numpy(
-        np.random.RandomState(3).randn(B, NPOINT, 128).astype(np.float32)).to(dev)
-    idx2 = ball_query(0.4, 32, sa1_xyz, sa1_xyz[:, :1024].contiguous())
-    gather(f"sa2 ({B},{NPOINT},131)x({B},1024,32)", torch.cat([sa1_xyz, feats], -1), idx2)
+    # the forward's five ball queries and six gathers, at its shapes: SA2-SA4
+    # take FPS-ordered prefixes, vote aggregation the first 128 of 1,024 votes,
+    # GridConv 128 boxes x 64 grid points x 3 neighbours among 1,024 seeds
+    rng = np.random.RandomState(3)
+    sa1_xyz = xyz[rows_idx, inds.long()]  # FPS-ordered, as SA1 gives SA2
+    f128 = torch.from_numpy(rng.randn(B, NPOINT, 128).astype(np.float32)).to(dev)
+    f256 = torch.from_numpy(rng.randn(B, 1024, 256).astype(np.float32)).to(dev)
+    votes = sa1_xyz[:, :1024] + torch.from_numpy(
+        np.random.RandomState(2).normal(0, 0.1, (B, 1024, 3)).astype(np.float32)).to(dev)
+    idx = bq(f"sa1 r0.2 ns64 ({B},{N})x{NPOINT}", 0.2, 64, xyz, sa1_xyz)
+    gather(f"sa1 ({B},{N},4)x({B},{NPOINT},64)", pc, idx)
+    idx = bq(f"sa2 r0.4 ns32 ({B},{NPOINT})x1024", 0.4, 32, sa1_xyz, sa1_xyz[:, :1024].contiguous())
+    gather(f"sa2 ({B},{NPOINT},131)x({B},1024,32)", torch.cat([sa1_xyz, f128], -1), idx)
+    sa2_xyz = sa1_xyz[:, :1024].contiguous()
+    idx = bq(f"sa3 r0.8 ns16 ({B},1024)x512", 0.8, 16, sa2_xyz, sa2_xyz[:, :512].contiguous())
+    gather(f"sa3 ({B},1024,259)x({B},512,16)", torch.cat([sa2_xyz, f256], -1), idx)
+    sa3_xyz = sa2_xyz[:, :512].contiguous()
+    idx = bq(f"sa4 r1.2 ns16 ({B},512)x256", 1.2, 16, sa3_xyz, sa3_xyz[:, :256].contiguous())
+    gather(f"sa4 ({B},512,259)x({B},256,16)", torch.cat([sa3_xyz, f256[:, :512]], -1), idx)
+    idx = bq(f"vote_agg r0.3 ns16 ({B},1024)x128", 0.3, 16, votes, votes[:, :128].contiguous())
+    gather(f"vote_agg ({B},1024,259)x({B},128,16)", torch.cat([votes, f256], -1), idx)
+    grid = torch.from_numpy(make_scenes(5, B, 128 * 64)[..., :3].copy()).to(dev)
+    _, idx = three_nn(grid, sa2_xyz)
+    gather(f"grid_conv ({B},1024,259)x({B},{128 * 64},3)", torch.cat([sa2_xyz, f256], -1), idx)
     return rows
+
+
+FPS_ENTRY = re.compile(r"fps_cluster_kernelILi(\d+)ELi(n?\d+)E")
+
+
+def fps_ptxas(log: str) -> dict:
+    """{(threads, ppt): (registers, spill store bytes, spill load bytes)} of
+    every FPS instantiation, from ``nvcc -Xptxas -v`` output."""
+    regs, spills, entry, props = {}, {}, None, None
+    for ln in log.splitlines():
+        m = FPS_ENTRY.search(ln)
+        if "Compiling entry function" in ln:
+            entry = m and (int(m[1]), int(m[2].replace("n", "-")))
+        elif "Function properties for" in ln:
+            props = m and (int(m[1]), int(m[2].replace("n", "-")))
+        elif "spill stores" in ln and props:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            spills[props] = (int(st), int(ld))
+        elif "Used" in ln and "registers" in ln and entry:
+            regs[entry] = int(re.search(r"Used (\d+) registers", ln)[1])
+    return {k: (regs.get(k), *spills.get(k, (None, None))) for k in regs}
 
 
 def phase_forward(model_gpu, dev):
@@ -272,6 +364,12 @@ def phase_profile(model, forward, pc):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, then check and time the kernels only")
+    ap.add_argument("--fps-sweep", action="store_true",
+                    help="also time FPS at every (cluster, threads) of FPS_SWEEP")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -289,18 +387,32 @@ def main() -> int:
         raise AssertionError(f"TF32 is on: {flags}")
 
     t = time.perf_counter()
-    logs = _build.build()
-    say(phase="build", seconds=time.perf_counter() - t, built=sorted(logs),
-        ptxas=[ln.strip() for log in logs.values() for ln in log.splitlines()
-               if "registers" in ln or "spill" in ln])
+    built = sorted(_build.build())
+    seconds = time.perf_counter() - t
+    if args.kernels_only:
+        say(phase="build", seconds=seconds, built=built)
+        phase_kernels(dev, args.fps_sweep)
+        return 0
+    # read back whether built now or before, so the spill check below always runs
+    logs = {name: _build.build_log(name) for name in _build.SOURCES}
+    fps_regs = fps_ptxas(logs["fps"])
+    say(phase="build", seconds=seconds, built=built,
+        ptxas=[ln.strip() for name, log in logs.items() if name != "fps"
+               for ln in log.splitlines() if "registers" in ln or "spill" in ln],
+        fps_ptxas={f"{t}x{p}": v for (t, p), v in sorted(fps_regs.items())})
 
-    rows = phase_kernels(dev)
+    rows = phase_kernels(dev, args.fps_sweep)
+    for r in rows["fps"]:  # the planned variants keep their share on chip, without spills
+        key = (r["launch"]["threads"], r["launch"]["ppt"])
+        if key not in fps_regs or fps_regs[key][1:] != (0, 0):
+            raise AssertionError(f"FPS variant {key} spills or is missing: {fps_regs.get(key)}")
     phase_forward(model, dev)
     launches = phase_serve(model, cfg, dev)
 
     kernels = []
     for name, checks in rows.items():
-        first = max(checks, key=lambda c: c["bound_ms"])  # the heaviest main-path shape
+        # the heaviest serving-path shape
+        first = max((c for c in checks if c["main"]), key=lambda c: c["bound_ms"])
         kernels.append({
             "name": name, "route": "cuda", "source": f"iou3dmatch_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches[name],

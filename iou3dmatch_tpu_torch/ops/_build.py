@@ -1,9 +1,10 @@
 """Builds the port's CUDA kernels and binds them through ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
-``nvcc`` into ``build/kernels/<name>-<hash>.so`` at the repository root; the
-hash covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing is built or imported when this
+``nvcc`` into ``build/kernels/<name>-<hash>.so`` at the repository root, with
+the compiler output beside it in ``<name>-<hash>.log``; the hash covers the
+source and the flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing is built or imported when this
 module is imported: the first launch builds what it needs, and ``build()``
 builds several sources at once, one ``nvcc`` process each, all started
 together.
@@ -48,10 +49,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def build_log(name: str) -> str:
+    """The compiler output of the library ``library_path(name)`` was built
+    with (``-Xptxas -v`` puts each kernel's registers and spills there),
+    kept beside it; raises if that library has not been built."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
 def build(names=SOURCES) -> dict:
     """Compiles each source in ``names`` whose library is missing, all in
-    parallel. Returns ``{name: compiler output}`` for the ones it compiled
-    (``-Xptxas -v`` puts each kernel's registers and spills there)."""
+    parallel, and keeps each compiler output beside its library. Returns
+    ``{name: compiler output}`` for the ones it compiled."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     jobs = {}
@@ -71,6 +79,10 @@ def build(names=SOURCES) -> dict:
         if proc.returncode:
             failed.append(name)
         else:
+            log = so.with_suffix(".log")
+            log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+            log_tmp.write_text(logs[name])
+            os.replace(log_tmp, log)  # the log first: a library never lacks its log
             os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     if failed:
         raise RuntimeError(

@@ -110,11 +110,10 @@ def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if b < 1 or n < 1 or c < 1 or m * ns < 1:
         raise ValueError(f"empty gather: table {tuple(features.shape)}, idx {tuple(idx.shape)}")
     out = torch.empty((b, m, ns, c), dtype=torch.float32, device=features.device)
-    vec4 = c % 4 == 0 and features.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     fn = _build.kernel("gather", "gather_launch",
-                       (_build.VP,) * 3 + (_build.INT,) * 5 + (_build.VP,))
+                       (_build.VP,) * 3 + (_build.INT,) * 4 + (_build.VP,))
     _build.check(fn(features.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m * ns, c,
-                    int(vec4), _build.stream(features)), "gather")
+                    _build.stream(features)), "gather")
     group_points.launches += 1
     return out
 

@@ -13,7 +13,9 @@ import torch
 
 from iou3dmatch_tpu_torch.ops.ball_query import (ball_query, ball_query_plain,
                                                  group_points, group_points_plain)
-from iou3dmatch_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_plain
+from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
+                                          fps_plan, fps_variant, furthest_point_sample,
+                                          furthest_point_sample_plain, max_active_clusters)
 
 pytestmark = pytest.mark.gpu
 
@@ -25,17 +27,76 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,n,npoint", [(3, 1000, 96), (1, 33, 33), (2, 5000, 1), (1, 70000, 64)])
-def test_fps_kernel_matches_plain(cuda, b, n, npoint):
+# (b, n, npoint, forced (cluster, threads) or None for the planned launch)
+FPS_CASES = [
+    (3, 1000, 96, None), (1, 33, 33, None), (2, 5000, 1, None), (1, 70000, 64, None),
+    (24, 40000, 16, None),  # the SSL step's shared SA1 FPS over 12 + 12 clouds
+    (1, 300000, 24, None),  # too large for shared memory: the streaming variant
+    (2, 200000, 24, None),  # the shared-memory variant
+    (2, 1001, 200, (16, 256)),  # N < S * threads, N % S != 0
+    (2, 20, 20, (16, 128)),  # empty shares past N
+    (3, 40000, 48, (8, 128)), (3, 40000, 48, (16, 512)), (3, 40000, 48, (16, 1024)),
+    (3, 40000, 48, (8, 1024)),  # the sweep's register variants
+]
+
+
+def _fps_launch(n, forced):
+    return None if forced is None else fps_variant(n, *forced)
+
+
+@pytest.mark.parametrize("b,n,npoint,forced", FPS_CASES)
+def test_fps_kernel_matches_plain(cuda, b, n, npoint, forced):
     rng = np.random.RandomState(n)
     xyz = rng.randn(b, n, 3).astype(np.float32)
     xyz[:, rng.choice(n, n // 10, replace=False)] = 0.0  # never chosen
     xyz[:, 1:n // 4] = xyz[:, n // 4:2 * (n // 4) - 1]  # duplicates: distance ties
     t = torch.from_numpy(xyz).to(cuda)
+    launch = _fps_launch(n, forced)
+    if n in (300000, 200000):
+        assert fps_plan(t.device, b, n)[0].variant == ("global" if n == 300000 else "shared")
     before = furthest_point_sample.launches
-    got = furthest_point_sample(t, npoint)
+    got = furthest_point_sample(t, npoint, launch)
     assert furthest_point_sample.launches == before + 1
     torch.testing.assert_close(got, furthest_point_sample_plain(t, npoint), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("forced", [(4, 256), (16, 128), None])
+def test_fps_kernel_ties_across_blocks(cuda, forced):
+    """Equal far points in different blocks' shares: the lower global index
+    must win across the cluster, then its twin (distance 0) drops out."""
+    n = 4000
+    rng = np.random.RandomState(7)
+    xyz = rng.uniform(-1, 1, (2, n, 3)).astype(np.float32)
+    for i, (a, b) in enumerate([(3100, 700), (2600, 1900), (3999, 1000)]):
+        xyz[:, a] = xyz[:, b] = (20.0 + 5 * i, -20.0, 3.0 * i)  # later share first, lower index wins
+    t = torch.from_numpy(xyz).to(cuda)
+    got = furthest_point_sample(t, 16, _fps_launch(n, forced))
+    want = furthest_point_sample_plain(t, 16)
+    assert torch.equal(got, want)
+    assert set(want[0, 1:4].tolist()) == {700, 1900, 1000}
+
+
+@pytest.mark.parametrize("forced", [(4, 256), (16, 256)])
+def test_fps_kernel_share_of_invalid_points(cuda, forced):
+    n = 4000
+    xyz = np.random.RandomState(8).uniform(-1, 1, (2, n, 3)).astype(np.float32)
+    launch = fps_variant(n, *forced)
+    xyz[:, launch.share:2 * launch.share] = 0.0  # block 1 holds only invalid points
+    t = torch.from_numpy(xyz).to(cuda)
+    got = furthest_point_sample(t, 64, launch)
+    assert torch.equal(got, furthest_point_sample_plain(t, 64))
+    assert not ((got[:, 1:] >= launch.share) & (got[:, 1:] < 2 * launch.share)).any()
+
+
+def test_fps_kernel_instantiates_every_variant_the_rule_can_plan(cuda):
+    """ops/fps.py's table of (threads, points a thread), the rule's and the
+    sweep's, and csrc/fps.cu's instantiations agree: the card answers for
+    each, at S = 1 and 16."""
+    planned = [(t, p) for t, ppts in REG_PPTS.items() for p in ppts]
+    planned += [(STREAM_THREADS, SHARED), (STREAM_THREADS, GLOBAL)]
+    for t, p in planned:
+        for s in (1, 16):
+            assert max_active_clusters(FpsLaunch(s, t, p, max(p, 1) * t // 2 + 1), cuda) >= 1, (t, p, s)
 
 
 def test_fps_kernel_all_points_invalid(cuda):
@@ -58,10 +119,14 @@ def test_ball_query_kernel_matches_plain(cuda, radius, nsample, n, m):
     assert torch.equal(got[:, -1], torch.zeros_like(got[:, -1]))  # no hit -> index 0
 
 
-@pytest.mark.parametrize("c", [1, 3, 4, 8, 131, 259])
-def test_gather_kernel_matches_plain(cuda, c):
+@pytest.mark.parametrize("c,offset", [(1, 0), (2, 0), (3, 0), (4, 0), (4, 1), (5, 0), (8, 0),
+                                      (8, 2), (131, 0), (259, 0)])
+def test_gather_kernel_matches_plain(cuda, c, offset):
+    """B*Q*C = 231*C, not a multiple of 4 unless 4 | C; a table view may
+    start off 16-byte alignment."""
     rng = np.random.RandomState(c)
-    tab = torch.from_numpy(rng.randn(3, 57, c).astype(np.float32)).to(cuda)
+    flat = torch.from_numpy(rng.randn(offset + 3 * 57 * c).astype(np.float32)).to(cuda)
+    tab = flat[offset:].view(3, 57, c)
     idx = torch.from_numpy(rng.randint(-5, 62, (3, 11, 7)).astype(np.int32)).to(cuda)
     before = group_points.launches
     got = group_points(tab, idx)
