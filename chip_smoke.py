@@ -12,23 +12,28 @@ reported on its own line; a failed check raises and the exit code is not 0:
    its library;
 3. each kernel against its plain PyTorch version on the card, at every shape
    the full-width ScanNet forward launches it at (FPS also at the SSL step's
-   24 clouds), required exactly equal, with CUDA-event timings of kernel,
-   plain version and library call; it fails if a planned FPS variant spills;
+   24 clouds; the ball query also on surface scenes and at the SSL
+   forward's 12 clouds), required exactly equal, with CUDA-event timings of
+   kernel, plain version and library call, FPS's and the ball query's
+   launch plans; it fails if a planned FPS variant spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene;
 5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
    and IoU-guided class-aware NMS, with the kernels' launch counts.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
-lines. It also runs from another checkout's root, one whose FPS has no
-launch plan (one block per scene) included, so that two versions of the
-kernels are timed on one card in one call. ``--fps-sweep`` adds FPS over
-every cluster x block size of FPS_SWEEP at the serving shape to phase 3.
+lines. It also runs from another checkout's root, one whose ball query has
+no launch plan, so that two versions of the kernels are timed on one card
+in one call. ``--fps-sweep`` adds FPS over every cluster x block size of
+FPS_SWEEP at the serving shape to phase 3; ``--bq-sweep`` adds the ball
+query over every (C, T) of BQ_SWEEP at each of its shapes.
 
 The model is the full-width ScanNet VoteNet (128 proposals, height channel,
 SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
 uniform points in a [-3, 3]^2 x [0, 2.5] room with the height channel
-z - min z, made from a NumPy seed. The last two lines are the kernels' JSON
-and the device JSON.
+z - min z, made from a NumPy seed. The surface scenes spread their points
+uniformly by area over the floor and four walls of a 4 x 4 x 2.5 m room, as
+a scan sees it, so that most balls of r 0.2 fill their 64 slots. The last
+two lines are the kernels' JSON and the device JSON.
 """
 import argparse
 import json
@@ -45,21 +50,30 @@ from iou3dmatch_tpu_torch.models.factory import build_votenet
 from iou3dmatch_tpu_torch.ops import _build
 from iou3dmatch_tpu_torch.ops.ball_query import (ball_query, ball_query_plain,
                                                  group_points, group_points_plain)
-from iou3dmatch_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_plain
+from iou3dmatch_tpu_torch.ops.fps import (fps_plan, fps_variant, furthest_point_sample,
+                                          furthest_point_sample_plain)
 from iou3dmatch_tpu_torch.ops.interpolate import three_nn
 from iou3dmatch_tpu_torch.train.steps import make_eval_forward
 
 try:
-    from iou3dmatch_tpu_torch.ops.fps import fps_plan, fps_variant
-except ImportError:  # an FPS of one block per scene, timed with --kernels-only
-    fps_plan = fps_variant = None
+    from iou3dmatch_tpu_torch.ops.ball_query import BallQueryLaunch, ball_query_plan
+except ImportError:  # a ball query of one warp per center, timed with --kernels-only
+    BallQueryLaunch = ball_query_plan = None
 
 B, N, NPOINT = 8, 40_000, 2048
+SSL_B = 12  # the SSL step's teacher and student forwards each take 12 clouds
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# Operation bounds count instructions issued at SMs x 128 lanes x the top SM
+# clock (issue_rate). FPS and the ball query round every product and sum on
+# its own, so each of their operations is one instruction; the data sheet's
+# 67 TFLOP/s float32 counts a fused multiply-add as two and fits neither.
+LANES_PER_SM = 128
+PAIR_OPS = 9  # a distance test: 3 sub, 3 mul, 2 add, 1 compare
+BIN_OPS = 12  # a point's r-cell and its count: 3 sub, 3 mul, 3 cvt, 2 mad, 1 atomic
 REPS = 20
 PLAIN_FPS_REPS = 3  # the plain FPS is a Python loop of npoint steps, ~0.35 s a call
 FPS_SWEEP = [(s, t) for s in (8, 16) for t in (128, 256, 512, 1024)]  # (cluster, threads)
+BQ_SWEEP = [(c, t) for c in (1, 2, 4, 8) for t in (512, 1024, 2048)]  # (centers a warp, tile)
 KERNELS = {
     "fps": furthest_point_sample,
     "ball_query": ball_query,
@@ -74,6 +88,30 @@ REPLACES = {
 
 def say(**kw):
     print(json.dumps(kw), flush=True)
+
+
+def issue_rate(dev) -> tuple:
+    """(instructions a second, top SM clock in MHz): one instruction a lane
+    and clock, on every lane of every SM, at ``nvidia-smi``'s clocks.max.sm."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(smi.stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n_sm * LANES_PER_SM * mhz * 1e6, mhz
+
+
+def make_surface_scenes(seed: int, b: int, n: int) -> np.ndarray:
+    """(b, n, 3) points uniform by area over the floor (16 m^2) and the four
+    walls (10 m^2 each) of a 4 x 4 x 2.5 m room centred on the origin."""
+    rng = np.random.RandomState(seed)
+    face = rng.choice(3, size=(b, n), p=[16 / 56, 20 / 56, 20 / 56])  # floor, x walls, y walls
+    u, w = rng.uniform(-2.0, 2.0, (2, b, n))
+    side = np.where(rng.rand(b, n) < 0.5, -2.0, 2.0)
+    xyz = np.empty((b, n, 3), np.float32)
+    xyz[..., 0] = np.select([face == 1], [side], u)
+    xyz[..., 1] = np.select([face == 0, face == 1], [w, u], side)
+    xyz[..., 2] = np.where(face == 0, 0.0, rng.uniform(0.0, 2.5, (b, n)))
+    return xyz
 
 
 def make_scenes(seed: int, b: int, n: int) -> np.ndarray:
@@ -108,6 +146,29 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def grid_candidates(radius: float, pts: torch.Tensor, ctr: torch.Tensor) -> int:
+    """Points a ball query over a grid of r-sized cells must test: those in
+    the 27 cells around each center's cell (a ball of radius r reaches no
+    other), summed over the centers. Cells start at each cloud's lower
+    corner."""
+    b = pts.shape[0]
+    lo = pts.amin(1, keepdim=True)
+    cell = ((pts - lo) / radius).floor().long()
+    dims = (cell.amax((0, 1)) + 1).tolist()
+    counts = torch.zeros([b] + dims, dtype=torch.long, device=pts.device)
+    scene = torch.arange(b, device=pts.device)[:, None].expand(cell.shape[:2])
+    counts.index_put_((scene, cell[..., 0], cell[..., 1], cell[..., 2]),
+                      torch.ones_like(scene), accumulate=True)
+    pad = torch.nn.functional.pad(counts, (2, 2, 2, 2, 2, 2))  # centers up to a cell outside
+    x, y, z = (d + 2 for d in dims)
+    near = sum(pad[:, i:i + x, j:j + y, k:k + z] for i in range(3) for j in range(3) for k in range(3))
+    c = ((ctr - lo) / radius).floor().long() + 1  # near[.., i] sums the cells around cell i - 1
+    inside = ((c >= 0) & (c < torch.tensor([x, y, z], device=c.device))).all(-1)
+    c = torch.where(inside[..., None], c, 0)
+    rows = torch.arange(b, device=pts.device)[:, None]
+    return int((near[rows, c[..., 0], c[..., 1], c[..., 2]] * inside).sum())
+
+
 def ball_query_scanned(idx: torch.Tensor, n: int) -> int:
     """(center, point) pairs an in-order scan tests before it holds nsample
     hits: up to the nsample-th hit where there is one (the slots are then
@@ -118,16 +179,16 @@ def ball_query_scanned(idx: torch.Tensor, n: int) -> int:
     return int(torch.where(full, idx[..., -1].long() + 1, n).sum())
 
 
-def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, inner,
+def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, ops_per_s, inner,
                  plain_reps=REPS, main=True):
     """Kernel against plain version on ``args``, then timings. ``ops_of``
-    counts the f32 operations the plain result says the work needs; ``main``
-    marks a shape of the serving forward."""
+    counts the instructions the plain result says the work needs, issued at
+    ``ops_per_s``; ``main`` marks a shape of the serving forward."""
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     err = max_err(got, want)
     ok = bool(torch.equal(got, want))
-    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops_of(want) / F32_OPS_PER_S
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops_of(want) / ops_per_s
     row = {
         "shape": label, "ok": ok, "max_abs_err": err,
         "ms": cuda_ms(lambda: kernel(*args), inner),
@@ -143,20 +204,19 @@ def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, inne
     return got, row
 
 
-def fps_rows(dev, b, main):
+def fps_rows(dev, ops_per_s, b, main):
     """FPS at (b, N) -> NPOINT with the planned launch, µs per step beside it."""
     xyz = torch.from_numpy(make_scenes(1, b, N)[..., :3].copy()).to(dev)
     inds, r = check_kernel(
         "fps", f"({b},{N},3)->{NPOINT}", furthest_point_sample, furthest_point_sample_plain,
         None, (xyz, NPOINT), b * N * 12 + b * NPOINT * 4,
-        lambda _: (NPOINT - 1) * b * N * 9,  # per point and step: 3 sub, 3 mul, 2 add, 1 min
-        3, PLAIN_FPS_REPS, main)
+        lambda _: (NPOINT - 1) * b * N * PAIR_OPS,  # per point and step: 3 sub, 3 mul, 2 add, 1 min
+        ops_per_s, 3, PLAIN_FPS_REPS, main)
     r["us_per_step"] = r["ms"] * 1e3 / (NPOINT - 1)
-    if fps_plan is not None:
-        launch, answers = fps_plan(dev, b, N)
-        r.update(variant=launch.variant, launch=launch._asdict(), max_active_clusters=answers)
+    launch, answers = fps_plan(dev, b, N)
+    r.update(variant=launch.variant, launch=launch._asdict(), max_active_clusters=answers)
     say(phase="fps_plan", shape=r["shape"], **{k: r[k] for k in (
-        "us_per_step", "variant", "launch", "max_active_clusters") if k in r})
+        "us_per_step", "variant", "launch", "max_active_clusters")})
     return xyz, inds, r
 
 
@@ -178,24 +238,54 @@ def fps_sweep(xyz, want):
     return rows
 
 
-def phase_kernels(dev, sweep: bool = False) -> dict:
+def bq_sweep(label, args, want):
+    """Every (C, T) of BQ_SWEEP on one ball query's inputs, each checked
+    equal to the plain result; times only, nothing counted."""
+    rows = []
+    for launch in map(BallQueryLaunch._make, BQ_SWEEP):
+        ok = bool(torch.equal(ball_query(*args, launch), want))
+        ms = cuda_ms(lambda: ball_query(*args, launch), 3, 5)
+        rows.append({"plan": list(launch), "ok": ok, "ms": ms})
+        if not ok:
+            raise AssertionError(f"ball query at {label} with {launch} differs from its plain version")
+    say(phase="bq_sweep", shape=label, rows=rows)
+
+
+def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool = False) -> dict:
     pc = torch.from_numpy(make_scenes(1, B, N)).to(dev)
     rows = {}
-    xyz, inds, r = fps_rows(dev, B, True)
+    xyz, inds, r = fps_rows(dev, ops_per_s, B, True)
     rows["fps"] = [r]
-    if sweep:
+    if fps_sweep_on:
         fps_sweep(xyz, inds)
-    rows["fps"].append(fps_rows(dev, 24, False)[2])  # the SSL step's shared SA1 FPS
+    rows["fps"].append(fps_rows(dev, ops_per_s, 24, False)[2])  # the SSL step's shared SA1 FPS
 
-    def bq(label, radius, ns, pts, ctr):
+    def bq(label, radius, ns, pts, ctr, main=True):
+        """The bound counts what the function needs: its bytes, or the fewer
+        operations of two ways to find the hits, the distance tests of a grid
+        of r-cells with the binning of the cloud, or those of an in-order
+        scan; scan_bound_ms counts the scan's alone."""
         b, n = pts.shape[:2]
         m = ctr.shape[1]
         nbytes = b * n * 12 + b * m * 12 + b * m * ns * 4
-        got, r = check_kernel("ball_query", label, ball_query, ball_query_plain, None,
-                              (radius, ns, pts, ctr), nbytes,
-                              lambda want: ball_query_scanned(want, n) * 9,  # 3 sub, 3 mul, 2 add, 1 cmp
-                              5)
+        args = (radius, ns, pts, ctr)
+        cands = grid_candidates(radius, pts, ctr)
+        got, r = check_kernel(
+            "ball_query", label, ball_query, ball_query_plain, None, args, nbytes,
+            lambda want: min(cands * PAIR_OPS + b * n * BIN_OPS, ball_query_scanned(want, n) * PAIR_OPS),
+            ops_per_s, 5, main=main)
+        r["pairs"], r["grid_candidates"] = ball_query_scanned(got, n), cands
+        r["scan_bound_ms"] = max(nbytes / HBM_BYTES_PER_S, r["pairs"] * PAIR_OPS / ops_per_s) * 1e3
+        if ball_query_plan is None:
+            r["plan"] = "absent: this checkout's ball query has no launch plan"
+        else:
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            r["plan"] = list(ball_query_plan(b, m, n, n_sm))
+        say(phase="bq_plan", shape=label, pairs=r["pairs"], grid_candidates=cands,
+            scan_bound_ms=r["scan_bound_ms"], plan=r["plan"])
         rows.setdefault("ball_query", []).append(r)
+        if bq_sweep_on:
+            bq_sweep(label, args, got)
         return got
 
     rows_idx = torch.arange(B, device=dev)[:, None]
@@ -209,7 +299,7 @@ def phase_kernels(dev, sweep: bool = False) -> dict:
         nbytes = rows_read * c * 4 + b * q * 4 + b * q * c * 4
         library = lambda t, i: t[rows_idx[:, :, None], flat]  # noqa: E731
         _, r = check_kernel("gather", label, group_points, group_points_plain, library,
-                            (table, idx), nbytes, lambda _: 0, 10)
+                            (table, idx), nbytes, lambda _: 0, ops_per_s, 10)
         rows.setdefault("gather", []).append(r)
 
     # the forward's five ball queries and six gathers, at its shapes: SA2-SA4
@@ -236,6 +326,15 @@ def phase_kernels(dev, sweep: bool = False) -> dict:
     grid = torch.from_numpy(make_scenes(5, B, 128 * 64)[..., :3].copy()).to(dev)
     _, idx = three_nn(grid, sa2_xyz)
     gather(f"grid_conv ({B},1024,259)x({B},{128 * 64},3)", torch.cat([sa2_xyz, f256], -1), idx)
+
+    # off the serving path: SA1 on surface scenes, where most balls fill and
+    # the early exit acts, and at the SSL forward's 12 clouds; centers by FPS
+    for label, pts in ((f"sa1 surface r0.2 ns64 ({B},{N})x{NPOINT}", make_surface_scenes(6, B, N)),
+                       (f"sa1 ssl r0.2 ns64 ({SSL_B},{N})x{NPOINT}",
+                        make_scenes(7, SSL_B, N)[..., :3].copy())):
+        pts = torch.from_numpy(pts).to(dev)
+        ctr = pts[torch.arange(pts.shape[0], device=dev)[:, None], furthest_point_sample(pts, NPOINT).long()]
+        bq(label, 0.2, 64, pts, ctr, main=False)
     return rows
 
 
@@ -369,6 +468,8 @@ def main() -> int:
                     help="build, then check and time the kernels only")
     ap.add_argument("--fps-sweep", action="store_true",
                     help="also time FPS at every (cluster, threads) of FPS_SWEEP")
+    ap.add_argument("--bq-sweep", action="store_true",
+                    help="also time the ball query at every (C, T) of BQ_SWEEP at each of its shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -381,8 +482,10 @@ def main() -> int:
     model, cfg = build_votenet("scannet", device=dev)  # also switches TF32 off
     flags = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
              "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    ops_per_s, max_sm_mhz = issue_rate(dev)
     say(phase="card", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
-        device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), tf32=flags)
+        device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), tf32=flags,
+        max_sm_mhz=max_sm_mhz, instructions_per_s=ops_per_s)
     if any(flags.values()):
         raise AssertionError(f"TF32 is on: {flags}")
 
@@ -391,7 +494,7 @@ def main() -> int:
     seconds = time.perf_counter() - t
     if args.kernels_only:
         say(phase="build", seconds=seconds, built=built)
-        phase_kernels(dev, args.fps_sweep)
+        phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep)
         return 0
     # read back whether built now or before, so the spill check below always runs
     logs = {name: _build.build_log(name) for name in _build.SOURCES}
@@ -401,7 +504,7 @@ def main() -> int:
                for ln in log.splitlines() if "registers" in ln or "spill" in ln],
         fps_ptxas={f"{t}x{p}": v for (t, p), v in sorted(fps_regs.items())})
 
-    rows = phase_kernels(dev, args.fps_sweep)
+    rows = phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep)
     for r in rows["fps"]:  # the planned variants keep their share on chip, without spills
         key = (r["launch"]["threads"], r["launch"]["ppt"])
         if key not in fps_regs or fps_regs[key][1:] != (0, 0):

@@ -7,13 +7,18 @@ the reference CUDA kernels:
   ``nsample`` points in scan order whose squared distance is strictly below
   f32(r) * f32(r); slots past the hit count repeat the first hit; a center
   with no hit gets index 0. int32 output, no gradient. On a CUDA tensor it
-  launches ``csrc/ball_query.cu``.
+  launches ``csrc/ball_query.cu``: blocks of 8 warps, each warp holding C
+  centers of one scene, share each tile of T points of the cloud that they
+  stage in shared memory; ``ball_query_plan`` picks (C, T) from the shape
+  and the card's SM count.
 - ``group_points`` (``group_points_gpu.cu:13-79``): a row gather
   (B, N, C) x (B, m, ns) -> (B, m, ns, C), indices clamped to [0, N-1]. On a
   CUDA tensor it launches ``csrc/gather.cu``, which has no backward yet.
 
 Each wrapper takes its plain version only for a CPU tensor.
 """
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
@@ -55,10 +60,47 @@ def ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
     return out
 
 
-def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
-               new_xyz: torch.Tensor) -> torch.Tensor:
+# Centers a warp holds in registers: the instantiations of csrc/ball_query.cu.
+BQ_CENTERS = (1, 2, 4, 8)
+WARPS = 8  # a block's warps: csrc/ball_query.cu kWarps
+MAX_TILE = 2048  # points; two tiles fill the 48 KB of default dynamic shared memory
+
+
+class BallQueryLaunch(NamedTuple):
+    """Blocks of WARPS warps, each warp holding ``centers`` centers of one
+    scene; the scene's cloud streams through shared memory in double-buffered
+    tiles of ``tile`` points."""
+    centers: int
+    tile: int
+
+    @property
+    def group(self) -> int:
+        """Centers a block holds."""
+        return self.centers * WARPS
+
+    def blocks(self, b: int, m: int) -> int:
+        return b * -(-m // self.group)
+
+
+def ball_query_plan(b: int, m: int, n: int, n_sm: int) -> BallQueryLaunch:
+    """The launch for B scenes of N points and m centers each: tiles of 2,048
+    points (fewer when the cloud is smaller), and the largest C of BQ_CENTERS
+    whose blocks still give every SM one; C = 1 where even that leaves SMs
+    idle. A larger C spreads a chunk's shared loads and vote over more
+    centers; fewer blocks than SMs leave SMs without work."""
+    tile = min(MAX_TILE, -(-n // 32) * 32)
+    for c in reversed(BQ_CENTERS):
+        launch = BallQueryLaunch(c, tile)
+        if launch.blocks(b, m) >= n_sm:
+            return launch
+    return BallQueryLaunch(1, tile)
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+               launch: Optional[BallQueryLaunch] = None) -> torch.Tensor:
     """xyz: (B, N, 3) candidates, new_xyz: (B, m, 3) centers, both f32 ->
-    (B, m, nsample) int32 indices into xyz."""
+    (B, m, nsample) int32 indices into xyz. ``launch`` overrides the planned
+    launch (for sweeps and tests)."""
     if xyz.device.type == "cpu":
         return ball_query_plain(radius, nsample, xyz, new_xyz)
     _build.require(xyz, torch.float32, "xyz")
@@ -72,11 +114,17 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     m = new_xyz.shape[1]
     if b < 1 or n < 1 or m < 1 or nsample < 1:
         raise ValueError(f"empty ball query: B={b}, N={n}, m={m}, nsample={nsample}")
+    if launch is None:
+        n_sm = torch.cuda.get_device_properties(xyz.device).multi_processor_count
+        launch = ball_query_plan(b, m, n, n_sm)
+    if launch.centers not in BQ_CENTERS or launch.tile % 32 or not 32 <= launch.tile <= MAX_TILE:
+        raise ValueError(f"csrc/ball_query.cu has no launch {launch}")
     out = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
     fn = _build.kernel("ball_query", "ball_query_launch",
-                       (_build.VP,) * 3 + (_build.INT,) * 4 + (_build.FLOAT, _build.VP))
+                       (_build.VP,) * 3 + (_build.INT,) * 4 + (_build.FLOAT,)
+                       + (_build.INT,) * 2 + (_build.VP,))
     _build.check(fn(xyz.data_ptr(), new_xyz.data_ptr(), out.data_ptr(), b, n, m, nsample,
-                    _radius_sq(radius), _build.stream(xyz)), "ball_query")
+                    _radius_sq(radius), *launch, _build.stream(xyz)), "ball_query")
     ball_query.launches += 1
     return out
 

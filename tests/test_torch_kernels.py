@@ -2,7 +2,8 @@
 
 Edge cases the full-width run in ``chip_smoke.py`` does not reach: ragged
 sizes, zeroed points and ties, centers without hits, out-of-range indices,
-every gather width. The file imports no JAX, so it runs on a machine with a
+every gather width, every ball-query instantiation, unaligned scenes,
+ballots that cross nsample. The file imports no JAX, so it runs on a machine with a
 card and without JAX; this repository's conftest imports JAX, so run it
 there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 Without a card every test skips.
@@ -11,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from iou3dmatch_tpu_torch.ops.ball_query import (ball_query, ball_query_plain,
-                                                 group_points, group_points_plain)
+from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, ball_query,
+                                                 ball_query_plain, group_points,
+                                                 group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
                                           fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain, max_active_clusters)
@@ -104,19 +106,123 @@ def test_fps_kernel_all_points_invalid(cuda):
     assert torch.equal(furthest_point_sample(t, 8), furthest_point_sample_plain(t, 8))
 
 
+def _bq_check(cuda, radius, nsample, xyz, ctr, launch=None):
+    """The kernel (planned or forced launch) against the plain version."""
+    p, c = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (xyz, ctr))
+    before = ball_query.launches
+    got = ball_query(radius, nsample, p, c, launch)
+    assert ball_query.launches == before + 1
+    want = ball_query_plain(radius, nsample, p, c)
+    assert torch.equal(got, want)
+    return want
+
+
 @pytest.mark.parametrize("radius,nsample,n,m", [(0.3, 16, 777, 50), (0.2, 64, 4000, 300),
                                                 (1.0, 1, 31, 5), (5.0, 40, 33, 7)])
 def test_ball_query_kernel_matches_plain(cuda, radius, nsample, n, m):
     rng = np.random.RandomState(m)
     xyz = rng.uniform(-1, 1, (2, n, 3)).astype(np.float32)
     ctr = np.concatenate([xyz[:, :m - 1], np.full((2, 1, 3), 50.0, np.float32)], axis=1)
-    p, c = torch.from_numpy(xyz).to(cuda), torch.from_numpy(ctr).to(cuda)
-    before = ball_query.launches
-    got = ball_query(radius, nsample, p, c)
-    assert ball_query.launches == before + 1
-    want = ball_query_plain(radius, nsample, p, c)
-    assert torch.equal(got, want)
-    assert torch.equal(got[:, -1], torch.zeros_like(got[:, -1]))  # no hit -> index 0
+    want = _bq_check(cuda, radius, nsample, xyz, ctr)
+    assert torch.equal(want[:, -1], torch.zeros_like(want[:, -1]))  # no hit -> index 0
+
+
+@pytest.mark.parametrize("b,n,m,radius,nsample", [
+    (2, 2500, 300, 0.3, 16),  # N a multiple of neither T nor 32; B*m not a multiple of G
+    (2, 20, 7, 1.0, 8),  # N < 32
+    (3, 2501, 100, 0.3, 16),  # 4 does not divide N: scenes 1 and 2 start off 16 bytes
+    (2, 20, 5, 5.0, 64),  # nsample > N
+    (1, 300000, 64, 0.05, 32),
+    (2, 4000, 2048, 0.2, 64),  # more centers than one block a scene
+])
+def test_ball_query_kernel_shapes(cuda, b, n, m, radius, nsample):
+    rng = np.random.RandomState(n + m)
+    xyz = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+    _bq_check(cuda, radius, nsample, xyz, xyz[:, rng.choice(n, m)])
+
+
+@pytest.mark.parametrize("tile", [32, 1024])
+def test_ball_query_kernel_hits_only_in_the_last_tile(cuda, tile):
+    n = 3 * 1024 + 77  # the last tile holds 77 points at T = 1,024, 13 at T = 32
+    rng = np.random.RandomState(tile)
+    xyz = rng.uniform(10, 20, (2, n, 3)).astype(np.float32)
+    xyz[:, -10:] = rng.uniform(-0.1, 0.1, (2, 10, 3))
+    ctr = rng.uniform(-0.05, 0.05, (2, 70, 3)).astype(np.float32)
+    want = _bq_check(cuda, 0.3, 16, xyz, ctr, BallQueryLaunch(8, tile))
+    assert (want >= n - 10).all()
+
+
+@pytest.mark.parametrize("nsample", [20, 40, 64])
+@pytest.mark.parametrize("c", BQ_CENTERS)
+def test_ball_query_kernel_every_point_a_hit(cuda, c, nsample):
+    """A chunk's 32 hits cross nsample in mid-ballot (20, 40), or just fill it
+    (64); full centers must take no further slot."""
+    xyz = np.random.RandomState(c).uniform(-1, 1, (2, 500, 3)).astype(np.float32)
+    want = _bq_check(cuda, 10.0, nsample, xyz, xyz[:, :37], BallQueryLaunch(c, 64))
+    assert torch.equal(want.cpu(), torch.arange(nsample, dtype=torch.int32).expand_as(want))
+
+
+@pytest.mark.parametrize("tile", [32, 1024, 2048])
+@pytest.mark.parametrize("c", BQ_CENTERS)
+def test_ball_query_kernel_every_variant(cuda, c, tile):
+    """Every instantiated C through the override, a ragged last block, and
+    centers without a hit."""
+    rng = np.random.RandomState(10 * c + tile)
+    xyz = rng.uniform(-1, 1, (3, 1001, 3)).astype(np.float32)
+    ctr = np.concatenate([xyz[:, :76], np.full((3, 1, 3), 50.0, np.float32)], axis=1)
+    want = _bq_check(cuda, 0.3, 16, xyz, ctr, BallQueryLaunch(c, tile))
+    assert torch.equal(want[:, -1], torch.zeros_like(want[:, -1]))
+
+
+def test_ball_query_kernel_no_center_hits(cuda):
+    xyz = np.random.RandomState(3).uniform(-1, 1, (2, 3000, 3)).astype(np.float32)
+    want = _bq_check(cuda, 0.2, 32, xyz, np.full((2, 100, 3), -9.0, np.float32))
+    assert not want.any()
+
+
+def test_ball_query_kernel_more_scenes_than_a_grid_row(cuda):
+    """B past 65,535, the limit of a grid's y dimension: 7 distinct scenes,
+    each repeated, so the plain result is that of the 7 repeated."""
+    rng = np.random.RandomState(11)
+    xyz = rng.uniform(-1, 1, (7, 40, 3)).astype(np.float32)
+    ctr = xyz[:, :3].copy()
+    reps = 9363  # 7 x 9,363 = 65,541 scenes
+    p = torch.from_numpy(xyz).to(cuda)
+    got = ball_query(0.5, 4, p.repeat(reps, 1, 1), torch.from_numpy(ctr).to(cuda).repeat(reps, 1, 1))
+    assert torch.equal(got, ball_query_plain(0.5, 4, p, torch.from_numpy(ctr).to(cuda)).repeat(reps, 1, 1))
+
+
+def _surface_room(seed, b, n):
+    """(b, n, 3) points uniform by area over the floor and four walls of a
+    4 x 4 x 2.5 m room, as a scan sees it."""
+    rng = np.random.RandomState(seed)
+    face = rng.choice(3, size=(b, n), p=[16 / 56, 20 / 56, 20 / 56])  # floor, x walls, y walls
+    u, w = rng.uniform(-2.0, 2.0, (2, b, n))
+    side = np.where(rng.rand(b, n) < 0.5, -2.0, 2.0)
+    z = np.where(face == 0, 0.0, rng.uniform(0.0, 2.5, (b, n)))
+    x = np.where(face == 1, side, u)
+    y = np.select([face == 0, face == 1], [w, u], side)
+    return np.stack([x, y, z], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("launch", [None, BallQueryLaunch(4, 1024), BallQueryLaunch(1, 256)])
+def test_ball_query_kernel_surface_scene(cuda, launch):
+    """Points on the floor and walls of a room, centers by FPS: most balls
+    fill their 64 slots, so warps and blocks stop early."""
+    xyz = _surface_room(0, 2, 40000)
+    t = torch.from_numpy(xyz).to(cuda)
+    inds = furthest_point_sample(t, 512).cpu().numpy()
+    ctr = np.take_along_axis(xyz, inds[..., None].astype(np.int64), axis=1)
+    want = _bq_check(cuda, 0.2, 64, xyz, ctr, launch)
+    assert (want[..., -1] > want[..., -2]).float().mean() > 0.5  # most balls are full
+
+
+def test_ball_query_kernel_refuses_bad_launches(cuda):
+    p = torch.zeros(1, 40, 3, device=cuda)
+    for launch in (BallQueryLaunch(3, 1024), BallQueryLaunch(16, 1024),
+                   BallQueryLaunch(8, 100), BallQueryLaunch(8, 4096)):
+        with pytest.raises(ValueError):
+            ball_query(0.2, 8, p, p[:, :4].contiguous(), launch)
 
 
 @pytest.mark.parametrize("c,offset", [(1, 0), (2, 0), (3, 0), (4, 0), (4, 1), (5, 0), (8, 0),

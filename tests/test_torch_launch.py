@@ -1,13 +1,20 @@
-"""The FPS kernel's launch-shape rule (``iou3dmatch_tpu_torch/ops/fps.py``).
+"""The kernels' launch-shape rules (``iou3dmatch_tpu_torch/ops/fps.py`` and
+``ops/ball_query.py``).
 
 ``fps_launch_plan`` is a pure function of (B, N, the card's SM count, its
 ``cudaOccupancyMaxActiveClusters`` answers), so its invariants are checked
 here on the CPU against answers an H100 may give: 132 SMs, the answers an
 H100 80GB HBM3 gave for the planned candidates at 40,000 points, and
-GPC layouts that hold fewer clusters.
+GPC layouts that hold fewer clusters. ``ball_query_plan`` is a pure
+function of (B, m, N, the SM count).
 """
+import re
+from pathlib import Path
+
 import pytest
 
+from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, MAX_TILE, WARPS, BallQueryLaunch,
+                                                 ball_query_plan)
 from iou3dmatch_tpu_torch.ops.fps import (FAST_CLUSTER, GLOBAL, MAX_CLUSTER, PLAN_THREADS,
                                           REG_PPTS, SHARED, SHARED_MAX_POINTS, STREAM_THREADS,
                                           FpsLaunch, fps_candidates, fps_launch_plan,
@@ -121,3 +128,47 @@ def test_fps_variant_prefers_registers_then_shared_then_streaming():
     assert fps_variant(200000, 16).variant == "shared"
     assert fps_variant(300000, 16).variant == "global"
     assert fps_variant(40000, 1).variant == "global"
+
+
+BQ_SHAPES = [(b, m, n) for b in (1, 2, 8, 12, 24) for m in (1, 7, 64, 128, 256, 300, 512, 1024, 2048)
+             for n in (1, 20, 512, 1000, 40000)]
+
+
+def test_ball_query_plan_covers_every_center():
+    for n_sm in (N_SM, 114, 78, 1):
+        for b, m, n in BQ_SHAPES:
+            launch = ball_query_plan(b, m, n, n_sm)
+            assert launch.centers in BQ_CENTERS
+            assert launch.tile % 32 == 0 and 32 <= launch.tile <= MAX_TILE
+            assert launch.tile >= min(n, MAX_TILE)  # a cloud that fits takes one tile
+            blocks = launch.blocks(b, m)
+            assert blocks % b == 0 and (blocks // b) * launch.group >= m > (blocks // b - 1) * launch.group
+            # the largest C that still gives every SM a block
+            if launch.centers > 1:
+                assert blocks >= n_sm, (b, m, n, n_sm)
+            bigger = [c for c in BQ_CENTERS if c > launch.centers]
+            if bigger:
+                assert BallQueryLaunch(bigger[0], launch.tile).blocks(b, m) < n_sm
+
+
+def test_ball_query_plan_at_the_forward_shapes():
+    """The plans PERF.md records: the five ball queries of the serving
+    forward at B = 8 and SA1 at the SSL forward's 12 clouds, on 132 SMs."""
+    for (b, m, n), want in [
+            ((8, 2048, 40000), (8, 2048)),  # SA1: 256 blocks
+            ((12, 2048, 40000), (8, 2048)),  # SA1 of the SSL forward: 384 blocks
+            ((8, 1024, 2048), (4, 2048)),  # SA2
+            ((8, 512, 1024), (2, 1024)),  # SA3
+            ((8, 256, 512), (1, 512)),  # SA4
+            ((8, 128, 1024), (1, 1024))]:  # vote aggregation: 128 blocks, 4 SMs idle
+        assert tuple(ball_query_plan(b, m, n, N_SM)) == want, (b, m, n)
+
+
+def test_ball_query_instantiations_match_the_source():
+    """BQ_CENTERS is what csrc/ball_query.cu dispatches on, and its blocks
+    are WARPS warps."""
+    src = (Path(__file__).resolve().parents[1] / "iou3dmatch_tpu_torch" / "csrc"
+           / "ball_query.cu").read_text()
+    cases = tuple(int(c) for c in re.findall(r"case (\d+): err = launch<\1>", src))
+    assert cases == BQ_CENTERS
+    assert f"constexpr int kWarps = {WARPS};" in src
