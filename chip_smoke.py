@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's detection forward on one NVIDIA GPU.
+"""Drives the PyTorch port's detection forward and pretrain step on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (``nvcc``); it builds the kernels from
@@ -11,14 +11,25 @@ reported on its own line; a failed check raises and the exit code is not 0:
    FPS variant's registers and spills from the compiler output kept beside
    its library;
 3. each kernel against its plain PyTorch version on the card, at every shape
-   the full-width ScanNet forward launches it at (FPS also at the SSL step's
-   24 clouds; the ball query also on surface scenes and at the SSL
-   forward's 12 clouds), required exactly equal, with CUDA-event timings of
-   kernel, plain version and library call, FPS's and the ball query's
-   launch plans; it fails if a planned FPS variant spills;
+   the full-width ScanNet forward and pretrain step launch it at (FPS also
+   at the SSL step's 24 clouds; the ball query also on surface scenes and at
+   the SSL forward's 12 clouds; the rotated IoU also on rotated boxes),
+   with CUDA-event timings of kernel, plain version and library call, FPS's
+   and the ball query's launch plans; FPS, the ball query and the gather
+   must be exactly equal, the gather's backward within 1e-5 x the sum of
+   |g| of each element of an f64 sum, the IoU within atol 1e-5; it fails if
+   a planned FPS variant spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene;
 5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
-   and IoU-guided class-aware NMS, with the kernels' launch counts.
+   and IoU-guided class-aware NMS, with the kernels' launch counts;
+6. training: one pretrain step of 2 scenes on the card against the CPU,
+   with GT boxes at the random model's own vote centres (the loss within
+   rtol 2e-3, the gradient with cosine > 0.999 and relative L2 < 0.05, FPS
+   indices equal, at least MIN_POS_RATIO positives), then 2 warm-up and 5
+   timed steps of 8 scenes x 40,000 points (ms a step, scenes/s, peak
+   memory, launches a step), one step's forward, backward and optimizer
+   spans and its profile, and train-mode BatchNorm at that step's inputs
+   in the card's form and in the CPU's.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
 lines. It also runs from another checkout's root, one whose ball query has
@@ -30,7 +41,8 @@ query over every (C, T) of BQ_SWEEP at each of its shapes.
 The model is the full-width ScanNet VoteNet (128 proposals, height channel,
 SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
 uniform points in a [-3, 3]^2 x [0, 2.5] room with the height channel
-z - min z, made from a NumPy seed. The surface scenes spread their points
+z - min z, made from a NumPy seed; a training scene adds 8-16 boxes of
+ScanNet classes with vote labels on the points inside them. The surface scenes spread their points
 uniformly by area over the floor and four walls of a 4 x 4 x 2.5 m room, as
 a scan sees it, so that most balls of r 0.2 fill their 64 slots. The last
 two lines are the kernels' JSON and the device JSON.
@@ -45,15 +57,22 @@ import time
 import numpy as np
 import torch
 
+from iou3dmatch_tpu_torch.data.config import get_config
 from iou3dmatch_tpu_torch.eval.ap_helper import eval_config_dict, parse_predictions
+from iou3dmatch_tpu_torch.geometry.iou3d import bev_candidates, box_pairs, box_pairs_plain
 from iou3dmatch_tpu_torch.models.factory import build_votenet
+from iou3dmatch_tpu_torch.models.mlp import BatchNorm, set_bn_momentum
 from iou3dmatch_tpu_torch.ops import _build
 from iou3dmatch_tpu_torch.ops.ball_query import (ball_query, ball_query_plain,
-                                                 group_points, group_points_plain)
+                                                 group_points, group_points_backward,
+                                                 group_points_backward_plain,
+                                                 group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import (fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain)
 from iou3dmatch_tpu_torch.ops.interpolate import three_nn
-from iou3dmatch_tpu_torch.train.steps import make_eval_forward
+from iou3dmatch_tpu_torch.train.schedules import get_bn_momentum
+from iou3dmatch_tpu_torch.train.state import create_train_state
+from iou3dmatch_tpu_torch.train.steps import make_eval_forward, make_pretrain_step
 
 try:
     from iou3dmatch_tpu_torch.ops.ball_query import BallQueryLaunch, ball_query_plan
@@ -61,6 +80,9 @@ except ImportError:  # a ball query of one warp per center, timed with --kernels
     BallQueryLaunch = ball_query_plan = None
 
 B, N, NPOINT = 8, 40_000, 2048
+K, G = 128, 64  # proposals; GT slots a scene (max_num_obj)
+LR = 1e-3  # pretrain.py's base lr; the BN momentum is epoch 0's
+MIN_POS_RATIO = 0.05  # the card-vs-CPU step's positives: >= 8 of a scene's 128 proposals sit at a GT center
 SSL_B = 12  # the SSL step's teacher and student forwards each take 12 clouds
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # Operation bounds count instructions issued at SMs x 128 lanes x the top SM
@@ -74,15 +96,35 @@ REPS = 20
 PLAIN_FPS_REPS = 3  # the plain FPS is a Python loop of npoint steps, ~0.35 s a call
 FPS_SWEEP = [(s, t) for s in (8, 16) for t in (128, 256, 512, 1024)]  # (cluster, threads)
 BQ_SWEEP = [(c, t) for c in (1, 2, 4, 8) for t in (512, 1024, 2048)]  # (centers a warp, tile)
+# The rotated IoU's operations, counted from csrc/iou3d.cu as in the plain
+# version, each product and sum one instruction. What the function needs:
+# each box's corners (44 with a sine and a cosine) and its x, y and z
+# extents (19, grown by IOU_REACH), once a box; a reject test a pair (6
+# compares, 5 ors, 1 select), which gives 0 where the extents do not meet;
+# for a pair whose extents meet, 16 edge intersections (94 each), 8
+# containment tests (118 in all) and the z overlap and union (21); for one
+# with n > 0 candidates the centroid (98), per candidate an angle (3) and a
+# fan term (6), and a sort of n ceil(log2 n) compares. The kernel does the
+# full pair work, corners included, for every pair: scan_bound_ms counts that.
+IOU_BOX_OPS = 44 + 19
+IOU_REJECT_OPS = 12
+IOU_PAIR_OPS = 16 * 94 + 118 + 21
+IOU_HIT_OPS = 98
+IOU_VERTEX_OPS = 9
+IOU_REACH = 1.5e-2  # the 1e-2 containment margin, in a box's frame, reaches sqrt(2) x 1e-2 along x or y
 KERNELS = {
     "fps": furthest_point_sample,
     "ball_query": ball_query,
     "gather": group_points,
+    "gather_bwd": group_points_backward,
+    "iou3d": box_pairs,
 }
 REPLACES = {
     "fps": "iou3dmatch_tpu/ops/fps_pallas.py:46",
     "ball_query": "iou3dmatch_tpu/ops/ball_query.py:35",
     "gather": "iou3dmatch_tpu/ops/gather_pallas.py:35",
+    "gather_bwd": "iou3dmatch_tpu/ops/ball_query.py:234",
+    "iou3d": "iou3dmatch_tpu/geometry/iou3d.py:94",
 }
 
 
@@ -180,14 +222,16 @@ def ball_query_scanned(idx: torch.Tensor, n: int) -> int:
 
 
 def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, ops_per_s, inner,
-                 plain_reps=REPS, main=True):
+                 plain_reps=REPS, main=True, agree=None):
     """Kernel against plain version on ``args``, then timings. ``ops_of``
     counts the instructions the plain result says the work needs, issued at
-    ``ops_per_s``; ``main`` marks a shape of the serving forward."""
+    ``ops_per_s``; ``main`` marks a shape of the serving forward or the
+    pretrain step. ``agree(got, want)`` says whether the kernel's result is
+    right; without it, it must equal the plain version's."""
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     err = max_err(got, want)
-    ok = bool(torch.equal(got, want))
+    ok = bool(torch.equal(got, want) if agree is None else agree(got, want))
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops_of(want) / ops_per_s
     row = {
         "shape": label, "ok": ok, "max_abs_err": err,
@@ -289,6 +333,35 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
         return got
 
     rows_idx = torch.arange(B, device=dev)[:, None]
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def gather_bwd(label, table, idx):
+        """The gather's backward at the pretrain step's shape: a cotangent
+        like the gather's output; each element of the kernel's and of the
+        plain f32 sum within 1e-5 x (the sum of |g| added into it) of an
+        f64 sum. The bound counts g, the indices and the output once."""
+        b, n, c = table.shape
+        g = torch.randn(idx.shape + (c,), generator=gen, device=dev)
+        flat_rows = (idx.long().clamp(0, n - 1) + n * rows_idx[:, :, None]).reshape(-1)
+        g2 = g.reshape(-1, c)
+        ref = torch.zeros(b * n, c, dtype=torch.float64, device=dev).index_add_(0, flat_rows, g2.double())
+        mag = torch.zeros(b * n, c, dtype=torch.float64, device=dev).index_add_(
+            0, flat_rows, g2.double().abs())
+        errs = []
+
+        def agree(got, want):
+            errs.extend(float((t.double().reshape(b * n, c) - ref).abs().max()) for t in (got, want))
+            return all(bool(((t.double().reshape(b * n, c) - ref).abs() <= 1e-5 * mag).all())
+                       for t in (got, want))
+
+        out = torch.zeros(b * n, c, device=dev)
+        library = lambda *_: out.zero_().index_add_(0, flat_rows, g2)  # noqa: E731
+        nbytes = (g.numel() + idx.numel() + b * n * c) * 4
+        _, r = check_kernel("gather_bwd", label, group_points_backward, group_points_backward_plain,
+                            library, (g, idx, n), nbytes, lambda _: g.numel(), ops_per_s, 10,
+                            agree=agree)
+        r["max_abs_err_f64"] = {"kernel": errs[0], "plain": errs[1]}
+        rows.setdefault("gather_bwd", []).append(r)
 
     def gather(label, table, idx):
         b, n, c = table.shape
@@ -315,14 +388,19 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     gather(f"sa1 ({B},{N},4)x({B},{NPOINT},64)", pc, idx)
     idx = bq(f"sa2 r0.4 ns32 ({B},{NPOINT})x1024", 0.4, 32, sa1_xyz, sa1_xyz[:, :1024].contiguous())
     gather(f"sa2 ({B},{NPOINT},131)x({B},1024,32)", torch.cat([sa1_xyz, f128], -1), idx)
+    gather_bwd(f"sa2 ({B},{1024 * 32},131)->({B},{NPOINT},131)", torch.cat([sa1_xyz, f128], -1), idx)
     sa2_xyz = sa1_xyz[:, :1024].contiguous()
     idx = bq(f"sa3 r0.8 ns16 ({B},1024)x512", 0.8, 16, sa2_xyz, sa2_xyz[:, :512].contiguous())
     gather(f"sa3 ({B},1024,259)x({B},512,16)", torch.cat([sa2_xyz, f256], -1), idx)
+    gather_bwd(f"sa3 ({B},{512 * 16},259)->({B},1024,259)", torch.cat([sa2_xyz, f256], -1), idx)
     sa3_xyz = sa2_xyz[:, :512].contiguous()
     idx = bq(f"sa4 r1.2 ns16 ({B},512)x256", 1.2, 16, sa3_xyz, sa3_xyz[:, :256].contiguous())
     gather(f"sa4 ({B},512,259)x({B},256,16)", torch.cat([sa3_xyz, f256[:, :512]], -1), idx)
+    gather_bwd(f"sa4 ({B},{256 * 16},259)->({B},512,259)", torch.cat([sa3_xyz, f256[:, :512]], -1),
+               idx)
     idx = bq(f"vote_agg r0.3 ns16 ({B},1024)x128", 0.3, 16, votes, votes[:, :128].contiguous())
     gather(f"vote_agg ({B},1024,259)x({B},128,16)", torch.cat([votes, f256], -1), idx)
+    gather_bwd(f"vote_agg ({B},{128 * 16},259)->({B},1024,259)", torch.cat([votes, f256], -1), idx)
     grid = torch.from_numpy(make_scenes(5, B, 128 * 64)[..., :3].copy()).to(dev)
     _, idx = three_nn(grid, sa2_xyz)
     gather(f"grid_conv ({B},1024,259)x({B},{128 * 64},3)", torch.cat([sa2_xyz, f256], -1), idx)
@@ -335,7 +413,83 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
         pts = torch.from_numpy(pts).to(dev)
         ctr = pts[torch.arange(pts.shape[0], device=dev)[:, None], furthest_point_sample(pts, NPOINT).long()]
         bq(label, 0.2, 64, pts, ctr, main=False)
+    iou_rows(dev, ops_per_s, rows)
     return rows
+
+
+def make_boxes(rng, b: int, n: int, rotated: bool) -> np.ndarray:
+    """(b, n, 7) boxes of ScanNet classes inside the room: sizes from the
+    class means x U(0.8, 1.2), headings uniform when ``rotated`` (SUN RGB-D
+    has them), else 0."""
+    mean = get_config("scannet").mean_size_arr
+    size = mean[rng.randint(0, len(mean), (b, n))] * rng.uniform(0.8, 1.2, (b, n, 3))
+    center = np.stack([rng.uniform(-3, 3, (b, n)), rng.uniform(-3, 3, (b, n)),
+                       size[..., 2] / 2 + rng.uniform(0, 0.5, (b, n))], -1)
+    heading = rng.uniform(-np.pi, np.pi, (b, n)) if rotated else np.zeros((b, n))
+    return np.concatenate([center, size, heading[..., None]], -1).astype(np.float32)
+
+
+def iou_extent(box: torch.Tensor):
+    """(lo, hi) of (..., 7) boxes' x, y and z, each (..., 3): x and y of the
+    rotated footprint grown by IOU_REACH, z of the box."""
+    c, sn = torch.cos(box[..., 6]).abs(), torch.sin(box[..., 6]).abs()
+    hx, hy = box[..., 3] * 0.5, box[..., 4] * 0.5
+    half = torch.stack([hx * c + hy * sn + IOU_REACH, hx * sn + hy * c + IOU_REACH, box[..., 5] * 0.5], -1)
+    return box[..., :3] - half, box[..., :3] + half
+
+
+def iou_ops(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(operations the 3D IoU of the pairs of a (B, K, 7) x (B, G, 7) needs,
+    those of the kernel's full work for every pair, pairs that need it)."""
+    px, py, valid = bev_candidates(*torch.broadcast_tensors(a[:, :, None], b[:, None]))
+    cnt = valid.sum(-1).double()
+    (alo, ahi), (blo, bhi) = iou_extent(a[:, :, None]), iou_extent(b[:, None])
+    meet = (alo < bhi) & (blo < ahi)  # (B, K, G, 3)
+    if bool((cnt[~meet[..., :2].all(-1)] > 0).any()):
+        raise AssertionError("an IoU pair the reject test drops has candidate vertices")
+    need = meet.all(-1)  # the z overlap too: without it the 3D IoU is 0
+    hits = (need & (cnt > 0)).double()
+    hit_ops = float((hits * (IOU_HIT_OPS + IOU_VERTEX_OPS * cnt
+                             + cnt * torch.ceil(torch.log2(cnt.clamp(min=1))))).sum())
+    n_boxes, n_pairs = a.shape[0] * (a.shape[1] + b.shape[1]), cnt.numel()
+    ops = n_boxes * IOU_BOX_OPS + n_pairs * IOU_REJECT_OPS + int(need.sum()) * IOU_PAIR_OPS + hit_ops
+    all_hits = float(((cnt > 0) * (IOU_HIT_OPS + IOU_VERTEX_OPS * cnt)).sum()
+                     + (cnt * torch.ceil(torch.log2(cnt.clamp(min=1)))).sum())
+    scan_ops = n_pairs * (88 + IOU_PAIR_OPS) + all_hits
+    return ops, scan_ops, int(need.sum())
+
+
+def iou_rows(dev, ops_per_s, rows):
+    """The rotated IoU at the pretrain step's shape, (B, K, 7) proposals x
+    (B, G, 7) GT slots: 8-16 real GT boxes a scene, the other slots at the
+    -1000 placeholder, and the proposals jittered copies of the real GT
+    boxes, the rest random boxes in the room; axis-aligned as ScanNet's (the
+    step's shape), then rotated, off the step's path. Within atol 1e-5 of
+    the plain version. The bound counts what the function needs
+    (``iou_ops``); scan_bound_ms the kernel's full work for every pair."""
+    for label, rotated, main in (("pretrain axis-aligned", False, True),
+                                 ("rotated headings", True, False)):
+        rng = np.random.RandomState(30 + rotated)
+        gt = make_boxes(rng, B, G, rotated)
+        pred = make_boxes(rng, B, K, rotated)
+        for i in range(B):
+            m = rng.randint(8, 17)
+            gt[i, m:, 0:3] = -1000.0
+            pred[i, :m] = gt[i, :m]
+            pred[i, :m, 0:3] += rng.normal(0, 0.1, (m, 3))
+            pred[i, :m, 3:6] *= rng.uniform(0.8, 1.2, (m, 3))
+        a, b = torch.from_numpy(pred).to(dev), torch.from_numpy(gt).to(dev)
+        ops, scan_ops, need = iou_ops(a, b)
+        nbytes = (a.numel() + b.numel() + B * K * G) * 4
+        _, r = check_kernel(
+            "iou3d", f"{label} ({B},{K},7)x({B},{G},7)", box_pairs, box_pairs_plain, None,
+            (a, b, "iou3d"), nbytes, lambda _: ops, ops_per_s, 10,
+            main=main, agree=lambda got, want: bool(torch.allclose(got, want, rtol=0, atol=1e-5)))
+        r["pairs_needing_overlap"] = need
+        r["scan_bound_ms"] = max(nbytes / HBM_BYTES_PER_S, scan_ops / ops_per_s) * 1e3
+        say(phase="iou_bound", shape=r["shape"], pairs=B * K * G, pairs_needing_overlap=need,
+            scan_bound_ms=r["scan_bound_ms"])
+        rows.setdefault("iou3d", []).append(r)
 
 
 FPS_ENTRY = re.compile(r"fps_cluster_kernelILi(\d+)ELi(n?\d+)E")
@@ -412,13 +566,211 @@ def phase_serve(model, cfg, dev) -> dict:
             boxes_kept_per_scene=[len(p) // cfg.num_class for p in picks])
     wall_s = time.perf_counter() - t_all
     launches = {k: fn.launches for k, fn in KERNELS.items()}
-    expect = {"fps": 3, "ball_query": 15, "gather": 18}
+    expect = {"fps": 3, "ball_query": 15, "gather": 18, "gather_bwd": 0, "iou3d": 0}
     say(phase="serve", requests=3, scenes_per_s=3 * B / wall_s, wall_s=wall_s,
         max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches)
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
     phase_profile(model, forward, batches[0])
     return launches
+
+
+def make_train_batch(seed: int, b: int, cfg, anchors=None) -> dict:
+    """``b`` rooms of N points (``make_scenes``) with 8-16 boxes of ScanNet
+    classes each (sizes the class mean + a residual of up to 10 %, inside
+    the room, or centred within 0.05 of distinct rows of ``anchors`` (b, K,
+    3) where given), the other slots of ``G`` empty; each point inside a box
+    votes for its center, the vote tiled x3 as the ScanNet dataset writes it."""
+    rng = np.random.RandomState(seed)
+    pc = make_scenes(seed, b, N)
+    mean = cfg.mean_size_arr
+    lab = {"center_label": np.zeros((b, G, 3), np.float32),
+           "box_label_mask": np.zeros((b, G), np.float32),
+           "heading_class_label": np.zeros((b, G), np.int64),
+           "heading_residual_label": np.zeros((b, G), np.float32),
+           "size_class_label": np.zeros((b, G), np.int64),
+           "size_residual_label": np.zeros((b, G, 3), np.float32),
+           "sem_cls_label": np.zeros((b, G), np.int64),
+           "vote_label": np.zeros((b, N, 9), np.float32),
+           "vote_label_mask": np.zeros((b, N), np.int64)}
+    for i in range(b):
+        m = rng.randint(8, 17)
+        cls = rng.randint(0, cfg.num_class, m)
+        res = mean[cls] * rng.uniform(-0.1, 0.1, (m, 3))
+        size = mean[cls] + res
+        ctr = np.stack([rng.uniform(-3 + size[:, 0] / 2, 3 - size[:, 0] / 2),
+                        rng.uniform(-3 + size[:, 1] / 2, 3 - size[:, 1] / 2),
+                        size[:, 2] / 2 + rng.uniform(0, np.maximum(2.5 - size[:, 2], 0))], -1)
+        if anchors is not None:
+            ctr = anchors[i, rng.choice(anchors.shape[1], m, replace=False)] + rng.uniform(-0.05, 0.05, (m, 3))
+        lab["center_label"][i, :m] = ctr
+        lab["box_label_mask"][i, :m] = 1
+        lab["size_class_label"][i, :m] = cls
+        lab["size_residual_label"][i, :m] = res
+        lab["sem_cls_label"][i, :m] = cls
+        xyz = pc[i, :, :3]
+        inside = (np.abs(xyz[:, None] - ctr[None]) <= size[None] / 2).all(-1)  # (N, m)
+        hit = inside.any(1)
+        vote = ctr[inside.argmax(1)] - xyz
+        lab["vote_label"][i, hit] = np.tile(vote[hit], 3)
+        lab["vote_label_mask"][i, hit] = 1
+    lab["point_clouds"] = pc
+    return lab
+
+
+def _grads(model) -> torch.Tensor:
+    return torch.cat([p.grad.detach().double().cpu().ravel() for p in model.parameters()])
+
+
+def vote_anchors(pc: np.ndarray, dev) -> np.ndarray:
+    """The random model's (b, K, 3) aggregated_vote_xyz on ``pc`` in train
+    mode, where the step's objectness labels are taken; from a model of its
+    own, so that no state the step starts from moves."""
+    model, _ = build_votenet("scannet", device=dev)
+    model.train()
+    set_bn_momentum(model, get_bn_momentum(0))
+    with torch.no_grad():
+        return model.forward_backbone(torch.from_numpy(pc).to(dev))["aggregated_vote_xyz"].cpu().numpy()
+
+
+def phase_train(cfg, dev) -> dict:
+    """The pretrain step: one step of 2 scenes on the card and on the CPU
+    from the same weights, batch and jitter draws, then 2 warm-up and 5
+    timed steps of B scenes, one step's spans and its profile. The check's
+    GT boxes sit at the random model's own vote centers, so that at least
+    MIN_POS_RATIO of its proposals are positives and every box term of the
+    loss carries gradient. Returns the kernels' launches over the 5 timed
+    steps."""
+    momentum = get_bn_momentum(0)
+    batch = make_train_batch(20, 2, cfg, vote_anchors(make_scenes(20, 2, N), dev))
+    noise = torch.randn((2, 2, K, 3), generator=torch.Generator().manual_seed(21))
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        model, _ = build_votenet("scannet", device=where)  # seed 0: the same weights
+        state = create_train_state(model)
+        seen = {}
+        hook = model.backbone_net.register_forward_hook(
+            lambda m, a, ep: seen.__setitem__("sa1_inds", ep["sa1_inds"].cpu()))
+        t = time.perf_counter()
+        metrics = make_pretrain_step(cfg)(
+            state, {k: torch.from_numpy(v).to(where) for k, v in batch.items()}, LR, momentum,
+            noise=(noise[0].to(where), noise[1].to(where)))
+        loss = float(metrics["loss"])
+        seconds = time.perf_counter() - t
+        hook.remove()
+        runs.append((loss, _grads(model), seen["sa1_inds"], seconds, float(metrics["pos_ratio"])))
+    (loss_gpu, g_gpu, inds_gpu, gpu_s, pos), (loss_cpu, g_cpu, inds_cpu, cpu_s, pos_cpu) = runs
+    cos = float(g_gpu @ g_cpu / (g_gpu.norm() * g_cpu.norm()))
+    rel_l2 = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    say(phase="train_vs_cpu", scenes=2, points=N, loss_gpu=loss_gpu, loss_cpu=loss_cpu,
+        grad_cosine=cos, grad_rel_l2=rel_l2, pos_ratio=pos, pos_ratio_cpu=pos_cpu, gpu_s=gpu_s,
+        cpu_s=cpu_s, tol=f"loss rtol 2e-3, gradient cosine > 0.999 and relative L2 < 0.05, "
+                         f"pos_ratio >= {MIN_POS_RATIO}")
+    if not torch.equal(inds_gpu, inds_cpu):
+        raise AssertionError("the step's FPS indices differ between the card and the CPU")
+    if min(pos, pos_cpu) < MIN_POS_RATIO:
+        raise AssertionError(f"pos_ratio {pos} on the card, {pos_cpu} on the CPU: too few positives")
+    if not (np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 2e-3 * abs(loss_cpu)):
+        raise AssertionError(f"step loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    if not (cos > 0.999 and rel_l2 < 0.05):
+        raise AssertionError(f"step gradient: cosine {cos}, relative L2 {rel_l2}")
+
+    model, _ = build_votenet("scannet", device=dev)
+    state = create_train_state(model)
+    step = make_pretrain_step(cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_train_batch(22, B, cfg).items()}
+    for _ in range(2):
+        step(state, batch, LR, momentum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    events, losses = [], []
+    t = time.perf_counter()
+    for _ in range(5):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        metrics = step(state, batch, LR, momentum)
+        ev[1].record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = {k: v / 5 for k, v in counts.items()}
+    losses = torch.stack(losses).cpu()
+    step_ms = [a.elapsed_time(e) for a, e in events]
+    say(phase="train", scenes=B, points=N, steps=5, step_ms=step_ms, wall_ms_per_step=wall_s * 200,
+        scenes_per_s=5 * B / wall_s, max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        losses=losses.tolist(), launches_per_step=launches,
+        adam="torch.optim.Adam, foreach", lr=LR, bn_momentum=momentum)
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
+    expect = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2}
+    if launches != expect:
+        raise AssertionError(f"launches a step {launches}, expected {expect}")
+    phase_train_profile(model, state, step, batch, momentum)
+    return counts
+
+
+def phase_train_profile(model, state, step, batch, momentum):
+    """One step's forward (backbone to GridConv), loss and backward, and
+    optimizer spans by CUDA events, then one step under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    marks = {}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[name] = ev
+
+    bn_shapes = []
+    hooks = [model.backbone_net.register_forward_pre_hook(lambda *a: mark("forward")),
+             model.grid_conv.register_forward_hook(lambda *a: mark("backward")),
+             state.optimizer.register_step_pre_hook(lambda *a: mark("optimizer")),
+             state.optimizer.register_step_post_hook(lambda *a: mark("end"))]
+    hooks += [m.register_forward_pre_hook(lambda m, a: bn_shapes.append((a[0].numel() // a[0].shape[-1],
+                                                                          a[0].shape[-1])))
+              for m in model.modules() if isinstance(m, BatchNorm)]
+    try:
+        step(state, batch, LR, momentum)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    order = ["forward", "backward", "optimizer", "end"]
+    span_ms = {a: marks[a].elapsed_time(marks[b]) for a, b in zip(order, order[1:])}
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, batch, LR, momentum)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    say(phase="train_profile", span_ms=span_ms, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        busy_share=busy_ms / wall_ms,
+        top_kernels=[[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in kern[:15]])
+    bn_forms(bn_shapes, next(model.parameters()).device)
+
+
+def bn_forms(shapes, dev):
+    """Train-mode BatchNorm forward and backward at each of one step's BN
+    inputs (rows, C), in the card's form (PyTorch's native kernels) and in
+    the CPU's (``BatchNorm.two_pass``, written out); ms a step, summed."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    total = {"native": 0.0, "two_pass": 0.0}
+    for rows, c in shapes:
+        bn = BatchNorm(c).to(dev)
+        bn.momentum = get_bn_momentum(0)
+        x = torch.randn(rows, c, generator=gen, device=dev, requires_grad=True)
+        g = torch.randn(rows, c, generator=gen, device=dev)
+        for form, fn in (("native", bn), ("two_pass", bn.two_pass)):
+            total[form] += cuda_ms(lambda: torch.autograd.grad(fn(x), (x, bn.weight, bn.bias), g), 1, 5)
+    say(phase="bn_forms", layers_a_step=len(shapes), forward_backward_ms_a_step=total)
 
 
 def phase_profile(model, forward, pc):
@@ -510,15 +862,17 @@ def main() -> int:
         if key not in fps_regs or fps_regs[key][1:] != (0, 0):
             raise AssertionError(f"FPS variant {key} spills or is missing: {fps_regs.get(key)}")
     phase_forward(model, dev)
-    launches = phase_serve(model, cfg, dev)
+    serve = phase_serve(model, cfg, dev)
+    train = phase_train(cfg, dev)
 
     kernels = []
     for name, checks in rows.items():
-        # the heaviest serving-path shape
+        # the heaviest shape of the serving forward or the pretrain step
         first = max((c for c in checks if c["main"]), key=lambda c: c["bound_ms"])
         kernels.append({
             "name": name, "route": "cuda", "source": f"iou3dmatch_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": train[name],  # over the 5 timed train steps
+            "launches_3_requests": serve[name],
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],

@@ -1,7 +1,9 @@
 """Dataset configurations for ScanNet and SUN RGB-D.
 
-Counterpart of ``iou3dmatch_tpu/data/config.py`` in NumPy only (the
-host-side helpers; the device-side ones come with the losses). Mirrors
+Counterpart of ``iou3dmatch_tpu/data/config.py``: the NumPy helpers of
+the host-side eval path, and ``class2size_tensor`` / ``class2angle_tensor``,
+the tensor twins of ``class2size_jnp`` / ``class2angle_jnp`` that the
+losses use on the device. Mirrors
 `scannet/model_util_scannet.py:19-83` and
 `sunrgbd/model_util_sunrgbd.py:19-129`.
 
@@ -9,6 +11,7 @@ The ScanNet mean sizes are the dataset statistics shipped as
 `scannet/meta_data/scannet_means.npz` in the reference, inlined here.
 """
 import numpy as np
+import torch
 
 _SCANNET_MEAN_SIZES = np.array(
     [
@@ -61,6 +64,19 @@ class _BaseConfig:
         size_class = self.type2class[type_name]
         return size_class, size - self.mean_size_arr[size_class]
 
+    def mean_size_tensor(self, device) -> torch.Tensor:
+        """``mean_size_arr`` as f32 on ``device``, copied there once and
+        kept: a copy to the card waits for the work queued before it."""
+        cache = self.__dict__.setdefault("_mean_size_on", {})
+        device = torch.device(device)
+        if device not in cache:
+            cache[device] = torch.as_tensor(self.mean_size_arr, dtype=torch.float32, device=device)
+        return cache[device]
+
+    def class2size_tensor(self, pred_cls: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        """Mean size of each class plus the residual, on the residual's device."""
+        return self.mean_size_tensor(residual.device)[pred_cls] + residual
+
     def param2obb(self, center, heading_class, heading_residual, size_class, size_residual):
         heading_angle = self.class2angle(heading_class, heading_residual)
         box_size = self.class2size(int(size_class), size_residual)
@@ -98,6 +114,9 @@ class ScannetConfig(_BaseConfig):
     def class2angle(self, pred_cls, residual, to_label_format=True):
         return np.zeros(np.asarray(pred_cls).shape)
 
+    def class2angle_tensor(self, pred_cls, residual):
+        return torch.zeros(pred_cls.shape, dtype=torch.float32, device=pred_cls.device)
+
 
 class SunrgbdConfig(_BaseConfig):
     """10 classes, 12 heading bins, 10 size clusters
@@ -125,6 +144,11 @@ class SunrgbdConfig(_BaseConfig):
         if to_label_format:
             angle = angle - 2 * np.pi * (angle > np.pi)
         return angle
+
+    def class2angle_tensor(self, pred_cls, residual):
+        """Heading of a bin and residual, in (-pi, pi]."""
+        angle = pred_cls.float() * (2 * np.pi / float(self.num_heading_bin)) + residual
+        return angle - 2 * np.pi * (angle > np.pi).float()
 
     def angle2class(self, angle):
         angle_per_class = 2 * np.pi / float(self.num_heading_bin)

@@ -1,1 +1,1 @@
-"""Box geometry and NMS for the eval path."""
+"""Box geometry, rotated IoU, chamfer distances and NMS."""

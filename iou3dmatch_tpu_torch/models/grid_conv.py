@@ -50,8 +50,10 @@ class GridConv(nn.Module):
 
     def forward(self, center: torch.Tensor, size: torch.Tensor, heading: torch.Tensor,
                 ep: dict) -> dict:
-        """center (B, K, 3), size (B, K, 3) half extents, heading (B, K)."""
-        seed_xyz, seed_features = ep["seed_xyz"], ep["seed_features"]
+        """center (B, K, 3), size (B, K, 3) half extents, heading (B, K).
+        The seeds are detached, as the JAX branch stops their gradient
+        (``grid_conv.py:124-125``): the IoU loss trains this branch only."""
+        seed_xyz, seed_features = ep["seed_xyz"].detach(), ep["seed_features"].detach()
         b, k = size.shape[:2]
         g = GRID_SIZE ** 3
         rel = self.offsets[None, None] * size[:, :, None, :]  # (B, K, 64, 3)

@@ -21,7 +21,21 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Channels-last batch norm with torch's eval semantics, eps 1e-5.
+    """Channels-last batch norm with torch's semantics, eps 1e-5.
+
+    Train mode takes statistics over all leading axes, normalises with the
+    biased batch variance and updates ``running = (1 - m) * running + m *
+    batch`` with the unbiased variance, as the JAX ``BatchNorm``
+    (``iou3dmatch_tpu/models/mlp.py:21-63``) and torch's BatchNorm2d do.
+    ``m`` is ``self.momentum``, set per step by ``set_bn_momentum`` (the
+    reference's BNMomentumScheduler); train mode refuses to run before it
+    is set. The statistics are two-pass, where the JAX package uses one
+    pass: PyTorch's native CUDA kernels (``F.batch_norm``) on the card, and
+    on the CPU ``two_pass``, written out, since PyTorch's CPU kernel loses
+    float32 precision on channels whose mean dwarfs their spread
+    (``tests/torch_grad_precision.py``). The card keeps the native kernels
+    for speed: ``chip_smoke.py`` times both forms at the pretrain step's
+    shapes (PERF.md).
 
     Keys: ``weight``, ``bias``, ``running_mean``, ``running_var`` (no
     ``num_batches_tracked``: nothing reads it)."""
@@ -29,17 +43,46 @@ class BatchNorm(nn.Module):
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.momentum = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "batch statistics come with the training slice; call .eval()")
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps)
+            return (x - self.running_mean) * inv * self.weight + self.bias
+        if self.momentum is None:
+            raise RuntimeError("train-mode BatchNorm needs a momentum: call set_bn_momentum")
+        flat = x.reshape(-1, x.shape[-1])
+        if x.is_cuda:
+            out = F.batch_norm(flat, self.running_mean, self.running_var, self.weight, self.bias,
+                               True, self.momentum, self.eps)
+        else:
+            out = self.two_pass(flat)
+        return out.reshape(x.shape)
+
+    def two_pass(self, flat: torch.Tensor) -> torch.Tensor:
+        """Train mode on (rows, C) with the statistics written out: the mean,
+        then the biased variance of the centred rows; updates the running
+        statistics."""
+        mean = flat.mean(0)
+        centered = flat - mean
+        var = (centered * centered).mean(0)
+        with torch.no_grad():
+            n, m = flat.shape[0], self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var * (n / max(n - 1, 1)))
+        return centered * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+def set_bn_momentum(model: nn.Module, momentum: float) -> None:
+    """Sets the running-statistics momentum of every BatchNorm in ``model``
+    (``train/schedules.py::get_bn_momentum`` gives it per epoch)."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.momentum = float(momentum)
 
 
 class PointwiseConv(nn.Module):

@@ -3,11 +3,13 @@
 Counterpart of ``iou3dmatch_tpu/models/votenet.py`` (reference
 ``models/votenet_iou_branch.py:23-151``): backbone -> voting (with
 L2-normalised vote features) -> proposal decode -> box computation (argmax
-class, HALF sizes) -> GridConv IoU branch. The jittered and IoU-only
-forwards come with the training and IoU-optimisation slices.
+class, HALF sizes) -> GridConv IoU branch, and the training forward
+``forward_with_pred_jitter`` (``votenet.py:137-203``), which adds jittered
+copies of the boxes. The IoU-only forward comes with the IoU-optimisation
+slice.
 """
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +41,7 @@ class VoteNet(nn.Module):
     def class2angle(self, cls: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         """Heading decode; ScanNet (1 bin) is always 0."""
         if self.num_heading_bin == 1:
-            return torch.zeros(cls.shape, dtype=torch.float32, device=cls.device)
+            return torch.zeros(cls.shape, dtype=residual.dtype, device=cls.device)
         angle = cls.float() * (2 * math.pi / self.num_heading_bin) + residual
         return angle - 2 * math.pi * (angle > math.pi).float()
 
@@ -80,3 +82,55 @@ class VoteNet(nn.Module):
         ep = self.forward_backbone(point_clouds, sa1_inds=sa1_inds)
         center, size, heading = self.calculate_bbox(ep)
         return self.grid_conv(center.detach(), size.detach(), heading.detach(), ep)
+
+    def forward_with_pred_jitter(self, point_clouds: torch.Tensor,
+                                 generator: Optional[torch.Generator] = None,
+                                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                                 sa1_inds: Optional[torch.Tensor] = None,
+                                 jitter_rows: Optional[int] = None) -> dict:
+        """Training forward with jittered box copies
+        (votenet_iou_branch.py:157-181): center + size * N(0, 1) * 0.3 and
+        size + size * N(0, 1) * 0.3 clamped at 1e-8, sizes HALF extents.
+
+        ``noise`` gives the two (B, K, 3) standard-normal draws (center,
+        then size); without it they are drawn from ``generator``, which
+        must live on the model's device. With ``jitter_rows`` None
+        GridConv runs on (B, 2K) boxes; with an int nl only the first nl
+        scenes keep jittered copies, which ride along as nl extra scenes
+        sharing those scenes' seeds. The boxes are detached, and
+        ``jitter_size`` holds full extents, as the reference does."""
+        ep = self.forward_backbone(point_clouds, sa1_inds=sa1_inds)
+        center, size, heading = (t.detach() for t in self.calculate_bbox(ep))
+        b, k = heading.shape
+        if noise is None:
+            noise = tuple(torch.randn(size.shape, generator=generator, device=size.device)
+                          for _ in range(2))
+        noise_center, noise_size = noise
+        center_jitter = center + size * noise_center * 0.3
+        size_jitter = (size + size * noise_size * 0.3).clamp(min=1e-8)
+
+        if jitter_rows is None:
+            ep = self.grid_conv(torch.cat([center, center_jitter], 1),
+                                torch.cat([size, size_jitter], 1),
+                                torch.cat([heading, heading], 1), ep)
+            ep["iou_scores_jitter"] = ep["iou_scores"][:, k:]
+            ep["iou_scores"] = ep["iou_scores"][:, :k]
+            ep["jitter_center"] = center_jitter
+            ep["jitter_size"] = size_jitter * 2
+            ep["jitter_heading"] = heading
+            return ep
+
+        nl = jitter_rows
+        center_jitter, size_jitter = center_jitter[:nl], size_jitter[:nl]
+        ep2 = dict(ep)
+        for key in ("seed_xyz", "seed_features", "vote_xyz", "vote_features"):
+            ep2[key] = torch.cat([ep2[key], ep2[key][:nl]], 0)
+        ep2 = self.grid_conv(torch.cat([center, center_jitter], 0),
+                             torch.cat([size, size_jitter], 0),
+                             torch.cat([heading, heading[:nl]], 0), ep2)
+        ep["iou_scores"] = ep2["iou_scores"][:b]
+        ep["iou_scores_jitter"] = ep2["iou_scores"][b:]
+        ep["jitter_center"] = center_jitter
+        ep["jitter_size"] = size_jitter * 2
+        ep["jitter_heading"] = heading[:nl]
+        return ep

@@ -24,11 +24,18 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fps", "ball_query", "gather")
+SOURCES = ("fps", "ball_query", "gather", "gather_bwd", "iou3d")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# iou3d follows its plain version operation by operation, each product and
+# sum rounded on its own: no multiply-add contraction anywhere in the file
+SOURCE_FLAGS = {"iou3d": ("-fmad=false",)}
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 _lock = threading.Lock()
 _libs = {}
@@ -45,7 +52,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -70,7 +77,7 @@ def build(names=SOURCES) -> dict:
         nvcc = nvcc or _nvcc()
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, so)
     logs, failed = {}, []

@@ -12,8 +12,11 @@ the reference CUDA kernels:
   stage in shared memory; ``ball_query_plan`` picks (C, T) from the shape
   and the card's SM count.
 - ``group_points`` (``group_points_gpu.cu:13-79``): a row gather
-  (B, N, C) x (B, m, ns) -> (B, m, ns, C), indices clamped to [0, N-1]. On a
-  CUDA tensor it launches ``csrc/gather.cu``, which has no backward yet.
+  (B, N, C) x (B, m, ns) -> (B, m, ns, C), indices clamped to [0, N-1],
+  differentiable in the table through one ``torch.autograd.Function``. On
+  a CUDA tensor it launches ``csrc/gather.cu``, and its backward
+  ``group_points_backward`` (the segment sum of the cotangent rows into
+  the table rows they came from) launches ``csrc/gather_bwd.cu``.
 
 Each wrapper takes its plain version only for a CPU tensor.
 """
@@ -140,23 +143,21 @@ def group_points_plain(features: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
     return features[rows, idx.long().clamp(0, n - 1)]
 
 
-def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """features: (B, N, C) f32, idx: (B, m, ns) int32 -> (B, m, ns, C)."""
-    if features.device.type == "cpu":
-        return group_points_plain(features, idx)
+def _check_grouping(features: torch.Tensor, idx: torch.Tensor) -> None:
     _build.require(features, torch.float32, "features")
     _build.require(idx, torch.int32, "idx", features.device)
-    if features.requires_grad:
-        raise NotImplementedError(
-            "group_points has no CUDA backward yet; it comes with the training slice")
     if features.dim() != 3 or idx.dim() != 3 or idx.shape[0] != features.shape[0]:
         raise ValueError(
             f"features (B, N, C) and idx (B, m, ns) expected, got "
             f"{tuple(features.shape)} and {tuple(idx.shape)}")
     b, n, c = features.shape
-    m, ns = idx.shape[1:]
-    if b < 1 or n < 1 or c < 1 or m * ns < 1:
+    if b < 1 or n < 1 or c < 1 or idx.shape[1] * idx.shape[2] < 1:
         raise ValueError(f"empty gather: table {tuple(features.shape)}, idx {tuple(idx.shape)}")
+
+
+def _gather_kernel(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    b, n, c = features.shape
+    m, ns = idx.shape[1:]
     out = torch.empty((b, m, ns, c), dtype=torch.float32, device=features.device)
     fn = _build.kernel("gather", "gather_launch",
                        (_build.VP,) * 3 + (_build.INT,) * 4 + (_build.VP,))
@@ -166,4 +167,70 @@ def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _GroupPoints(torch.autograd.Function):
+    """The gather, differentiable in the table only: the custom VJP of the
+    JAX ``group_points`` (``ops/ball_query.py:422-438``). It keeps the
+    indices and N, never the table."""
+
+    @staticmethod
+    def forward(ctx, features, idx):
+        ctx.n = features.shape[1]
+        ctx.save_for_backward(idx)
+        if features.device.type == "cpu":
+            return group_points_plain(features, idx)
+        return _gather_kernel(features, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        return group_points_backward(g.contiguous(), idx, ctx.n), None
+
+
+def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """features: (B, N, C) f32, idx: (B, m, ns) int32 -> (B, m, ns, C).
+    Differentiable in ``features``: the backward is
+    ``group_points_backward``, skipped where the table needs no gradient."""
+    if features.device.type != "cpu":
+        _check_grouping(features, idx)
+    return _GroupPoints.apply(features, idx)
+
+
 group_points.launches = 0
+
+
+def group_points_backward_plain(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch backward of the gather: g (B, m, ns, C), idx (B, m, ns)
+    -> (B, N, C), the rows of g summed into the rows their clamped indices
+    name, in g's dtype (``ops/scatter.py::batched_onehot_segment_sum``)."""
+    b, c = g.shape[0], g.shape[-1]
+    rows = idx.long().clamp(0, n - 1) + n * torch.arange(b, device=g.device)[:, None, None]
+    out = torch.zeros((b * n, c), dtype=g.dtype, device=g.device)
+    out.index_add_(0, rows.reshape(-1), g.reshape(-1, c))
+    return out.reshape(b, n, c)
+
+
+def group_points_backward(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """g: (B, m, ns, C) f32 cotangent of ``group_points``, idx: (B, m, ns)
+    int32 -> (B, N, C) f32 gradient of the table. On a CUDA tensor it
+    launches ``csrc/gather_bwd.cu``: f32 atomic adds, so the order of the
+    sums, and their last bits, change from run to run."""
+    if g.device.type == "cpu":
+        return group_points_backward_plain(g, idx, n)
+    _build.require(g, torch.float32, "g")
+    _build.require(idx, torch.int32, "idx", g.device)
+    if g.dim() != 4 or idx.shape != g.shape[:3] or n < 1 or g.numel() == 0:
+        raise ValueError(f"non-empty g (B, m, ns, C) and idx (B, m, ns) expected with N >= 1, "
+                         f"got {tuple(g.shape)}, {tuple(idx.shape)} and N = {n}")
+    b, m, ns, c = g.shape
+    out = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
+    fn = _build.kernel("gather_bwd", "gather_bwd_launch",
+                       (_build.VP,) * 3 + (_build.INT,) * 4 + (_build.VP,))
+    _build.check(fn(g.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m * ns, c,
+                    _build.stream(g)), "gather_bwd")
+    group_points_backward.launches += 1
+    return out
+
+
+group_points_backward.launches = 0

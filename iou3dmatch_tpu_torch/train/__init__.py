@@ -1,1 +1,1 @@
-"""Weight import and the eval forward."""
+"""Weight import, train state, schedules, the pretrain step and the eval forward."""

@@ -53,14 +53,17 @@ def _leaves(tree, path=()):
 
 def state_dict_from_jax(variables) -> dict:
     """``{"params", "batch_stats"}`` nested dicts of arrays -> the port's
-    state dict of float32 tensors.
+    state dict of float32 tensors. Either collection may be absent: a JAX
+    gradient tree passed as ``{"params": grads}`` gives the gradients under
+    the port's parameter names.
 
     Dense kernels (in, out) become convolution weights: (out, in, 1, 1)
     inside a SharedMLP, (out, in, 1) in the heads. Strict: raises on a leaf
     the key rule cannot place (including a SharedMLP dense bias, which the
     bias-free reference convs have no slot for) or of the wrong rank."""
     out = {}
-    for names, leaf in _leaves({k: variables[k] for k in ("params", "batch_stats")}):
+    for names, leaf in _leaves({k: variables[k] for k in ("params", "batch_stats")
+                                if k in variables}):
         names = [str(n) for n in names]
         key = flax_path_to_torch_key(names)
         val = np.asarray(leaf, dtype=np.float32)

@@ -3,7 +3,10 @@
 Edge cases the full-width run in ``chip_smoke.py`` does not reach: ragged
 sizes, zeroed points and ties, centers without hits, out-of-range indices,
 every gather width, every ball-query instantiation, unaligned scenes,
-ballots that cross nsample. The file imports no JAX, so it runs on a machine with a
+ballots that cross nsample; the gather's backward against an f64 sum with
+repeated and out-of-range indices and more than 65,535 blocks, and the
+gather's gradient through autograd; the rotated IoU on axis-aligned ties,
+degenerate and zero-size boxes and placeholder boxes. The file imports no JAX, so it runs on a machine with a
 card and without JAX; this repository's conftest imports JAX, so run it
 there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 Without a card every test skips.
@@ -12,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from iou3dmatch_tpu_torch.geometry.iou3d import MODES, box_pairs, box_pairs_plain
 from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, ball_query,
                                                  ball_query_plain, group_points,
-                                                 group_points_plain)
+                                                 group_points_backward, group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
                                           fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain, max_active_clusters)
@@ -241,11 +245,121 @@ def test_gather_kernel_matches_plain(cuda, c, offset):
 
 
 def test_gather_kernel_refuses_grad_and_bad_input(cuda):
+    """A table that needs a gradient is checked as strictly as one that
+    does not: the checks run before the autograd Function."""
     tab = torch.randn(1, 10, 4, device=cuda)
     idx = torch.zeros(1, 2, 3, dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        group_points(tab.requires_grad_(), idx)
-    with pytest.raises(TypeError):
-        group_points(tab.detach(), idx.long())
-    with pytest.raises(ValueError):
-        group_points(tab.detach().transpose(1, 2).contiguous().transpose(1, 2), idx)
+    for t in (tab, tab.clone().requires_grad_()):
+        with pytest.raises(TypeError):
+            group_points(t, idx.long())
+        with pytest.raises(ValueError):
+            group_points(t.detach().transpose(1, 2).contiguous().transpose(1, 2), idx)
+        with pytest.raises(ValueError):
+            group_points(t, idx[0])
+
+
+def _f64_segment_sum(g, idx, n):
+    b, c = g.shape[0], g.shape[-1]
+    rows = (idx.long().clamp(0, n - 1) + n * torch.arange(b, device=g.device)[:, None, None])
+    out = torch.zeros(b * n, c, dtype=torch.float64, device=g.device)
+    mag = torch.zeros(b * n, c, dtype=torch.float64, device=g.device)
+    out.index_add_(0, rows.reshape(-1), g.reshape(-1, c).double())
+    mag.index_add_(0, rows.reshape(-1), g.reshape(-1, c).double().abs())
+    return out.reshape(b, n, c), mag.reshape(b, n, c)
+
+
+def _check_gather_bwd(g, idx, n):
+    """Within 1e-5 x (the sum of |g| added into each element) of an f64 sum."""
+    before = group_points_backward.launches
+    got = group_points_backward(g, idx, n)
+    torch.cuda.synchronize()
+    assert group_points_backward.launches == before + 1
+    want, mag = _f64_segment_sum(g, idx, n)
+    assert ((got.double() - want).abs() <= 1e-5 * mag).all()
+
+
+@pytest.mark.parametrize("c", [1, 3, 131, 259])
+def test_gather_bwd_kernel_matches_f64_sum(cuda, c):
+    """Repeated and out-of-range indices (clamped to [0, N-1]); B*U*C not a
+    multiple of the block's elements."""
+    rng = np.random.RandomState(c)
+    idx = torch.from_numpy(rng.randint(-5, 62, (3, 11, 7)).astype(np.int32)).to(cuda)
+    idx[:, 0] = 4  # a ball whose slots all repeat one hit
+    g = torch.from_numpy(rng.randn(3, 11, 7, c).astype(np.float32)).to(cuda)
+    _check_gather_bwd(g, idx, 57)
+
+
+def test_gather_bwd_kernel_all_equal_indices(cuda):
+    """Every cotangent row adds into one table row: the most contention."""
+    g = torch.randn(2, 512, 16, 259, device=cuda)
+    _check_gather_bwd(g, torch.full((2, 512, 16), 7, dtype=torch.int32, device=cuda), 1024)
+
+
+def test_gather_bwd_kernel_more_than_65535_blocks(cuda):
+    """2 x 40,000 x 900 elements: 70,313 blocks of 1,024."""
+    g = torch.randn(2, 40_000, 1, 900, device=cuda)
+    idx = torch.randint(0, 5000, (2, 40_000, 1), dtype=torch.int32, device=cuda)
+    _check_gather_bwd(g, idx, 5000)
+
+
+def test_group_points_gradient_on_the_card(cuda):
+    """The gather's autograd on the card against an f64 CPU reference:
+    forward exact, gradient within atol 1e-5 (f32 atomics against f64)."""
+    rng = np.random.RandomState(9)
+    feats = rng.randn(2, 50, 131)
+    idx = torch.from_numpy(rng.randint(-4, 56, (2, 9, 6)).astype(np.int32))
+    g = torch.from_numpy(rng.randn(2, 9, 6, 131))
+    ref = torch.from_numpy(feats).requires_grad_()
+    group_points_plain(ref, idx).backward(g)
+    tab = torch.from_numpy(feats).float().to(cuda).requires_grad_()
+    before = group_points_backward.launches
+    out = group_points(tab, idx.to(cuda))
+    out.backward(g.float().to(cuda))
+    assert group_points_backward.launches == before + 1
+    assert torch.equal(out.detach().cpu(), group_points_plain(tab.detach().cpu(), idx))
+    torch.testing.assert_close(tab.grad.cpu().double(), ref.grad, rtol=0, atol=1e-5)
+
+
+def _iou_boxes(rng, n, rotated):
+    b = np.zeros((n, 7), np.float32)
+    b[:, 0:3] = rng.uniform(-1.5, 1.5, (n, 3))
+    b[:, 3:6] = rng.uniform(0.2, 1.5, (n, 3))
+    if rotated:
+        b[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    return b
+
+
+def _iou_case(name):
+    rng = np.random.RandomState(len(name))
+    a, b = _iou_boxes(rng, 2 * 40, name == "rotated"), _iou_boxes(rng, 2 * 24, name == "rotated")
+    if name == "axis_aligned_ties":
+        a[:24] = b[:24]  # coinciding candidates tie in angle
+        a[24:48, 0:2] = np.round(b[:24, 0:2], 1)
+        a[24:48, 3:5] = np.round(b[:24, 3:5], 1)
+        b[24:, 0] = a[24:48, 0] + a[24:48, 3]  # edges that touch
+    elif name == "degenerate":
+        a[:20, 3] = 0.0  # zero width
+        a[20:40, 3:6] = 0.0  # a point
+        b[:10] = a[40:50]
+        b[:10, 6] = a[40:50, 6] + np.float32(np.pi / 2)  # a square turned a quarter
+        a[50:60, 3:5] = 1e-6  # tinier than the 1e-2 margin
+    elif name == "placeholders":
+        b[::2, 0:3] = -1000.0
+    return a.reshape(2, 40, 7), b.reshape(2, 24, 7)
+
+
+@pytest.mark.parametrize("case", ["rotated", "axis_aligned_ties", "degenerate", "placeholders"])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_iou_kernel_matches_plain(cuda, case, mode):
+    """Each mode against the plain version on the card and on the CPU, atol 1e-5."""
+    a, b = (torch.from_numpy(x) for x in _iou_case(case))
+    before = box_pairs.launches
+    got = box_pairs(a.to(cuda), b.to(cuda), mode)
+    torch.cuda.synchronize()
+    assert box_pairs.launches == before + 1
+    torch.testing.assert_close(got, box_pairs_plain(a.to(cuda), b.to(cuda), mode),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.cpu(), box_pairs_plain(a, b, mode), rtol=0, atol=1e-5)
+    assert torch.isfinite(got).all()
+    if case == "placeholders":
+        assert (got[:, :, ::2] == 0).all()

@@ -104,10 +104,15 @@ def test_build_votenet_without_cuda_and_device_raises(monkeypatch):
 
 
 def test_batchnorm_refuses_training_mode():
-    from iou3dmatch_tpu_torch.models.mlp import BatchNorm
+    """Train mode refuses to run until the schedule has set a momentum."""
+    from iou3dmatch_tpu_torch.models.mlp import BatchNorm, set_bn_momentum
 
-    with pytest.raises(NotImplementedError, match="training slice"):
-        BatchNorm(4).train()(torch.zeros(2, 4))
+    bn = BatchNorm(4).train()
+    with pytest.raises(RuntimeError, match="set_bn_momentum"):
+        bn(torch.zeros(2, 4))
+    set_bn_momentum(bn, 0.5)
+    assert torch.equal(bn(torch.ones(2, 4)), torch.zeros(2, 4))
+    assert torch.equal(bn.running_mean, torch.full((4,), 0.5))
 
 
 def test_one_seed_gives_one_model():
