@@ -7,18 +7,19 @@ card and the CUDA toolkit (``nvcc``); it builds the kernels from
 reported on its own line; a failed check raises and the exit code is not 0:
 
 1. the card (``nvidia-smi`` name and power limit), versions, TF32 flags;
-2. the kernels' build, one ``nvcc`` per source, all in parallel, and each
-   FPS variant's registers and spills from the compiler output kept beside
-   its library;
+2. the kernels' build, one ``nvcc`` per source, all in parallel, and every
+   kernel's registers, stack frame and spills from the compiler output kept
+   beside its library;
 3. each kernel against its plain PyTorch version on the card, at every shape
    the full-width ScanNet forward and pretrain step launch it at (FPS also
    at the SSL step's 24 clouds; the ball query also on surface scenes and at
-   the SSL forward's 12 clouds; the rotated IoU also on rotated boxes),
-   with CUDA-event timings of kernel, plain version and library call, FPS's
-   and the ball query's launch plans; FPS, the ball query and the gather
-   must be exactly equal, the gather's backward within 1e-5 x the sum of
-   |g| of each element of an f64 sum, the IoU within atol 1e-5; it fails if
-   a planned FPS variant spills;
+   the SSL forward's 12 clouds; the gather's backward also at SA2 of the SSL
+   student's 12 scenes; the rotated IoU also on rotated boxes), with
+   CUDA-event timings of kernel, plain version and library call, and the
+   launch plans of FPS, the ball query and the gather's backward; FPS, the
+   ball query and the gather must be exactly equal, the gather's backward
+   within 1e-5 x the sum of |g| of each element of an f64 sum, the IoU
+   within atol 1e-5; it fails if a planned FPS variant spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene;
 5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
    and IoU-guided class-aware NMS, with the kernels' launch counts;
@@ -32,11 +33,13 @@ reported on its own line; a failed check raises and the exit code is not 0:
    in the card's form and in the CPU's.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
-lines. It also runs from another checkout's root, one whose ball query has
-no launch plan, so that two versions of the kernels are timed on one card
-in one call. ``--fps-sweep`` adds FPS over every cluster x block size of
-FPS_SWEEP at the serving shape to phase 3; ``--bq-sweep`` adds the ball
-query over every (C, T) of BQ_SWEEP at each of its shapes.
+lines. It also runs from another checkout's root, one whose ball query or
+gather backward has no launch plan or whose IoU has no reject rule, so
+that two versions of the kernels are timed on one card in one call.
+``--fps-sweep`` adds FPS over every cluster x block size of FPS_SWEEP at
+the serving shape to phase 3; ``--bq-sweep`` adds the ball query over every
+(C, T) of BQ_SWEEP at each of its shapes; ``--gbwd-sweep`` the gather's
+backward over every count of sum blocks of GBWD_SWEEP at each of its shapes.
 
 The model is the full-width ScanNet VoteNet (128 proposals, height channel,
 SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
@@ -78,6 +81,14 @@ try:
     from iou3dmatch_tpu_torch.ops.ball_query import BallQueryLaunch, ball_query_plan
 except ImportError:  # a ball query of one warp per center, timed with --kernels-only
     BallQueryLaunch = ball_query_plan = None
+try:
+    from iou3dmatch_tpu_torch.ops.ball_query import GatherBwdLaunch, gather_bwd_plan
+except ImportError:  # a gather backward of L2 atomics, timed with --kernels-only
+    GatherBwdLaunch = gather_bwd_plan = None
+try:
+    from iou3dmatch_tpu_torch.geometry.iou3d import pairs_apart
+except ImportError:  # an IoU kernel without the reject, timed with --kernels-only
+    pairs_apart = None
 
 B, N, NPOINT = 8, 40_000, 2048
 K, G = 128, 64  # proposals; GT slots a scene (max_num_obj)
@@ -99,19 +110,19 @@ BQ_SWEEP = [(c, t) for c in (1, 2, 4, 8) for t in (512, 1024, 2048)]  # (centers
 # The rotated IoU's operations, counted from csrc/iou3d.cu as in the plain
 # version, each product and sum one instruction. What the function needs:
 # each box's corners (44 with a sine and a cosine) and its x, y and z
-# extents (19, grown by IOU_REACH), once a box; a reject test a pair (6
-# compares, 5 ors, 1 select), which gives 0 where the extents do not meet;
+# extents (19, grown by their reach), once a box; a reject test a pair (6
+# compares, 5 ors, 1 select), which gives 0 where ``pairs_apart`` holds;
 # for a pair whose extents meet, 16 edge intersections (94 each), 8
 # containment tests (118 in all) and the z overlap and union (21); for one
 # with n > 0 candidates the centroid (98), per candidate an angle (3) and a
-# fan term (6), and a sort of n ceil(log2 n) compares. The kernel does the
-# full pair work, corners included, for every pair: scan_bound_ms counts that.
+# fan term (6), and a sort of n ceil(log2 n) compares. scan_bound_ms counts
+# the full pair work, corners included, for every pair.
 IOU_BOX_OPS = 44 + 19
 IOU_REJECT_OPS = 12
 IOU_PAIR_OPS = 16 * 94 + 118 + 21
 IOU_HIT_OPS = 98
 IOU_VERTEX_OPS = 9
-IOU_REACH = 1.5e-2  # the 1e-2 containment margin, in a box's frame, reaches sqrt(2) x 1e-2 along x or y
+GBWD_SWEEP = (4, 8, 16, 32, 64, 128, 256)  # the gather backward's sum blocks a scene, channel group
 KERNELS = {
     "fps": furthest_point_sample,
     "ball_query": ball_query,
@@ -295,7 +306,25 @@ def bq_sweep(label, args, want):
     say(phase="bq_sweep", shape=label, rows=rows)
 
 
-def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool = False) -> dict:
+def gbwd_sweep(label, args, agree, lists):
+    """The gather backward with every count of sum blocks a scene of
+    GBWD_SWEEP, and the planned list blocks, on one set of inputs, each held
+    to the f64 sum; times only, nothing counted."""
+    g, idx, n = args
+    b, c = g.shape[0], g.shape[-1]
+    rows = []
+    for parts in GBWD_SWEEP:
+        launch = GatherBwdLaunch(parts, lists)
+        ok = bool(agree(group_points_backward(g, idx, n, launch)))
+        ms = cuda_ms(lambda: group_points_backward(g, idx, n, launch), 5, 5)
+        rows.append({"plan": list(launch), "blocks": launch.blocks(b, c), "ok": ok, "ms": ms})
+        if not ok:
+            raise AssertionError(f"gather backward at {label} with {launch} is off the f64 sum")
+    say(phase="gbwd_sweep", shape=label, rows=rows)
+
+
+def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool = False,
+                  gbwd_sweep_on: bool = False) -> dict:
     pc = torch.from_numpy(make_scenes(1, B, N)).to(dev)
     rows = {}
     xyz, inds, r = fps_rows(dev, ops_per_s, B, True)
@@ -335,33 +364,51 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     rows_idx = torch.arange(B, device=dev)[:, None]
     gen = torch.Generator(device=dev).manual_seed(8)
 
-    def gather_bwd(label, table, idx):
-        """The gather's backward at the pretrain step's shape: a cotangent
-        like the gather's output; each element of the kernel's and of the
-        plain f32 sum within 1e-5 x (the sum of |g| added into it) of an
-        f64 sum. The bound counts g, the indices and the output once."""
+    def gather_bwd(label, table, idx, main=True):
+        """The gather's backward into a table of ``table``'s shape, at a
+        pretrain step's shape: a cotangent like the gather's output; each
+        element of the kernel's and of the plain f32 sum within 1e-5 x (the
+        sum of |g| added into it) of an f64 sum. The bound counts g, the
+        indices and the output once."""
         b, n, c = table.shape
         g = torch.randn(idx.shape + (c,), generator=gen, device=dev)
-        flat_rows = (idx.long().clamp(0, n - 1) + n * rows_idx[:, :, None]).reshape(-1)
+        flat_rows = (idx.long().clamp(0, n - 1)
+                     + n * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
         g2 = g.reshape(-1, c)
         ref = torch.zeros(b * n, c, dtype=torch.float64, device=dev).index_add_(0, flat_rows, g2.double())
         mag = torch.zeros(b * n, c, dtype=torch.float64, device=dev).index_add_(
             0, flat_rows, g2.double().abs())
+
+        def off(t):
+            return (t.double().reshape(b * n, c) - ref).abs()
+
+        def holds(t):
+            return bool((off(t) <= 1e-5 * mag).all())
+
         errs = []
 
         def agree(got, want):
-            errs.extend(float((t.double().reshape(b * n, c) - ref).abs().max()) for t in (got, want))
-            return all(bool(((t.double().reshape(b * n, c) - ref).abs() <= 1e-5 * mag).all())
-                       for t in (got, want))
+            errs.extend(float(off(t).max()) for t in (got, want))
+            return holds(got) and holds(want)
 
         out = torch.zeros(b * n, c, device=dev)
         library = lambda *_: out.zero_().index_add_(0, flat_rows, g2)  # noqa: E731
         nbytes = (g.numel() + idx.numel() + b * n * c) * 4
+        args = (g, idx, n)
         _, r = check_kernel("gather_bwd", label, group_points_backward, group_points_backward_plain,
-                            library, (g, idx, n), nbytes, lambda _: g.numel(), ops_per_s, 10,
-                            agree=agree)
+                            library, args, nbytes, lambda _: g.numel(), ops_per_s, 10,
+                            main=main, agree=agree)
         r["max_abs_err_f64"] = {"kernel": errs[0], "plain": errs[1]}
+        if gather_bwd_plan is None:
+            r["plan"] = "absent: this checkout's gather backward has no launch plan"
+        else:
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan = gather_bwd_plan(b, idx[0].numel(), n, c, n_sm)
+            r["plan"], r["blocks"] = list(plan), plan.blocks(b, c)
+        say(phase="gbwd_plan", shape=label, plan=r["plan"], blocks=r.get("blocks"))
         rows.setdefault("gather_bwd", []).append(r)
+        if gbwd_sweep_on:
+            gbwd_sweep(label, args, holds, r["plan"][1])
 
     def gather(label, table, idx):
         b, n, c = table.shape
@@ -405,6 +452,12 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     _, idx = three_nn(grid, sa2_xyz)
     gather(f"grid_conv ({B},1024,259)x({B},{128 * 64},3)", torch.cat([sa2_xyz, f256], -1), idx)
 
+    # off the step's path: SA2's backward at the SSL student's 12 scenes
+    pts = torch.from_numpy(make_scenes(7, SSL_B, NPOINT)[..., :3].copy()).to(dev)
+    idx = ball_query(0.4, 32, pts, pts[:, :1024].contiguous())
+    gather_bwd(f"sa2 ssl ({SSL_B},{1024 * 32},131)->({SSL_B},{NPOINT},131)",
+               torch.empty((SSL_B, NPOINT, 131), device=dev), idx, main=False)
+
     # off the serving path: SA1 on surface scenes, where most balls fill and
     # the early exit acts, and at the SSL forward's 12 clouds; centers by FPS
     for label, pts in ((f"sa1 surface r0.2 ns64 ({B},{N})x{NPOINT}", make_surface_scenes(6, B, N)),
@@ -429,25 +482,19 @@ def make_boxes(rng, b: int, n: int, rotated: bool) -> np.ndarray:
     return np.concatenate([center, size, heading[..., None]], -1).astype(np.float32)
 
 
-def iou_extent(box: torch.Tensor):
-    """(lo, hi) of (..., 7) boxes' x, y and z, each (..., 3): x and y of the
-    rotated footprint grown by IOU_REACH, z of the box."""
-    c, sn = torch.cos(box[..., 6]).abs(), torch.sin(box[..., 6]).abs()
-    hx, hy = box[..., 3] * 0.5, box[..., 4] * 0.5
-    half = torch.stack([hx * c + hy * sn + IOU_REACH, hx * sn + hy * c + IOU_REACH, box[..., 5] * 0.5], -1)
-    return box[..., :3] - half, box[..., :3] + half
-
-
 def iou_ops(a: torch.Tensor, b: torch.Tensor) -> tuple:
     """(operations the 3D IoU of the pairs of a (B, K, 7) x (B, G, 7) needs,
-    those of the kernel's full work for every pair, pairs that need it)."""
-    px, py, valid = bev_candidates(*torch.broadcast_tensors(a[:, :, None], b[:, None]))
+    those of the full work for every pair, pairs that need it). A checkout
+    without ``pairs_apart`` counts every pair as needed."""
+    rows, cols = a[:, :, None], b[:, None]
+    px, py, valid = bev_candidates(*torch.broadcast_tensors(rows, cols))
     cnt = valid.sum(-1).double()
-    (alo, ahi), (blo, bhi) = iou_extent(a[:, :, None]), iou_extent(b[:, None])
-    meet = (alo < bhi) & (blo < ahi)  # (B, K, G, 3)
-    if bool((cnt[~meet[..., :2].all(-1)] > 0).any()):
-        raise AssertionError("an IoU pair the reject test drops has candidate vertices")
-    need = meet.all(-1)  # the z overlap too: without it the 3D IoU is 0
+    if pairs_apart is None:
+        need = torch.ones_like(valid[..., 0])
+    else:
+        if bool((cnt[pairs_apart(rows, cols, "overlap_bev")] > 0).any()):
+            raise AssertionError("an IoU pair the reject test drops has candidate vertices")
+        need = ~pairs_apart(rows, cols, "iou3d")  # the z overlap too: without it the 3D IoU is 0
     hits = (need & (cnt > 0)).double()
     hit_ops = float((hits * (IOU_HIT_OPS + IOU_VERTEX_OPS * cnt
                              + cnt * torch.ceil(torch.log2(cnt.clamp(min=1))))).sum())
@@ -495,22 +542,51 @@ def iou_rows(dev, ops_per_s, rows):
 FPS_ENTRY = re.compile(r"fps_cluster_kernelILi(\d+)ELi(n?\d+)E")
 
 
+def kernel_name(line: str):
+    """The identifier ending in ``_kernel`` of the nested name in a line's
+    mangled symbol (``_ZN``, then each identifier as its length in digits and
+    its characters), with its integer template arguments as mangled, or
+    None."""
+    m = re.search(r"_ZN(\w+)", line)
+    rest = m[1] if m else ""
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest)[0]
+        ident, rest = rest[len(digits):len(digits) + int(digits)], rest[len(digits) + int(digits):]
+        if ident.endswith("_kernel"):
+            args = re.match(r"I(?:Lin?\d+E)+E", rest)
+            return ident + (args[0] if args else "")
+    return None
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {registers, stack, spill_stores, spill_loads}} of every entry
+    function in ``nvcc -Xptxas -v`` output, the stack frame and spills in
+    bytes; a kernel is named by ``kernel_name``."""
+    found, entry, props = {}, None, None
+    for ln in log.splitlines():
+        name = kernel_name(ln)
+        if "Compiling entry function" in ln:
+            entry = name
+        elif "Function properties for" in ln:
+            props = name
+        elif "spill stores" in ln and props:
+            stack, st, ld = map(int, re.findall(r"(\d+) bytes (?:stack frame|spill)", ln))
+            found.setdefault(props, {}).update(stack=stack, spill_stores=st, spill_loads=ld)
+        elif "Used" in ln and "registers" in ln and entry:
+            found.setdefault(entry, {})["registers"] = int(re.search(r"Used (\d+) registers", ln)[1])
+    return {k: v for k, v in found.items() if "registers" in v}
+
+
 def fps_ptxas(log: str) -> dict:
     """{(threads, ppt): (registers, spill store bytes, spill load bytes)} of
-    every FPS instantiation, from ``nvcc -Xptxas -v`` output."""
-    regs, spills, entry, props = {}, {}, None, None
-    for ln in log.splitlines():
-        m = FPS_ENTRY.search(ln)
-        if "Compiling entry function" in ln:
-            entry = m and (int(m[1]), int(m[2].replace("n", "-")))
-        elif "Function properties for" in ln:
-            props = m and (int(m[1]), int(m[2].replace("n", "-")))
-        elif "spill stores" in ln and props:
-            st, ld = re.findall(r"(\d+) bytes spill", ln)
-            spills[props] = (int(st), int(ld))
-        elif "Used" in ln and "registers" in ln and entry:
-            regs[entry] = int(re.search(r"Used (\d+) registers", ln)[1])
-    return {k: (regs.get(k), *spills.get(k, (None, None))) for k in regs}
+    every FPS instantiation."""
+    out = {}
+    for name, r in ptxas_report(log).items():
+        m = FPS_ENTRY.search(name)
+        if m:
+            out[(int(m[1]), int(m[2].replace("n", "-")))] = (
+                r["registers"], r.get("spill_stores"), r.get("spill_loads"))
+    return out
 
 
 def phase_forward(model_gpu, dev):
@@ -822,7 +898,11 @@ def main() -> int:
                     help="also time FPS at every (cluster, threads) of FPS_SWEEP")
     ap.add_argument("--bq-sweep", action="store_true",
                     help="also time the ball query at every (C, T) of BQ_SWEEP at each of its shapes")
+    ap.add_argument("--gbwd-sweep", action="store_true",
+                    help="also time the gather backward at every GBWD_SWEEP launch at each of its shapes")
     args = ap.parse_args()
+    if args.gbwd_sweep and GatherBwdLaunch is None:
+        ap.error("--gbwd-sweep: this checkout's gather backward takes no launch")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -846,17 +926,16 @@ def main() -> int:
     seconds = time.perf_counter() - t
     if args.kernels_only:
         say(phase="build", seconds=seconds, built=built)
-        phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep)
+        phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep, args.gbwd_sweep)
         return 0
     # read back whether built now or before, so the spill check below always runs
     logs = {name: _build.build_log(name) for name in _build.SOURCES}
     fps_regs = fps_ptxas(logs["fps"])
     say(phase="build", seconds=seconds, built=built,
-        ptxas=[ln.strip() for name, log in logs.items() if name != "fps"
-               for ln in log.splitlines() if "registers" in ln or "spill" in ln],
+        ptxas={name: ptxas_report(log) for name, log in logs.items() if name != "fps"},
         fps_ptxas={f"{t}x{p}": v for (t, p), v in sorted(fps_regs.items())})
 
-    rows = phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep)
+    rows = phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep, args.gbwd_sweep)
     for r in rows["fps"]:  # the planned variants keep their share on chip, without spills
         key = (r["launch"]["threads"], r["launch"]["ppt"])
         if key not in fps_regs or fps_regs[key][1:] != (0, 0):

@@ -1,5 +1,5 @@
 // Rotated box overlap and IoU of paired rows: for each scene b, every box k
-// of boxes_a[b] against every box g of boxes_b[b], one thread a pair.
+// of boxes_a[b] against every box g of boxes_b[b].
 //
 // Replaces the XLA program iou3dmatch_tpu/geometry/iou3d.py::_pair_overlap_bev
 // (vmapped over pairs by boxes_iou3d_paired_rows, boxes_iou3d, boxes_overlap_bev
@@ -8,53 +8,109 @@
 // labels of the proposals and of their jittered copies: (8, 128, 7) x
 // (8, 64, 7) boxes.
 //
-// What bounds it on the H100: operations. A pair reads 56 bytes that are
-// shared with its row and column and writes 4, but computes 16 edge-edge
-// intersections, 8 containment tests, 24 angles, a sort and a fan area:
-// some 2,000 operations. The design keeps a pair in one thread and its 24
-// candidate vertices in the thread's arrays; neither the bound nor a first
-// version asks for more.
+// What bounds it on the H100: at the step's shapes, neither bytes (60 KB)
+// nor operations: a launch and one pair's chain of dependent steps. Only a
+// few pairs can overlap (1,125 of 65,536 at chip_smoke.py's input), so the work
+// is to reject the rest cheaply and to cut each remaining pair's chain:
+//
+// - A block owns kTileA rows of boxes_a x kTileB columns of boxes_b of one
+//   scene (blocks are 1-D over scene x row tiles x column tiles). Each box
+//   is prepared once, in shared memory: its corners, cos and sin of -h, its
+//   corners' x and y extents grown by half the reach, its z range, area and
+//   volume.
+// - Reject: a pair whose grown x or y extents do not meet has no candidate
+//   vertex, and in mode 1 a pair whose z ranges do not overlap has a zero
+//   intersection, so the full computation gives exactly 0 there; it is
+//   written 0 and never computed. No corner lies in the other box's 1e-2
+//   margin past an x or y gap of sqrt(2) x 1e-2, and edges meet only where
+//   the corners' extents do; the reach, 1.5e-2 plus 1e-5 of the boxes'
+//   coordinates, covers that and the rounding (geometry/iou3d.py::pairs_apart
+//   is the same rule in PyTorch, which the CPU tests hold against the
+//   candidates).
+// - The pairs that remain go onto a shared worklist (a warp ballot and one
+//   counter add a warp); each is computed by one warp: lanes 0-15 intersect
+//   edge lane/4 of A with edge lane%4 of B, lanes 16-23 test corner k of B
+//   in A (16 + 2k) and corner k of A in B (17 + 2k), the JAX candidate
+//   order; the centroid is a warp sum over the valid candidates, each lane
+//   takes its candidate's angle with atan2f, and its rank among the valid
+//   ones (a smaller angle, or an equal one and a lower index: the stable
+//   sort of the plain version) by shuffles; the ranked vertices go through
+//   shared memory, and the fan terms are summed by a warp reduction.
 //
 // Exactness against the plain PyTorch version (geometry/iou3d.py), which
-// follows the JAX code step by step: the candidates are made in the JAX
-// order, every product and sum is rounded on its own (this file is built
-// with -fmad=false, see ops/_build.py), the angles come from atan2f, and the
-// sort is a stable insertion sort of the valid candidates, which orders them
-// as the JAX stable sort with invalid candidates last does. ScanNet boxes
-// are axis-aligned, so candidates that coincide tie in angle; the stable sort
-// keeps their candidate order. The sums over candidates run in index order
-// here and in PyTorch's reduction order there, so the two agree to rounding
-// (the card check allows atol 1e-5). Degenerate edges take the general
-// line-line form as the JAX code does; a pair with no valid candidate has
-// overlap 0; placeholder boxes at -1000 overlap nothing.
+// follows the JAX code step by step: the candidates, corners and tests are
+// computed as there, every product and sum rounded on its own (this file is
+// built with -fmad=false, see ops/_build.py), the angles come from atan2f,
+// and tied angles keep candidate order, as coinciding candidates of
+// axis-aligned boxes need. The centroid and the area are summed in another
+// order than PyTorch's, so the two agree to rounding (the card check allows
+// atol 1e-5). Degenerate edges take the general line-line form as the JAX
+// code does; a pair with no valid candidate has overlap 0; placeholder
+// boxes at -1000 overlap nothing.
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileA = 2;  // few rows a block: the pairs left cluster on a scene's first rows
+constexpr int kTileB = 128;
+constexpr int kPairs = kTileA * kTileB;
 constexpr float kEps = 1e-8f;
 constexpr float kMargin = 1e-2f;
+constexpr float kHalfReach = 7.5e-3f;  // each box's share of the 1.5e-2 reach
+constexpr float kRelReach = 1e-5f;     // and of the rounding, by its coordinates
 
-struct Box {
-  float x, y, z, dx, dy, dz, h;
+struct Prep {
+  float x, y, hxm, hym;      // center; half sizes plus the containment margin
+  float c, s;                // cos(-h), sin(-h): into the box's frame
+  float cx[4], cy[4];        // corners
+  float lox, loy, hix, hiy;  // the corners' extents, grown by the box's reach
+  float zmax, zmin, area, vol;
 };
 
-__device__ __forceinline__ Box load_box(const float* p) {
-  return Box{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
-}
-
-// corner order of iou3d_nms_kernel.cu:127-134, rotated about the center
-__device__ __forceinline__ void corners(const Box& b, float* cx, float* cy) {
+// corners in the order of iou3d_nms_kernel.cu:127-134, rotated about the center
+__device__ void prepare(const float* p, Prep& q) {
+  const float x = p[0], y = p[1], z = p[2], dx = p[3], dy = p[4], dz = p[5], h = p[6];
   const float sx[4] = {-1.f, 1.f, 1.f, -1.f};
   const float sy[4] = {-1.f, -1.f, 1.f, 1.f};
-  const float hx = b.dx * 0.5f, hy = b.dy * 0.5f;
-  const float c = cosf(b.h), s = sinf(b.h);
+  const float hx = dx * 0.5f, hy = dy * 0.5f;
+  const float c = cosf(h), s = sinf(h);
+  float lox = 0.f, loy = 0.f, hix = 0.f, hiy = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float lx = sx[i] * hx, ly = sy[i] * hy;
-    cx[i] = lx * c - ly * s + b.x;
-    cy[i] = lx * s + ly * c + b.y;
+    const float px = lx * c - ly * s + x;
+    const float py = lx * s + ly * c + y;
+    q.cx[i] = px;
+    q.cy[i] = py;
+    // from corner 0, so that a NaN box has NaN extents and is never rejected
+    lox = i ? fminf(lox, px) : px;
+    hix = i ? fmaxf(hix, px) : px;
+    loy = i ? fminf(loy, py) : py;
+    hiy = i ? fmaxf(hiy, py) : py;
   }
+  const float reach = kHalfReach + kRelReach * (fabsf(x) + fabsf(y) + fabsf(dx) + fabsf(dy));
+  q.lox = lox - reach;
+  q.hix = hix + reach;
+  q.loy = loy - reach;
+  q.hiy = hiy + reach;
+  q.x = x;
+  q.y = y;
+  q.hxm = hx + kMargin;
+  q.hym = hy + kMargin;
+  q.c = cosf(-h);
+  q.s = sinf(-h);
+  q.zmax = z + dz * 0.5f;
+  q.zmin = z - dz * 0.5f;
+  q.area = dx * dy;
+  q.vol = q.area * dz;
+}
+
+__device__ __forceinline__ bool apart(const Prep& a, const Prep& b, int mode) {
+  if (a.hix < b.lox || b.hix < a.lox || a.hiy < b.loy || b.hiy < a.loy) return true;
+  return mode == 1 && fminf(a.zmax, b.zmax) - fmaxf(a.zmin, b.zmin) <= 0.f;
 }
 
 __device__ __forceinline__ float cross2(float ox, float oy, float ax, float ay, float bx, float by) {
@@ -88,120 +144,129 @@ __device__ __forceinline__ bool intersection(float p0x, float p0y, float p1x, fl
 }
 
 // point inside the box, with the 1e-2 margin (iou3d.py::_check_in_box2d)
-__device__ __forceinline__ bool in_box(const Box& b, float c, float s, float px, float py) {
+__device__ __forceinline__ bool in_box(const Prep& b, float px, float py) {
   const float dx = px - b.x, dy = py - b.y;
-  const float rx = dx * c - dy * s;
-  const float ry = dx * s + dy * c;
-  return fabsf(rx) < b.dx * 0.5f + kMargin && fabsf(ry) < b.dy * 0.5f + kMargin;
+  const float rx = dx * b.c - dy * b.s;
+  const float ry = dx * b.s + dy * b.c;
+  return fabsf(rx) < b.hxm && fabsf(ry) < b.hym;
 }
 
-__device__ float overlap_bev(const Box& a, const Box& b) {
-  float ax[5], ay[5], bx[5], by[5];
-  corners(a, ax, ay);
-  corners(b, bx, by);
-  ax[4] = ax[0];
-  ay[4] = ay[0];
-  bx[4] = bx[0];
-  by[4] = by[0];
+// A butterfly: every lane adds the same pairs, so every lane gets the same bits.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
-  float px[24], py[24];
-  unsigned valid = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = i * 4 + j;
-      if (intersection(ax[i], ay[i], ax[i + 1], ay[i + 1], bx[j], by[j], bx[j + 1], by[j + 1],
-                       px[k], py[k])) {
-        valid |= 1u << k;
-      }
-    }
+// The BEV overlap of one pair, computed by the whole warp; buf holds 48
+// floats of the warp's own.
+__device__ float overlap_bev(const Prep& a, const Prep& b, int lane, float* buf) {
+  float px = 0.f, py = 0.f;
+  bool valid = false;
+  if (lane < 16) {
+    const int i = lane >> 2, j = lane & 3;
+    const int i1 = (i + 1) & 3, j1 = (j + 1) & 3;
+    valid = intersection(a.cx[i], a.cy[i], a.cx[i1], a.cy[i1], b.cx[j], b.cy[j], b.cx[j1], b.cy[j1],
+                         px, py);
+  } else if (lane < 24) {
+    const int k = (lane - 16) >> 1;
+    const Prep& box = lane & 1 ? b : a;     // the box tested against
+    const Prep& other = lane & 1 ? a : b;   // the box whose corner k is tested
+    px = other.cx[k];
+    py = other.cy[k];
+    valid = in_box(box, px, py);
   }
-  const float ca = cosf(-a.h), sa = sinf(-a.h), cb = cosf(-b.h), sb = sinf(-b.h);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    px[16 + 2 * k] = bx[k];
-    py[16 + 2 * k] = by[k];
-    if (in_box(a, ca, sa, bx[k], by[k])) valid |= 1u << (16 + 2 * k);
-    px[17 + 2 * k] = ax[k];
-    py[17 + 2 * k] = ay[k];
-    if (in_box(b, cb, sb, ax[k], ay[k])) valid |= 1u << (17 + 2 * k);
-  }
-  const int cnt = __popc(valid);
+  const int cnt = __popc(__ballot_sync(0xffffffffu, valid));
   if (cnt == 0) return 0.f;
 
   // centroid: every candidate times its 0/1 validity, as the JAX sum does
-  float sx = 0.f, sy = 0.f;
+  const float vf = valid ? 1.f : 0.f;
+  const float cx = warp_sum(px * vf) / static_cast<float>(cnt);
+  const float cy = warp_sum(py * vf) / static_cast<float>(cnt);
+  const float ang = valid ? atan2f(py - cy, px - cx) : CUDART_INF_F;
+  int rank = 0;
 #pragma unroll
-  for (int k = 0; k < 24; ++k) {
-    const float vf = (valid >> k) & 1u ? 1.f : 0.f;
-    sx += px[k] * vf;
-    sy += py[k] * vf;
+  for (int j = 0; j < 24; ++j) {
+    const float aj = __shfl_sync(0xffffffffu, ang, j);
+    rank += aj < ang || (aj == ang && j < lane);
   }
-  const float cx = sx / static_cast<float>(cnt), cy = sy / static_cast<float>(cnt);
-
-  // the valid candidates in candidate order, then a stable insertion sort
-  // by angle: the order of a stable sort of all 24 with invalid ones last
-  float ang[24], qx[24], qy[24];
-  int n = 0;
-#pragma unroll
-  for (int k = 0; k < 24; ++k) {
-    if ((valid >> k) & 1u) {
-      ang[n] = atan2f(py[k] - cy, px[k] - cx);
-      qx[n] = px[k];
-      qy[n] = py[k];
-      ++n;
-    }
+  if (valid) {
+    buf[rank] = px;
+    buf[24 + rank] = py;
   }
-  for (int i = 1; i < n; ++i) {
-    const float ka = ang[i], kx = qx[i], ky = qy[i];
-    int j = i - 1;
-    while (j >= 0 && ang[j] > ka) {
-      ang[j + 1] = ang[j];
-      qx[j + 1] = qx[j];
-      qy[j + 1] = qy[j];
-      --j;
-    }
-    ang[j + 1] = ka;
-    qx[j + 1] = kx;
-    qy[j + 1] = ky;
+  __syncwarp();
+  // fan triangulation from the first sorted vertex: the term of ranks r, r + 1
+  float term = 0.f;
+  if (lane + 1 < cnt) {
+    const float vx0 = buf[lane] - buf[0], vy0 = buf[24 + lane] - buf[24];
+    const float vx1 = buf[lane + 1] - buf[0], vy1 = buf[25 + lane] - buf[24];
+    term = vx0 * vy1 - vx1 * vy0;
   }
-
-  // fan triangulation from the first sorted vertex
-  float area = 0.f;
-  float vx0 = 0.f, vy0 = 0.f;
-  for (int k = 1; k < n; ++k) {
-    const float vx1 = qx[k] - qx[0], vy1 = qy[k] - qy[0];
-    area += vx0 * vy1 - vx1 * vy0;
-    vx0 = vx1;
-    vy0 = vy1;
-  }
-  return fabsf(area) * 0.5f;
+  __syncwarp();
+  return fabsf(warp_sum(term)) * 0.5f;
 }
 
 __global__ void __launch_bounds__(kThreads)
 iou3d_kernel(const float* __restrict__ boxes_a, const float* __restrict__ boxes_b,
-             float* __restrict__ out, int k, int g, int mode, long long total) {
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const long long row = t / g;  // b * k + i
-  const long long b = row / k;
-  const int j = static_cast<int>(t - row * g);
-  const Box a = load_box(boxes_a + row * 7);
-  const Box q = load_box(boxes_b + (b * g + j) * 7);
-  const float overlap = overlap_bev(a, q);
-  float r = overlap;
-  if (mode == 1) {  // 3D IoU: BEV overlap x z overlap / union
-    const float a_zmax = a.z + a.dz * 0.5f, a_zmin = a.z - a.dz * 0.5f;
-    const float b_zmax = q.z + q.dz * 0.5f, b_zmin = q.z - q.dz * 0.5f;
-    const float h = fmaxf(fminf(a_zmax, b_zmax) - fmaxf(a_zmin, b_zmin), 0.f);
-    const float inter = overlap * h;
-    const float vol_a = a.dx * a.dy * a.dz, vol_b = q.dx * q.dy * q.dz;
-    r = inter / fmaxf(vol_a + vol_b - inter, 1e-6f);
-  } else if (mode == 2) {  // BEV IoU
-    r = overlap / fmaxf(a.dx * a.dy + q.dx * q.dy - overlap, 1e-6f);
+             float* __restrict__ out, int k, int g, int mode, int tiles_k, int tiles_g) {
+  __shared__ Prep pa[kTileA];
+  __shared__ Prep pb[kTileB];
+  __shared__ int list[kPairs];  // i * kTileB + j of the pairs left to compute
+  __shared__ int count;
+  __shared__ float buf[kWarps][48];
+
+  const int tid = static_cast<int>(threadIdx.x), lane = tid & 31, warp = tid >> 5;
+  const int tg = static_cast<int>(blockIdx.x % tiles_g);
+  const int tk = static_cast<int>(blockIdx.x / tiles_g % tiles_k);
+  const long long b = blockIdx.x / tiles_g / tiles_k;
+  const int k0 = tk * kTileA, g0 = tg * kTileB;
+  const int nk = min(kTileA, k - k0), ng = min(kTileB, g - g0);
+  if (tid < nk) {
+    prepare(boxes_a + (b * k + k0 + tid) * 7, pa[tid]);
+  } else if (tid >= kTileA && tid - kTileA < ng) {
+    prepare(boxes_b + (b * g + g0 + tid - kTileA) * 7, pb[tid - kTileA]);
   }
-  out[t] = r;
+  if (tid == 0) count = 0;
+  __syncthreads();
+
+  float* o = out + (b * k + k0) * g + g0;
+  for (int p = tid; p < kPairs; p += kThreads) {  // the same trip count on every thread
+    const int i = p / kTileB, j = p % kTileB;
+    bool left = false;
+    if (i < nk && j < ng) {
+      if (apart(pa[i], pb[j], mode)) {
+        o[static_cast<long long>(i) * g + j] = 0.f;
+      } else {
+        left = true;
+      }
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, left);
+    int base = 0;
+    if (lane == 0 && m) base = atomicAdd(&count, __popc(m));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (left) list[base + __popc(m & ((1u << lane) - 1u))] = p;
+  }
+  __syncthreads();
+
+  const int pairs = count;
+  for (int e = warp; e < pairs; e += kWarps) {
+    const int p = list[e];
+    const int i = p / kTileB, j = p % kTileB;
+    const Prep& a = pa[i];
+    const Prep& q = pb[j];
+    const float overlap = overlap_bev(a, q, lane, buf[warp]);
+    if (lane == 0) {
+      float r = overlap;
+      if (mode == 1) {  // 3D IoU: BEV overlap x z overlap / union
+        const float h = fmaxf(fminf(a.zmax, q.zmax) - fmaxf(a.zmin, q.zmin), 0.f);
+        const float inter = overlap * h;
+        r = inter / fmaxf(a.vol + q.vol - inter, 1e-6f);
+      } else if (mode == 2) {  // BEV IoU
+        r = overlap / fmaxf(a.area + q.area - overlap, 1e-6f);
+      }
+      o[static_cast<long long>(i) * g + j] = r;
+    }
+  }
 }
 
 }  // namespace
@@ -210,9 +275,13 @@ iou3d_kernel(const float* __restrict__ boxes_a, const float* __restrict__ boxes_
 // mode 0: BEV overlap, 1: 3D IoU, 2: BEV IoU.
 extern "C" int iou3d_launch(const float* boxes_a, const float* boxes_b, float* out, int b, int k,
                             int g, int mode, cudaStream_t stream) {
-  const long long total = static_cast<long long>(b) * k * g;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  iou3d_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(boxes_a, boxes_b, out, k,
-                                                                       g, mode, total);
+  if (b < 1 || k < 1 || g < 1 || mode < 0 || mode > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles_k = (k + kTileA - 1) / kTileA, tiles_g = (g + kTileB - 1) / kTileB;
+  const long long blocks = static_cast<long long>(b) * tiles_k * tiles_g;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  iou3d_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(boxes_a, boxes_b, out, k, g,
+                                                                       mode, tiles_k, tiles_g);
   return static_cast<int>(cudaGetLastError());
 }

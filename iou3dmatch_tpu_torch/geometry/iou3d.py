@@ -20,8 +20,9 @@ The 3D IoU multiplies it by the z overlap and divides by the union clamped
 at 1e-6. Every pair is independent, so all four entry points are one
 paired computation, ``box_pairs``: rows of B scenes, (B, K, 7) x (B, G, 7)
 -> (B, K, G); an all-pairs product is the paired form with B = 1. On a
-CUDA tensor ``box_pairs`` launches ``csrc/iou3d.cu`` (one thread a pair);
-``box_pairs_plain`` is its plain PyTorch version.
+CUDA tensor ``box_pairs`` launches ``csrc/iou3d.cu``, which writes 0 for
+the pairs ``pairs_apart`` rejects and computes each other pair with one
+warp; ``box_pairs_plain`` is its plain PyTorch version.
 """
 import torch
 
@@ -29,6 +30,12 @@ from ..ops import _build
 
 _EPS = 1e-8
 _MARGIN = 1e-2
+# No corner lies in the other box's 1e-2 margin past an x or y gap of
+# sqrt(2) x 1e-2; REACH covers that, and REL_REACH of a box's coordinates
+# the rounding of its corners and tests. Each box's extents grow by half of
+# REACH (csrc/iou3d.cu kHalfReach, kRelReach).
+REACH = 1.5e-2
+REL_REACH = 1e-5
 MODES = {"overlap_bev": 0, "iou3d": 1, "iou_bev": 2}
 _SX = (-1.0, 1.0, 1.0, -1.0)  # corner order of iou3d_nms_kernel.cu:127-134
 _SY = (-1.0, -1.0, 1.0, 1.0)
@@ -117,6 +124,32 @@ def _overlap_bev(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     k = torch.arange(1, 24, device=px.device)
     area = torch.where(k < cnt[..., None], crosses, 0.0).sum(-1)
     return torch.where(cnt > 0, area.abs() * 0.5, 0.0)
+
+
+def box_extents(box: torch.Tensor):
+    """(..., 7) -> (lo, hi), each (..., 2): the x and y extents of the
+    box's corners, each grown by its reach, 0.5 REACH + REL_REACH x (|x| +
+    |y| + |dx| + |dy|)."""
+    cx, cy = _corners(box)
+    reach = 0.5 * REACH + REL_REACH * box[..., [0, 1, 3, 4]].abs().sum(-1, keepdim=True)
+    return (torch.stack([cx.amin(-1), cy.amin(-1)], -1) - reach,
+            torch.stack([cx.amax(-1), cy.amax(-1)], -1) + reach)
+
+
+def pairs_apart(boxes_a: torch.Tensor, boxes_b: torch.Tensor, mode: str) -> torch.Tensor:
+    """(..., 7) x (..., 7) boxes, broadcast -> (...) bool: where the pair's
+    grown x or y extents do not meet, so that it has no candidate vertex,
+    or, in mode "iou3d", its z ranges do not overlap. ``box_pairs`` is
+    exactly 0 there, and ``csrc/iou3d.cu`` writes 0 without computing the
+    pair. The z test is the plain version's own z overlap."""
+    a, b = boxes_a.float(), boxes_b.float()
+    (alo, ahi), (blo, bhi) = box_extents(a), box_extents(b)
+    apart = ((ahi < blo) | (bhi < alo)).any(-1)
+    if mode == "iou3d":
+        h = (torch.minimum(a[..., 2] + a[..., 5] * 0.5, b[..., 2] + b[..., 5] * 0.5)
+             - torch.maximum(a[..., 2] - a[..., 5] * 0.5, b[..., 2] - b[..., 5] * 0.5))
+        apart = apart | (h <= 0)
+    return apart
 
 
 def box_pairs_plain(boxes_a: torch.Tensor, boxes_b: torch.Tensor, mode: str) -> torch.Tensor:

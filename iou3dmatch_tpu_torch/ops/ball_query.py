@@ -16,7 +16,10 @@ the reference CUDA kernels:
   differentiable in the table through one ``torch.autograd.Function``. On
   a CUDA tensor it launches ``csrc/gather.cu``, and its backward
   ``group_points_backward`` (the segment sum of the cotangent rows into
-  the table rows they came from) launches ``csrc/gather_bwd.cu``.
+  the table rows they came from) launches ``csrc/gather_bwd.cu``: a
+  counting sort of each scene's slots by row, then a warp for each run of
+  whole rows, which writes each row's sum once; ``gather_bwd_plan`` picks
+  the runs from the shape and the SM count.
 
 Each wrapper takes its plain version only for a CPU tensor.
 """
@@ -211,11 +214,66 @@ def group_points_backward_plain(g: torch.Tensor, idx: torch.Tensor, n: int) -> t
     return out.reshape(b, n, c)
 
 
-def group_points_backward(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+GBWD_RUN_WARPS = 8  # runs a block of the sum kernel sums: csrc/gather_bwd.cu kSumWarps
+GBWD_CHUNKS = 3  # 32-channel chunks a sum warp holds: kChunks
+GBWD_BLOCKS_PER_SM = 3  # sum blocks the plan gives every SM
+GBWD_LIST_ROWS = 8192  # rows a list block may own: kListRows
+
+
+def gather_bwd_splits(c: int) -> int:
+    """Sum warps a run of rows takes: one a group of GBWD_CHUNKS 32-channel
+    chunks (2 at C = 131, 3 at C = 259)."""
+    chunks = -(-c // 32)
+    return -(-chunks // GBWD_CHUNKS)
+
+
+class GatherBwdLaunch(NamedTuple):
+    """The two kernels of csrc/gather_bwd.cu. The list kernel runs ``lists``
+    blocks a scene, each owning a range of at most GBWD_LIST_ROWS table
+    rows. The sum kernel runs ``parts`` blocks a scene for each group of
+    channels, each of GBWD_RUN_WARPS warps; each warp sums one of the
+    scene's GBWD_RUN_WARPS x parts runs of whole table rows, cut from its
+    slots sorted by row so that each run holds about as many slots."""
+    parts: int
+    lists: int = 1
+
+    @property
+    def runs(self) -> int:
+        return GBWD_RUN_WARPS * self.parts
+
+    def blocks(self, b: int, c: int) -> int:
+        """The sum kernel's blocks."""
+        return b * self.parts * gather_bwd_splits(c)
+
+    def scratch_ints(self, b: int, u: int) -> int:
+        """The sorted slots and their rows, and each run's first row and
+        first sorted slot, with an end for each."""
+        return 2 * b * u + 2 * b * (self.runs + 1)
+
+
+def gather_bwd_plan(b: int, u: int, n: int, c: int, n_sm: int) -> GatherBwdLaunch:
+    """The launch of the gather's backward for B scenes of U slots into N
+    rows of C channels. Sum kernel: GBWD_BLOCKS_PER_SM blocks an SM (within
+    a few percent of the best of chip_smoke.py's sweep at each of the
+    step's shapes on an H100, PERF.md), never more runs than slots. List
+    kernel: as many blocks a scene as give every scene's blocks an SM of
+    their own (one block of 1,024 threads fills one), or more where a scene
+    has more than GBWD_LIST_ROWS rows a block; never more blocks than
+    rows."""
+    parts = -(-GBWD_BLOCKS_PER_SM * n_sm // (b * gather_bwd_splits(c)))
+    lists = max(-(-n // GBWD_LIST_ROWS), min(n, n_sm // b))
+    return GatherBwdLaunch(max(1, min(parts, u // GBWD_RUN_WARPS)), lists)
+
+
+def group_points_backward(g: torch.Tensor, idx: torch.Tensor, n: int,
+                          launch: Optional[GatherBwdLaunch] = None) -> torch.Tensor:
     """g: (B, m, ns, C) f32 cotangent of ``group_points``, idx: (B, m, ns)
     int32 -> (B, N, C) f32 gradient of the table. On a CUDA tensor it
-    launches ``csrc/gather_bwd.cu``: f32 atomic adds, so the order of the
-    sums, and their last bits, change from run to run."""
+    launches ``csrc/gather_bwd.cu``: a counting sort of each scene's slots
+    by row, then a warp for each run of whole rows (``gather_bwd_plan``, or
+    ``launch``) that sums their cotangent rows and writes each row once. The
+    sort's order within a row, and so the last bits of the sums, change from
+    run to run."""
     if g.device.type == "cpu":
         return group_points_backward_plain(g, idx, n)
     _build.require(g, torch.float32, "g")
@@ -224,11 +282,18 @@ def group_points_backward(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.T
         raise ValueError(f"non-empty g (B, m, ns, C) and idx (B, m, ns) expected with N >= 1, "
                          f"got {tuple(g.shape)}, {tuple(idx.shape)} and N = {n}")
     b, m, ns, c = g.shape
-    out = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
+    u = m * ns
+    if launch is None:
+        launch = gather_bwd_plan(b, u, n, c,
+                                 torch.cuda.get_device_properties(g.device).multi_processor_count)
+    if launch.parts < 1 or not -(-n // GBWD_LIST_ROWS) <= launch.lists <= n:
+        raise ValueError(f"csrc/gather_bwd.cu has no launch {launch} for N = {n}")
+    out = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
+    scratch = torch.empty(launch.scratch_ints(b, u), dtype=torch.int32, device=g.device)
     fn = _build.kernel("gather_bwd", "gather_bwd_launch",
-                       (_build.VP,) * 3 + (_build.INT,) * 4 + (_build.VP,))
-    _build.check(fn(g.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m * ns, c,
-                    _build.stream(g)), "gather_bwd")
+                       (_build.VP,) * 4 + (_build.INT,) * 6 + (_build.VP,))
+    _build.check(fn(g.data_ptr(), idx.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, u, c,
+                    launch.parts, launch.lists, _build.stream(g)), "gather_bwd")
     group_points_backward.launches += 1
     return out
 

@@ -5,19 +5,24 @@ sizes, zeroed points and ties, centers without hits, out-of-range indices,
 every gather width, every ball-query instantiation, unaligned scenes,
 ballots that cross nsample; the gather's backward against an f64 sum with
 repeated and out-of-range indices and more than 65,535 blocks, and the
-gather's gradient through autograd; the rotated IoU on axis-aligned ties,
-degenerate and zero-size boxes and placeholder boxes. The file imports no JAX, so it runs on a machine with a
-card and without JAX; this repository's conftest imports JAX, so run it
-there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
+gather's gradient through autograd, runs planned and forced, empty rows
+and runs, list blocks of thousands of rows, ten channel groups, and first
+hits on low rows; the rotated IoU on axis-aligned ties, degenerate and
+zero-size boxes and placeholder boxes, all pairs of more boxes than one
+tile, and pairs across the reach of the containment margin. The file
+imports no JAX, so it runs on a machine with a card and without JAX; this
+repository's conftest imports JAX, so run it there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 Without a card every test skips.
 """
 import numpy as np
 import pytest
 import torch
+from iou_cases import gap_pairs, random_boxes
 
-from iou3dmatch_tpu_torch.geometry.iou3d import MODES, box_pairs, box_pairs_plain
-from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, ball_query,
-                                                 ball_query_plain, group_points,
+from iou3dmatch_tpu_torch.geometry.iou3d import (MODES, box_pairs, box_pairs_plain, boxes_iou3d,
+                                                 pairs_apart)
+from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, GatherBwdLaunch,
+                                                 ball_query, ball_query_plain, group_points,
                                                  group_points_backward, group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
                                           fps_plan, fps_variant, furthest_point_sample,
@@ -268,10 +273,13 @@ def _f64_segment_sum(g, idx, n):
     return out.reshape(b, n, c), mag.reshape(b, n, c)
 
 
-def _check_gather_bwd(g, idx, n):
-    """Within 1e-5 x (the sum of |g| added into each element) of an f64 sum."""
+def _check_gather_bwd(g, idx, n, launch=None):
+    """Within 1e-5 x (the sum of |g| added into each element) of an f64 sum,
+    so exactly 0 where nothing is added. The output is never zeroed: a
+    block of NaN freed just before is what the allocator hands it."""
+    torch.full((g.shape[0], n, g.shape[-1]), float("nan"), device=g.device)
     before = group_points_backward.launches
-    got = group_points_backward(g, idx, n)
+    got = group_points_backward(g, idx, n, launch)
     torch.cuda.synchronize()
     assert group_points_backward.launches == before + 1
     want, mag = _f64_segment_sum(g, idx, n)
@@ -296,10 +304,46 @@ def test_gather_bwd_kernel_all_equal_indices(cuda):
 
 
 def test_gather_bwd_kernel_more_than_65535_blocks(cuda):
-    """2 x 40,000 x 900 elements: 70,313 blocks of 1,024."""
+    """2 x 40,000 slots of 900 channels into 5,000 rows: 72 M elements of g,
+    ten sum warps a run, one for each group of 96 channels."""
     g = torch.randn(2, 40_000, 1, 900, device=cuda)
     idx = torch.randint(0, 5000, (2, 40_000, 1), dtype=torch.int32, device=cuda)
     _check_gather_bwd(g, idx, 5000)
+
+
+@pytest.mark.parametrize("b,n,u,c,launch", [
+    (2, 40_000, 4096, 4, None),  # more rows than slots: most rows get zeros
+    (1, 1024, 8192, 259, None),
+    (1, 1024, 8192, 259, GatherBwdLaunch(1)),  # one sum block: 8 runs of about 1,024 slots
+    (1, 1024, 8192, 259, GatherBwdLaunch(1000)),  # more runs than rows: most runs empty
+    (200, 20_000, 64, 4, None),  # more scenes than SMs: 3 list blocks of 6,666 rows a scene
+    (2, 500, 4096, 900, None),  # ten channel groups
+    (3, 1, 77, 259, None),  # a one-row table
+    (2, 3, 5000, 1, GatherBwdLaunch(4)),
+])
+def test_gather_bwd_kernel_runs_and_channel_passes(cuda, b, n, u, c, launch):
+    rng = np.random.RandomState(n + c)
+    idx = torch.from_numpy(rng.randint(-3, n + 3, (b, u, 1)).astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.randn(b, u, 1, c).astype(np.float32)).to(cuda)
+    _check_gather_bwd(g, idx, n, launch)
+
+
+def test_gather_bwd_kernel_first_hits_on_low_rows(cuda):
+    """Balls whose first hit is a low row and whose few hits leave the rest
+    of their 32 slots repeating it, as the ball query gives the step."""
+    rng = np.random.RandomState(5)
+    first = np.minimum(rng.geometric(1 / 300, (8, 1024)), 2047)
+    idx = np.repeat(first[..., None], 32, -1)
+    idx[..., 1:4] = rng.randint(0, 2048, (8, 1024, 3))
+    g = torch.randn(8, 1024, 32, 131, device=cuda)
+    _check_gather_bwd(g, torch.from_numpy(idx.astype(np.int32)).to(cuda), 2048)
+
+
+def test_gather_bwd_kernel_refuses_bad_launches(cuda):
+    g = torch.randn(1, 4, 2, 8, device=cuda)
+    idx = torch.zeros(1, 4, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        group_points_backward(g, idx, 10, GatherBwdLaunch(0))
 
 
 def test_group_points_gradient_on_the_card(cuda):
@@ -363,3 +407,32 @@ def test_iou_kernel_matches_plain(cuda, case, mode):
     assert torch.isfinite(got).all()
     if case == "placeholders":
         assert (got[:, :, ::2] == 0).all()
+
+
+def test_iou_kernel_all_pairs_beyond_one_tile(cuda):
+    """B = 1, 1,000 x 1,500 rotated boxes in an 8 m room: 125 row tiles x 12
+    column tiles, every mode, and the all-pairs entry point."""
+    rng = np.random.RandomState(12)
+    a = torch.from_numpy(random_boxes(rng, 1000, True, room=4.0)).to(cuda)[None]
+    b = torch.from_numpy(random_boxes(rng, 1500, True, room=4.0)).to(cuda)[None]
+    for mode in sorted(MODES):
+        got = box_pairs(a, b, mode)
+        torch.testing.assert_close(got, box_pairs_plain(a, b, mode), rtol=0, atol=1e-5)
+        assert (got[pairs_apart(a[0][:, None], b[0][None], mode)[None]] == 0).all()
+    torch.testing.assert_close(boxes_iou3d(a[0], b[0]), box_pairs_plain(a, b, "iou3d")[0],
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("rotated", [False, True])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_iou_kernel_near_the_reach(cuda, mode, rotated):
+    """Pairs whose corners' extents are 0 to 2e-2 apart along x, y, a
+    diagonal and z (tests/iou_cases.py), all against all in one scene and
+    as one pair a scene: the kernel's reject and its warp per pair against
+    the plain version, and 0 wherever pairs_apart rejects."""
+    a, b, _ = gap_pairs(16 + rotated, rotated)
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    for x, y in ((ta[None], tb[None]), (ta[:, None], tb[:, None])):
+        got = box_pairs(x, y, mode)
+        torch.testing.assert_close(got, box_pairs_plain(x, y, mode), rtol=0, atol=1e-5)
+        assert (got[pairs_apart(x[:, :, None], y[:, None], mode)] == 0).all()

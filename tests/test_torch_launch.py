@@ -6,15 +6,20 @@
 here on the CPU against answers an H100 may give: 132 SMs, the answers an
 H100 80GB HBM3 gave for the planned candidates at 40,000 points, and
 GPC layouts that hold fewer clusters. ``ball_query_plan`` is a pure
-function of (B, m, N, the SM count).
+function of (B, m, N, the SM count), and ``gather_bwd_plan`` of (B, U, N,
+C, the SM count); the runs the gather backward's list kernel cuts from a scene's
+slots are emulated here from its rule.
 """
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 
-from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, MAX_TILE, WARPS, BallQueryLaunch,
-                                                 ball_query_plan)
+from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, GBWD_BLOCKS_PER_SM, GBWD_CHUNKS,
+                                                 GBWD_LIST_ROWS, GBWD_RUN_WARPS, MAX_TILE, WARPS,
+                                                 BallQueryLaunch, ball_query_plan, gather_bwd_plan,
+                                                 gather_bwd_splits)
 from iou3dmatch_tpu_torch.ops.fps import (FAST_CLUSTER, GLOBAL, MAX_CLUSTER, PLAN_THREADS,
                                           REG_PPTS, SHARED, SHARED_MAX_POINTS, STREAM_THREADS,
                                           FpsLaunch, fps_candidates, fps_launch_plan,
@@ -162,6 +167,123 @@ def test_ball_query_plan_at_the_forward_shapes():
             ((8, 256, 512), (1, 512)),  # SA4
             ((8, 128, 1024), (1, 1024))]:  # vote aggregation: 128 blocks, 4 SMs idle
         assert tuple(ball_query_plan(b, m, n, N_SM)) == want, (b, m, n)
+
+
+def _gbwd_runs(idx, n, runs):
+    """The runs csrc/gather_bwd.cu's list kernel cuts, emulated: run j's
+    first row is the first whose weighted start (where its sorted slots
+    start, plus its index) is at least ceil(j (U + N) / runs), the last run
+    ends at N; -> (first rows, first sorted slots, the rows' slot counts)."""
+    u = idx.size
+    counts = np.bincount(np.clip(idx, 0, n - 1), minlength=n)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    weighted = start + np.arange(n)
+    rows = [int(np.searchsorted(weighted, -(-j * (u + n) // runs), side="left"))
+            for j in range(runs)] + [n]
+    return rows, [int(start[r]) if r < n else u for r in rows], counts
+
+
+def _gbwd_indices(case, rng):
+    """(indices, N): a ball query's slots, first hits on low rows and balls
+    with few hits repeating theirs; one row named by every slot; a one-row
+    table; more rows than slots; more rows than a list window of 8,192; and
+    indices out of range."""
+    if case == "balls":
+        first = np.minimum(rng.geometric(1 / 300, 1024), 2047)
+        idx = np.repeat(first, 32).reshape(1024, 32)
+        hits = rng.randint(1, 8, 1024)
+        for i, h in enumerate(hits):
+            idx[i, 1:h] = rng.randint(0, 2048, h - 1)
+        return idx.ravel(), 2048
+    if case == "one_row_named":
+        return np.full(8192, 7), 1024
+    if case == "one_row_table":
+        return rng.randint(0, 3, 4096), 1
+    if case == "wide":
+        return rng.randint(0, 40_000, 4096), 40_000
+    if case == "windows":
+        return rng.randint(0, 20_000, 30_000), 20_000
+    return rng.randint(-5, 262, 2000), 257  # out of range: clamped
+
+
+@pytest.mark.parametrize("case", ["balls", "one_row_named", "one_row_table", "wide", "windows",
+                                  "out_of_range"])
+def test_gather_bwd_runs_cover_every_row_and_slot_once(case):
+    idx, n = _gbwd_indices(case, np.random.RandomState(len(case)))
+    u = idx.size
+    for parts in (1, 3, 66, gather_bwd_plan(8, u, n, 131, N_SM).parts):
+        runs = GBWD_RUN_WARPS * parts
+        rows, slots, counts = _gbwd_runs(idx, n, runs)
+        assert rows[0] == 0 and rows[-1] == n and slots[0] == 0 and slots[-1] == u
+        assert all(a <= b for a, b in zip(rows, rows[1:]))  # runs tile [0, N) in order
+        for j in range(runs):
+            assert slots[j + 1] - slots[j] == counts[rows[j]:rows[j + 1]].sum(), (case, parts, j)
+            # about a share of the work, a row's write weighing a slot's add:
+            # at most a share and one row more
+            work = slots[j + 1] - slots[j] + rows[j + 1] - rows[j]
+            assert work <= -(-(u + n) // runs) + counts.max() + 1
+
+
+def test_gather_bwd_channel_groups_cover_every_channel_once():
+    """The sum warps of a run, one for each group of GBWD_CHUNKS 32-channel
+    chunks, lane l on channel 32 q + l of chunk q: C = 1, 3, 131, 259 and
+    900."""
+    for c, splits in ((1, 1), (3, 1), (131, 2), (259, 3), (900, 10)):
+        assert gather_bwd_splits(c) == splits
+        seen = np.zeros(c, int)
+        for split in range(splits):
+            for q in range(GBWD_CHUNKS):
+                for lane in range(32):
+                    ch = 32 * (split * GBWD_CHUNKS + q) + lane
+                    if ch < c:
+                        seen[ch] += 1
+        assert (seen == 1).all(), c
+
+
+def test_gather_bwd_plan_at_the_step_shapes():
+    """GBWD_BLOCKS_PER_SM sum blocks an SM and a list block an SM, in one
+    wave, at the pretrain step's four shapes and SA2 of the SSL student's 12
+    scenes."""
+    for b, u, n, c, parts in [(8, 32768, 2048, 131, 25), (8, 8192, 1024, 259, 17),
+                              (8, 4096, 512, 259, 17), (8, 2048, 1024, 259, 17),
+                              (12, 32768, 2048, 131, 17)]:
+        launch = gather_bwd_plan(b, u, n, c, N_SM)
+        assert launch.parts == parts, (b, u, c)
+        assert GBWD_BLOCKS_PER_SM * N_SM <= launch.blocks(b, c) < (GBWD_BLOCKS_PER_SM + 1) * N_SM
+        assert launch.lists == N_SM // b  # a list block an SM, in one wave
+
+
+def test_gather_bwd_plan_edge_shapes():
+    assert gather_bwd_plan(1, 1, 1, 1, N_SM) == (1, 1)  # one slot, one row
+    assert gather_bwd_plan(1, 4096, 64, 4, N_SM) == (396, 64)  # 3,168 runs; a list block a row
+    assert gather_bwd_plan(1, 1000, 64, 4, N_SM) == (125, 64)  # as many runs as slots
+    assert gather_bwd_plan(200, 4096, 64, 4, N_SM) == (2, 1)  # more scenes than SMs
+    assert gather_bwd_plan(2, 40_000, 40_000, 4, N_SM) == (198, 66)
+    assert gather_bwd_plan(1, 4096, 1_000_000, 4, N_SM).lists == 132  # 7,576 rows a list block
+    assert gather_bwd_plan(1, 4096, 2_000_000, 4, N_SM).lists == 245  # 8,164 rows: over one an SM
+    for b in (1, 2, 8, 12, 24, 64):
+        for u in (1, 7, 32, 2048, 40_000, 300_000):
+            for n, c in ((1, 1), (57, 131), (2048, 900), (100_000, 3)):
+                launch = gather_bwd_plan(b, u, n, c, N_SM)
+                assert launch.parts >= 1
+                assert launch.scratch_ints(b, u) == 2 * b * (u + launch.runs + 1)
+                assert launch.parts == 1 or launch.runs <= u  # never more runs than slots
+                assert 1 <= launch.lists <= n and -(-n // launch.lists) <= GBWD_LIST_ROWS
+
+
+def test_gather_bwd_constants_match_the_source():
+    """The sum kernel's warps and chunks, and the scratch layout of
+    csrc/gather_bwd.cu, are the plan's."""
+    src = (Path(__file__).resolve().parents[1] / "iou3dmatch_tpu_torch" / "csrc"
+           / "gather_bwd.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kSumThreads"] // 32 == GBWD_RUN_WARPS
+    assert "constexpr int kSumWarps = kSumThreads / 32;" in src
+    assert consts["kChunks"] == GBWD_CHUNKS and consts["kListRows"] == GBWD_LIST_ROWS
+    assert "(n + lists - 1) / lists > kListRows" in src
+    assert "const int splits = ((c + 31) / 32 + kChunks - 1) / kChunks;" in src
+    assert "int* went = wrow + static_cast<long long>(b) * (runs + 1);" in src
+    assert "const int runs = parts * kSumWarps;" in src
 
 
 def test_ball_query_instantiations_match_the_source():
