@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's detection forward and pretrain step on one NVIDIA GPU.
+"""Drives the PyTorch port's detection forward, pretrain step and SSL step on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (``nvcc``); it builds the kernels from
@@ -11,15 +11,16 @@ reported on its own line; a failed check raises and the exit code is not 0:
    kernel's registers, stack frame and spills from the compiler output kept
    beside its library;
 3. each kernel against its plain PyTorch version on the card, at every shape
-   the full-width ScanNet forward and pretrain step launch it at (FPS also
-   at the SSL step's 24 clouds; the ball query also on surface scenes and at
-   the SSL forward's 12 clouds; the gather's backward also at SA2 of the SSL
-   student's 12 scenes; the rotated IoU also on rotated boxes), with
-   CUDA-event timings of kernel, plain version and library call, and the
-   launch plans of FPS, the ball query and the gather's backward; FPS, the
-   ball query and the gather must be exactly equal, the gather's backward
-   within 1e-5 x the sum of |g| of each element of an f64 sum, the IoU
-   within atol 1e-5; it fails if a planned FPS variant spills;
+   the full-width ScanNet forward and pretrain step launch it at, and at the
+   SSL step's: FPS at its 24 clouds, the ball query at a forward's 12, the
+   gather's backward at SA2 of the student's 12 scenes, LHS at (8, 64)
+   clustered boxes (off every path: the ball query on surface scenes, the
+   rotated IoU on rotated boxes), with CUDA-event timings of kernel, plain
+   version and library call, and the launch plans of FPS, the ball query and
+   the gather's backward; FPS, the ball query, the gather and LHS must be
+   exactly equal, the gather's backward within 1e-5 x the sum of |g| of each
+   element of an f64 sum, the IoU within atol 1e-5; it fails if a planned
+   FPS variant spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene;
 5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
    and IoU-guided class-aware NMS, with the kernels' launch counts;
@@ -30,12 +31,19 @@ reported on its own line; a failed check raises and the exit code is not 0:
    timed steps of 8 scenes x 40,000 points (ms a step, scenes/s, peak
    memory, launches a step), one step's forward, backward and optimizer
    spans and its profile, and train-mode BatchNorm at that step's inputs
-   in the card's form and in the CPU's.
+   in the card's form and in the CPU's;
+7. SSL: one mean-teacher step of 1 labeled + 1 unlabeled scene on the card
+   against the CPU, ``reference_exact`` with view-stats and thresholds low
+   enough for pseudo labels (the gates of phase 6, pseudo labels on both
+   sides, LHS's keep masks equal between the card, the CPU and its plain
+   version), then 2 warm-up and 5 timed steps at run_train.sh's settings,
+   4 + 8 scenes x 40,000 points (ms a step, scenes/s, peak memory, launches
+   a step), one step's spans (the shared FPS, teacher, student, loss and
+   backward, Adam, EMA), its three_nn and LHS time, and its profile.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
-lines. It also runs from another checkout's root, one whose ball query or
-gather backward has no launch plan or whose IoU has no reject rule, so
-that two versions of the kernels are timed on one card in one call.
+lines. It also runs from the root of another checkout that has the SSL
+step, so that two versions of the kernels are timed on one card in one call.
 ``--fps-sweep`` adds FPS over every cluster x block size of FPS_SWEEP at
 the serving shape to phase 3; ``--bq-sweep`` adds the ball query over every
 (C, T) of BQ_SWEEP at each of its shapes; ``--gbwd-sweep`` the gather's
@@ -45,7 +53,8 @@ The model is the full-width ScanNet VoteNet (128 proposals, height channel,
 SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
 uniform points in a [-3, 3]^2 x [0, 2.5] room with the height channel
 z - min z, made from a NumPy seed; a training scene adds 8-16 boxes of
-ScanNet classes with vote labels on the points inside them. The surface scenes spread their points
+ScanNet classes with vote labels on the points inside them; an SSL
+student sees its scenes flipped, turned and scaled. The surface scenes spread their points
 uniformly by area over the floor and four walls of a 4 x 4 x 2.5 m room, as
 a scan sees it, so that most balls of r 0.2 fill their 64 slots. The last
 two lines are the kernels' JSON and the device JSON.
@@ -62,33 +71,27 @@ import torch
 
 from iou3dmatch_tpu_torch.data.config import get_config
 from iou3dmatch_tpu_torch.eval.ap_helper import eval_config_dict, parse_predictions
-from iou3dmatch_tpu_torch.geometry.iou3d import bev_candidates, box_pairs, box_pairs_plain
+from iou3dmatch_tpu_torch.geometry.iou3d import (bev_candidates, box_pairs, box_pairs_plain,
+                                                 pairs_apart)
+from iou3dmatch_tpu_torch.geometry.nms import lhs_3d_samecls_plain, samecls_iou_aabb
+from iou3dmatch_tpu_torch.losses import unlabeled
 from iou3dmatch_tpu_torch.models.factory import build_votenet
+from iou3dmatch_tpu_torch.models import grid_conv, pointnet2
 from iou3dmatch_tpu_torch.models.mlp import BatchNorm, set_bn_momentum
 from iou3dmatch_tpu_torch.ops import _build
-from iou3dmatch_tpu_torch.ops.ball_query import (ball_query, ball_query_plain,
-                                                 group_points, group_points_backward,
+from iou3dmatch_tpu_torch.ops.ball_query import (BallQueryLaunch, GatherBwdLaunch, ball_query,
+                                                 ball_query_plain, ball_query_plan,
+                                                 gather_bwd_plan, group_points,
+                                                 group_points_backward,
                                                  group_points_backward_plain,
                                                  group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import (fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain)
 from iou3dmatch_tpu_torch.ops.interpolate import three_nn
+from iou3dmatch_tpu_torch.ops.lhs import lhs_3d_samecls
 from iou3dmatch_tpu_torch.train.schedules import get_bn_momentum
 from iou3dmatch_tpu_torch.train.state import create_train_state
-from iou3dmatch_tpu_torch.train.steps import make_eval_forward, make_pretrain_step
-
-try:
-    from iou3dmatch_tpu_torch.ops.ball_query import BallQueryLaunch, ball_query_plan
-except ImportError:  # a ball query of one warp per center, timed with --kernels-only
-    BallQueryLaunch = ball_query_plan = None
-try:
-    from iou3dmatch_tpu_torch.ops.ball_query import GatherBwdLaunch, gather_bwd_plan
-except ImportError:  # a gather backward of L2 atomics, timed with --kernels-only
-    GatherBwdLaunch = gather_bwd_plan = None
-try:
-    from iou3dmatch_tpu_torch.geometry.iou3d import pairs_apart
-except ImportError:  # an IoU kernel without the reject, timed with --kernels-only
-    pairs_apart = None
+from iou3dmatch_tpu_torch.train.steps import make_eval_forward, make_pretrain_step, make_ssl_step
 
 B, N, NPOINT = 8, 40_000, 2048
 K, G = 128, 64  # proposals; GT slots a scene (max_num_obj)
@@ -123,12 +126,24 @@ IOU_PAIR_OPS = 16 * 94 + 118 + 21
 IOU_HIT_OPS = 98
 IOU_VERTEX_OPS = 9
 GBWD_SWEEP = (4, 8, 16, 32, 64, 128, 256)  # the gather backward's sum blocks a scene, channel group
+# LHS's operations, counted from csrc/lhs.cu, each product and sum one
+# instruction: a box's area once (9); in each round, for each box still
+# remaining, its IoU with the winner (3 min, 3 max, 3 sub, 3 clamps, 2 mul,
+# add, sub, div, the class gate and the compare: 19) and its share of the
+# argmax and the bookkeeping (4); for each suppressed box, its rank over
+# its own cluster (4 a cluster box: the flag, two compares, an add). Both
+# depend on the input, so they are counted by replaying its rounds
+# (lhs_work).
+LHS_BOX_OPS = 9
+LHS_ROUND_OPS = 19 + 4
+LHS_RANK_OPS = 4
 KERNELS = {
     "fps": furthest_point_sample,
     "ball_query": ball_query,
     "gather": group_points,
     "gather_bwd": group_points_backward,
     "iou3d": box_pairs,
+    "lhs": lhs_3d_samecls,
 }
 REPLACES = {
     "fps": "iou3dmatch_tpu/ops/fps_pallas.py:46",
@@ -136,7 +151,15 @@ REPLACES = {
     "gather": "iou3dmatch_tpu/ops/gather_pallas.py:35",
     "gather_bwd": "iou3dmatch_tpu/ops/ball_query.py:234",
     "iou3d": "iou3dmatch_tpu/geometry/iou3d.py:94",
+    "lhs": "iou3dmatch_tpu/geometry/nms.py:115",
 }
+SSL_NL, SSL_NU = 4, 8  # run_train.sh: 4 labeled + 8 unlabeled scenes a step
+SSL_LR = 2e-3  # train.py:49
+# The card-vs-CPU SSL step's LHS IoU: a random teacher's proposals rarely
+# overlap within a class, so at the released 0.25 LHS keeps every box and
+# its gate could not tell a kernel that never suppresses; at 0.05 it
+# drops some (ssl_check fails otherwise).
+SSL_CHECK_NMS_IOU = 0.05
 
 
 def say(**kw):
@@ -236,8 +259,8 @@ def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, ops_
                  plain_reps=REPS, main=True, agree=None):
     """Kernel against plain version on ``args``, then timings. ``ops_of``
     counts the instructions the plain result says the work needs, issued at
-    ``ops_per_s``; ``main`` marks a shape of the serving forward or the
-    pretrain step. ``agree(got, want)`` says whether the kernel's result is
+    ``ops_per_s``; ``main`` marks a shape of the serving forward, the
+    pretrain step or the SSL step. ``agree(got, want)`` says whether the kernel's result is
     right; without it, it must equal the plain version's."""
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
@@ -331,7 +354,7 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     rows["fps"] = [r]
     if fps_sweep_on:
         fps_sweep(xyz, inds)
-    rows["fps"].append(fps_rows(dev, ops_per_s, 24, False)[2])  # the SSL step's shared SA1 FPS
+    rows["fps"].append(fps_rows(dev, ops_per_s, 2 * SSL_B, True)[2])  # the SSL step's shared SA1 FPS
 
     def bq(label, radius, ns, pts, ctr, main=True):
         """The bound counts what the function needs: its bytes, or the fewer
@@ -349,11 +372,8 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
             ops_per_s, 5, main=main)
         r["pairs"], r["grid_candidates"] = ball_query_scanned(got, n), cands
         r["scan_bound_ms"] = max(nbytes / HBM_BYTES_PER_S, r["pairs"] * PAIR_OPS / ops_per_s) * 1e3
-        if ball_query_plan is None:
-            r["plan"] = "absent: this checkout's ball query has no launch plan"
-        else:
-            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-            r["plan"] = list(ball_query_plan(b, m, n, n_sm))
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        r["plan"] = list(ball_query_plan(b, m, n, n_sm))
         say(phase="bq_plan", shape=label, pairs=r["pairs"], grid_candidates=cands,
             scan_bound_ms=r["scan_bound_ms"], plan=r["plan"])
         rows.setdefault("ball_query", []).append(r)
@@ -399,12 +419,9 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
                             library, args, nbytes, lambda _: g.numel(), ops_per_s, 10,
                             main=main, agree=agree)
         r["max_abs_err_f64"] = {"kernel": errs[0], "plain": errs[1]}
-        if gather_bwd_plan is None:
-            r["plan"] = "absent: this checkout's gather backward has no launch plan"
-        else:
-            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-            plan = gather_bwd_plan(b, idx[0].numel(), n, c, n_sm)
-            r["plan"], r["blocks"] = list(plan), plan.blocks(b, c)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = gather_bwd_plan(b, idx[0].numel(), n, c, n_sm)
+        r["plan"], r["blocks"] = list(plan), plan.blocks(b, c)
         say(phase="gbwd_plan", shape=label, plan=r["plan"], blocks=r.get("blocks"))
         rows.setdefault("gather_bwd", []).append(r)
         if gbwd_sweep_on:
@@ -452,21 +469,22 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     _, idx = three_nn(grid, sa2_xyz)
     gather(f"grid_conv ({B},1024,259)x({B},{128 * 64},3)", torch.cat([sa2_xyz, f256], -1), idx)
 
-    # off the step's path: SA2's backward at the SSL student's 12 scenes
+    # the SSL step's shapes: SA2's backward at the student's 12 scenes, and
+    # SA1 at a forward's 12 clouds; off every path: SA1 on surface scenes,
+    # where most balls fill and the early exit acts. Centers by FPS
     pts = torch.from_numpy(make_scenes(7, SSL_B, NPOINT)[..., :3].copy()).to(dev)
     idx = ball_query(0.4, 32, pts, pts[:, :1024].contiguous())
     gather_bwd(f"sa2 ssl ({SSL_B},{1024 * 32},131)->({SSL_B},{NPOINT},131)",
-               torch.empty((SSL_B, NPOINT, 131), device=dev), idx, main=False)
-
-    # off the serving path: SA1 on surface scenes, where most balls fill and
-    # the early exit acts, and at the SSL forward's 12 clouds; centers by FPS
-    for label, pts in ((f"sa1 surface r0.2 ns64 ({B},{N})x{NPOINT}", make_surface_scenes(6, B, N)),
-                       (f"sa1 ssl r0.2 ns64 ({SSL_B},{N})x{NPOINT}",
-                        make_scenes(7, SSL_B, N)[..., :3].copy())):
+               torch.empty((SSL_B, NPOINT, 131), device=dev), idx)
+    for label, pts, main in (
+            (f"sa1 surface r0.2 ns64 ({B},{N})x{NPOINT}", make_surface_scenes(6, B, N), False),
+            (f"sa1 ssl r0.2 ns64 ({SSL_B},{N})x{NPOINT}", make_scenes(7, SSL_B, N)[..., :3].copy(),
+             True)):
         pts = torch.from_numpy(pts).to(dev)
         ctr = pts[torch.arange(pts.shape[0], device=dev)[:, None], furthest_point_sample(pts, NPOINT).long()]
-        bq(label, 0.2, 64, pts, ctr, main=False)
+        bq(label, 0.2, 64, pts, ctr, main=main)
     iou_rows(dev, ops_per_s, rows)
+    lhs_rows(dev, ops_per_s, rows)
     return rows
 
 
@@ -484,17 +502,13 @@ def make_boxes(rng, b: int, n: int, rotated: bool) -> np.ndarray:
 
 def iou_ops(a: torch.Tensor, b: torch.Tensor) -> tuple:
     """(operations the 3D IoU of the pairs of a (B, K, 7) x (B, G, 7) needs,
-    those of the full work for every pair, pairs that need it). A checkout
-    without ``pairs_apart`` counts every pair as needed."""
+    those of the full work for every pair, pairs that need it)."""
     rows, cols = a[:, :, None], b[:, None]
     px, py, valid = bev_candidates(*torch.broadcast_tensors(rows, cols))
     cnt = valid.sum(-1).double()
-    if pairs_apart is None:
-        need = torch.ones_like(valid[..., 0])
-    else:
-        if bool((cnt[pairs_apart(rows, cols, "overlap_bev")] > 0).any()):
-            raise AssertionError("an IoU pair the reject test drops has candidate vertices")
-        need = ~pairs_apart(rows, cols, "iou3d")  # the z overlap too: without it the 3D IoU is 0
+    if bool((cnt[pairs_apart(rows, cols, "overlap_bev")] > 0).any()):
+        raise AssertionError("an IoU pair the reject test drops has candidate vertices")
+    need = ~pairs_apart(rows, cols, "iou3d")  # the z overlap too: without it the 3D IoU is 0
     hits = (need & (cnt > 0)).double()
     hit_ops = float((hits * (IOU_HIT_OPS + IOU_VERTEX_OPS * cnt
                              + cnt * torch.ceil(torch.log2(cnt.clamp(min=1))))).sum())
@@ -537,6 +551,69 @@ def iou_rows(dev, ops_per_s, rows):
         say(phase="iou_bound", shape=r["shape"], pairs=B * K * G, pairs_needing_overlap=need,
             scan_bound_ms=r["scan_bound_ms"])
         rows.setdefault("iou3d", []).append(r)
+
+
+def make_lhs_input(seed: int, b: int, k: int) -> tuple:
+    """LHS's input at the SSL step's shape: (b, k) axis-aligned bounds of
+    boxes of ScanNet classes in the room, half of them copies of others
+    moved by N(0, 0.1) m with the same class, as a teacher's clusters of
+    near-duplicate proposals; scores uniform."""
+    rng = np.random.RandomState(seed)
+    box = make_boxes(rng, b, k, False)
+    cls = rng.randint(0, 18, (b, k))
+    src = np.where(rng.rand(b, k) < 0.5, rng.randint(0, k, (b, k)), np.arange(k))
+    box = np.take_along_axis(box, src[..., None], 1)
+    box[..., 0:3] += rng.normal(0, 0.1, (b, k, 3))
+    cls = np.take_along_axis(cls, src, 1)
+    mins, maxs = box[..., 0:3] - box[..., 3:6] / 2, box[..., 0:3] + box[..., 3:6] / 2
+    return (mins.astype(np.float32), maxs.astype(np.float32),
+            rng.rand(b, k).astype(np.float32), cls.astype(np.int64))
+
+
+def lhs_work(mins, maxs, scores, cls, thresh: float) -> tuple:
+    """Replays LHS's rounds on these (B, K) boxes on the host, with the
+    plain version's float32 IoU, until no box remains. Returns (keep mask,
+    rounds, suppressed boxes, box-rounds: the boxes still remaining summed
+    over the rounds, rank pairs: each cluster's size squared summed over
+    the rounds)."""
+    mins, maxs, scores, cls = (x.cpu() for x in (mins, maxs, scores, cls))
+    thresh = float(np.float32(thresh))
+    iou = samecls_iou_aabb(mins, maxs, cls)
+    keep = torch.zeros(scores.shape, dtype=torch.bool)
+    rounds = suppressed = box_rounds = rank_pairs = 0
+    for s in range(scores.shape[0]):
+        sc, left = scores[s].tolist(), list(range(scores.shape[1]))
+        while left:
+            w = max(left, key=lambda i: (sc[i], i))  # ties to the higher index
+            supp = [i for i in left if i != w and float(iou[s, w, i]) > thresh]
+            for i in supp:  # its rank: the cluster boxes of a higher (score, index)
+                keep[s, i] = sum((sc[j], j) > (sc[i], i) for j in supp) < len(supp) // 2
+            keep[s, w] = True
+            rounds, suppressed = rounds + 1, suppressed + len(supp)
+            box_rounds, rank_pairs = box_rounds + len(left), rank_pairs + len(supp) ** 2
+            left = [i for i in left if i != w and i not in supp]
+    return keep, rounds, suppressed, box_rounds, rank_pairs
+
+
+def lhs_rows(dev, ops_per_s, rows, thresh: float = 0.25):
+    """LHS at the SSL step's (8, 64) boxes (``make_lhs_input``): equal to
+    the plain version. The bound counts the work this input needs, from a
+    replay of its rounds (``lhs_work``, itself held to the kernel's keep
+    mask), and each input byte and output byte once."""
+    b, k = SSL_NU, unlabeled.MAX_NUM_OBJ
+    args = [torch.from_numpy(x).to(dev) for x in make_lhs_input(40, b, k)] + [thresh]
+    replay, nrounds, nsupp, box_rounds, rank_pairs = lhs_work(*args)
+    ops = b * k * LHS_BOX_OPS + box_rounds * LHS_ROUND_OPS + rank_pairs * LHS_RANK_OPS
+    nbytes = b * k * (8 * 4 + 1)
+    got, r = check_kernel("lhs", f"({b},{k}) boxes, IoU > {thresh}", lhs_3d_samecls,
+                          lhs_3d_samecls_plain, None, args, nbytes, lambda _: ops, ops_per_s, 10)
+    if not torch.equal(got.cpu(), replay):
+        raise AssertionError("LHS's host replay keeps other boxes than the kernel")
+    r.update(rounds=nrounds, suppressed=nsupp, box_rounds=box_rounds, rank_pairs=rank_pairs,
+             kept=int(got.sum()))
+    say(phase="lhs_work", shape=r["shape"], rounds=nrounds, suppressed=nsupp,
+        box_rounds=box_rounds, rank_pairs=rank_pairs, ops=ops, kept=r["kept"])
+    rows["lhs"] = [r]
 
 
 FPS_ENTRY = re.compile(r"fps_cluster_kernelILi(\d+)ELi(n?\d+)E")
@@ -642,7 +719,7 @@ def phase_serve(model, cfg, dev) -> dict:
             boxes_kept_per_scene=[len(p) // cfg.num_class for p in picks])
     wall_s = time.perf_counter() - t_all
     launches = {k: fn.launches for k, fn in KERNELS.items()}
-    expect = {"fps": 3, "ball_query": 15, "gather": 18, "gather_bwd": 0, "iou3d": 0}
+    expect = {"fps": 3, "ball_query": 15, "gather": 18, "gather_bwd": 0, "iou3d": 0, "lhs": 0}
     say(phase="serve", requests=3, scenes_per_s=3 * B / wall_s, wall_s=wall_s,
         max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches)
     if launches != expect:
@@ -782,7 +859,7 @@ def phase_train(cfg, dev) -> dict:
         adam="torch.optim.Adam, foreach", lr=LR, bn_momentum=momentum)
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses.tolist()}")
-    expect = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2}
+    expect = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2, "lhs": 0}
     if launches != expect:
         raise AssertionError(f"launches a step {launches}, expected {expect}")
     phase_train_profile(model, state, step, batch, momentum)
@@ -849,6 +926,249 @@ def bn_forms(shapes, dev):
     say(phase="bn_forms", layers_a_step=len(shapes), forward_backward_ms_a_step=total)
 
 
+def augment_view(pc: np.ndarray, seed: int) -> tuple:
+    """The student's view of the teacher's clouds ``pc`` (b, N, 4): x and y
+    flipped each with probability 1/2, a rotation about z within 5 degrees
+    and a scale in [0.9, 1.1]. Returns (clouds, the batch's keys that
+    describe it)."""
+    rng = np.random.RandomState(seed)
+    b = pc.shape[0]
+    flip_x, flip_y = rng.randint(0, 2, b), rng.randint(0, 2, b)
+    angle = rng.uniform(-np.pi / 36, np.pi / 36, b).astype(np.float32)
+    rot = np.zeros((b, 3, 3), np.float32)
+    rot[:, 0, 0], rot[:, 0, 1], rot[:, 2, 2] = np.cos(angle), -np.sin(angle), 1.0
+    rot[:, 1, 0], rot[:, 1, 1] = np.sin(angle), np.cos(angle)
+    scale = np.tile(rng.uniform(0.9, 1.1, (b, 1, 1)), (1, 1, 3)).astype(np.float32)
+    sign = np.where(np.stack([flip_x, flip_y, np.zeros(b)], -1) > 0, -1.0, 1.0)[:, None]
+    out = pc.copy()
+    out[..., 0:3] = np.einsum("bnc,bdc->bnd", pc[..., 0:3] * sign, rot) * scale
+    return out.astype(np.float32), {"flip_x_axis": flip_x, "flip_y_axis": flip_y,
+                                    "rot_mat": rot, "rot_angle": angle, "scale": scale}
+
+
+def make_ssl_batch(seed: int, nl: int, nu: int, cfg, anchors=None) -> dict:
+    """``nl`` labeled and ``nu`` unlabeled rooms of ``make_train_batch``,
+    with labels for every scene (view-stats reads the unlabeled ones'); the
+    teacher sees the rooms as made, the student after ``augment_view``.
+    The labels stay in the teacher's frame: the checks compare the card
+    with the CPU, not the labels with the scene."""
+    batch = make_train_batch(seed, nl + nu, cfg, anchors)
+    batch["ema_point_clouds"] = batch["point_clouds"]
+    batch["point_clouds"], aug = augment_view(batch["ema_point_clouds"], seed + 1)
+    batch.update(aug)
+    return batch
+
+
+def teacher_thresholds(pc: np.ndarray, noise, dev, nl: int) -> dict:
+    """Pseudo-label thresholds at the 0.3, 0.3 and 0.2 quantiles of the
+    random teacher's own train-mode objectness, class and IoU scores on the
+    unlabeled scenes of ``pc``, the step's teacher forward on a model of
+    its own: the released 0.9 / 0.9 / 0.25 pass none of a random model's
+    boxes, these pass a share."""
+    model, _ = build_votenet("scannet", device=dev)
+    model.train()
+    set_bn_momentum(model, get_bn_momentum(0))
+    with torch.no_grad():
+        ep = model.forward_with_pred_jitter(torch.from_numpy(pc).to(dev),
+                                            noise=tuple(n.to(dev) for n in noise))
+    pos = torch.softmax(ep["objectness_scores"][nl:], -1)[..., 1]
+    cls = torch.softmax(ep["sem_cls_scores"][nl:], -1)
+    iou = torch.sigmoid(ep["iou_scores"][nl:]).gather(2, cls.argmax(-1, keepdim=True))[..., 0]
+
+    def quantile(x, q):
+        return float(torch.quantile(x.flatten().double(), q))
+
+    return dict(obj_threshold=quantile(pos, 0.3), cls_threshold=quantile(cls.amax(-1), 0.3),
+                iou_threshold=quantile(iou, 0.2))
+
+
+def ssl_check(cfg, dev):
+    """One SSL step of 1 labeled + 1 unlabeled scene on the card and on the
+    CPU, ``reference_exact`` with view-stats, from the same weights, batch
+    and jitter draws, with thresholds low enough for pseudo labels
+    (``teacher_thresholds``) and LHS IoU ``SSL_CHECK_NMS_IOU``: the gates
+    of the pretrain check, FPS indices equal, pseudo labels on both sides,
+    LHS dropping boxes, its keep masks equal between the card and the CPU,
+    and the card's LHS equal to its plain version on the card's inputs."""
+    momentum = get_bn_momentum(0)
+    student_pc, _ = augment_view(make_scenes(50, 2, N), 51)
+    batch = make_ssl_batch(50, 1, 1, cfg, vote_anchors(student_pc, dev))
+    noise = torch.randn((4, 2, K, 3), generator=torch.Generator().manual_seed(52))
+    thr = teacher_thresholds(batch["ema_point_clouds"], (noise[0], noise[1]), dev, 1)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        model, _ = build_votenet("scannet", device=where)  # seed 0: the same weights
+        state = create_train_state(model, with_ema=True)
+        seen, lhs_calls = {}, []
+        hooks = [m.backbone_net.register_forward_hook(
+            lambda mod, a, ep, who=who: seen.__setitem__(who, ep["sa1_inds"].cpu()))
+            for who, m in (("teacher", state.ema_model), ("student", model))]
+
+        def recording(*args):
+            lhs_calls.append((args, lhs_3d_samecls(*args)))
+            return lhs_calls[-1][1]
+
+        unlabeled.lhs_3d_samecls = recording
+        try:
+            t = time.perf_counter()
+            metrics = make_ssl_step(cfg, 1, reference_exact=True, view_stats=True,
+                                    nms_iou=SSL_CHECK_NMS_IOU, **thr)(
+                state, {k: torch.from_numpy(np.asarray(v)).to(where) for k, v in batch.items()},
+                SSL_LR, momentum, noise=((noise[0].to(where), noise[1].to(where)),
+                                         (noise[2].to(where), noise[3].to(where))))
+            loss = float(metrics["loss"])
+            seconds = time.perf_counter() - t
+        finally:
+            unlabeled.lhs_3d_samecls = lhs_3d_samecls
+            for h in hooks:
+                h.remove()
+        (lhs_args, keep), = lhs_calls
+        runs.append(dict(loss=loss, grads=_grads(model), seconds=seconds, keep=keep.cpu(),
+                         inds=torch.cat([seen["teacher"], seen["student"]]), lhs_args=lhs_args,
+                         **{k: float(metrics[k]) for k in ("pos_ratio", "pseudo_gt_ratio")}))
+    gpu, cpu = runs
+    g_gpu, g_cpu = gpu["grads"], cpu["grads"]
+    cos = float(g_gpu @ g_cpu / (g_gpu.norm() * g_cpu.norm()))
+    rel_l2 = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    lhs_plain = lhs_3d_samecls_plain(*gpu["lhs_args"]).cpu()
+    say(phase="ssl_vs_cpu", scenes="1 + 1", points=N, thresholds=thr, nms_iou=SSL_CHECK_NMS_IOU,
+        loss_gpu=gpu["loss"], loss_cpu=cpu["loss"], grad_cosine=cos, grad_rel_l2=rel_l2,
+        pseudo_gt_ratio=gpu["pseudo_gt_ratio"], pseudo_gt_ratio_cpu=cpu["pseudo_gt_ratio"],
+        pos_ratio=gpu["pos_ratio"], pos_ratio_cpu=cpu["pos_ratio"],
+        lhs_kept=int(gpu["keep"].sum()), lhs_boxes=gpu["keep"].numel(),
+        lhs_equal_cpu=bool(torch.equal(gpu["keep"], cpu["keep"])),
+        lhs_equal_plain=bool(torch.equal(gpu["keep"], lhs_plain)), gpu_s=gpu["seconds"],
+        cpu_s=cpu["seconds"], tol=f"loss rtol 2e-3, gradient cosine > 0.999 and relative L2 < "
+                                 f"0.05, pos_ratio >= {MIN_POS_RATIO}, pseudo_gt_ratio > 0, LHS "
+                                 f"drops a box, FPS and LHS equal")
+    if not torch.equal(gpu["inds"], cpu["inds"]):
+        raise AssertionError("the SSL step's FPS indices differ between the card and the CPU")
+    if not (torch.equal(gpu["keep"], cpu["keep"]) and torch.equal(gpu["keep"], lhs_plain)):
+        raise AssertionError("LHS's keep mask differs between the card, its plain version and the CPU")
+    if not int(gpu["keep"].sum()) < gpu["keep"].numel():
+        raise AssertionError("LHS kept every box of the card-vs-CPU step: its gates check nothing")
+    if min(gpu["pos_ratio"], cpu["pos_ratio"]) < MIN_POS_RATIO:
+        raise AssertionError(f"pos_ratio {gpu['pos_ratio']} / {cpu['pos_ratio']}: too few positives")
+    if min(gpu["pseudo_gt_ratio"], cpu["pseudo_gt_ratio"]) <= 0:
+        raise AssertionError("no pseudo label passed the thresholds")
+    if not (np.isfinite(gpu["loss"]) and abs(gpu["loss"] - cpu["loss"]) <= 2e-3 * abs(cpu["loss"])):
+        raise AssertionError(f"SSL step loss {gpu['loss']} on the card, {cpu['loss']} on the CPU")
+    if not (cos > 0.999 and rel_l2 < 0.05):
+        raise AssertionError(f"SSL step gradient: cosine {cos}, relative L2 {rel_l2}")
+
+
+def phase_ssl(cfg, dev) -> dict:
+    """The SSL step: the card-vs-CPU check (``ssl_check``), then 2 warm-up
+    and 5 timed steps at the users' settings (run_train.sh): 4 labeled + 8
+    unlabeled scenes, ``reference_exact`` with view-stats, thresholds 0.9 /
+    0.9 / 0.25, lr 2e-3, epoch 0's BN momentum, EMA decay 0.999; then one
+    step's spans and profile. Returns the kernels' launches over the 5
+    timed steps."""
+    ssl_check(cfg, dev)
+    momentum = get_bn_momentum(0)
+    model, _ = build_votenet("scannet", device=dev)
+    state = create_train_state(model, with_ema=True)
+    step = make_ssl_step(cfg, SSL_NL, reference_exact=True, view_stats=True)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in make_ssl_batch(53, SSL_NL, SSL_NU, cfg).items()}
+    for _ in range(2):
+        step(state, batch, SSL_LR, momentum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    events, metrics = [], []
+    t = time.perf_counter()
+    for _ in range(5):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        metrics.append(step(state, batch, SSL_LR, momentum))
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = {k: v / 5 for k, v in counts.items()}
+    losses = torch.stack([m["loss"] for m in metrics]).cpu()
+    scenes = SSL_NL + SSL_NU
+    say(phase="ssl", scenes=f"{SSL_NL} + {SSL_NU}", points=N, steps=5,
+        step_ms=[a.elapsed_time(e) for a, e in events], wall_ms_per_step=wall_s * 200,
+        scenes_per_s=5 * scenes / wall_s, max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        losses=losses.tolist(), pseudo_gt_ratio=[float(m["pseudo_gt_ratio"]) for m in metrics],
+        launches_per_step=launches, lr=SSL_LR, bn_momentum=momentum, ema_decay=0.999,
+        thresholds="0.9 / 0.9 / 0.25")
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite SSL loss: {losses.tolist()}")
+    expect = {"fps": 1, "ball_query": 10, "gather": 12, "gather_bwd": 4, "iou3d": 3, "lhs": 1}
+    if launches != expect:
+        raise AssertionError(f"SSL launches a step {launches}, expected {expect}")
+    phase_ssl_profile(state, step, batch, momentum)
+    return counts
+
+
+def phase_ssl_profile(state, step, batch, momentum):
+    """One SSL step's spans by CUDA events (the shared FPS, the teacher's
+    forward, the student's, loss and backward, Adam, the EMA), the device
+    time of its three_nn calls and of its LHS, each call timed again on its
+    own inputs, the plain LHS beside it; then one step under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    marks, nn_calls, lhs_calls = {}, [], []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[name] = ev
+
+    def nn_recording(*args):
+        nn_calls.append(args)
+        return three_nn(*args)
+
+    def lhs_recording(*args):
+        lhs_calls.append(args)
+        return lhs_3d_samecls(*args)
+
+    model, opt = state.model, state.optimizer
+    hooks = [state.ema_model.backbone_net.register_forward_pre_hook(lambda *a: mark("teacher")),
+             model.backbone_net.register_forward_pre_hook(lambda *a: mark("student")),
+             model.grid_conv.register_forward_hook(lambda *a: mark("loss_backward")),
+             opt.register_step_pre_hook(lambda *a: mark("adam")),
+             opt.register_step_post_hook(lambda *a: mark("ema"))]
+    grid_conv.three_nn = pointnet2.three_nn = nn_recording
+    unlabeled.lhs_3d_samecls = lhs_recording
+    try:
+        mark("fps")
+        step(state, batch, SSL_LR, momentum)
+        mark("end")
+        torch.cuda.synchronize()
+    finally:
+        grid_conv.three_nn = pointnet2.three_nn = three_nn
+        unlabeled.lhs_3d_samecls = lhs_3d_samecls
+        for h in hooks:
+            h.remove()
+    order = ["fps", "teacher", "student", "loss_backward", "adam", "ema", "end"]
+    span_ms = {a: marks[a].elapsed_time(marks[b]) for a, b in zip(order, order[1:])}
+    nn_ms = [cuda_ms(lambda a=a: three_nn(*a), 1, 5) for a in nn_calls]
+    lhs_ms = sum(cuda_ms(lambda a=a: lhs_3d_samecls(*a), 10, 5) for a in lhs_calls)
+    lhs_plain_ms = sum(cuda_ms(lambda a=a: lhs_3d_samecls_plain(*a), 1, 5) for a in lhs_calls)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, batch, SSL_LR, momentum)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    say(phase="ssl_profile", span_ms=span_ms,
+        three_nn=[[list(a[0].shape), list(a[1].shape), ms] for a, ms in zip(nn_calls, nn_ms)],
+        three_nn_ms_a_step=sum(nn_ms), lhs_ms_a_step=lhs_ms, lhs_plain_ms_a_step=lhs_plain_ms,
+        profiled_wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
+        top_kernels=[[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in kern[:15]])
+
+
 def phase_profile(model, forward, pc):
     """Where one request's forward spends its time: CUDA-event spans per
     layer (host launch time included, as the request sees it), then the
@@ -901,8 +1221,6 @@ def main() -> int:
     ap.add_argument("--gbwd-sweep", action="store_true",
                     help="also time the gather backward at every GBWD_SWEEP launch at each of its shapes")
     args = ap.parse_args()
-    if args.gbwd_sweep and GatherBwdLaunch is None:
-        ap.error("--gbwd-sweep: this checkout's gather backward takes no launch")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -943,15 +1261,16 @@ def main() -> int:
     phase_forward(model, dev)
     serve = phase_serve(model, cfg, dev)
     train = phase_train(cfg, dev)
+    ssl = phase_ssl(cfg, dev)
 
     kernels = []
     for name, checks in rows.items():
-        # the heaviest shape of the serving forward or the pretrain step
+        # the heaviest shape of the serving forward, the pretrain or the SSL step
         first = max((c for c in checks if c["main"]), key=lambda c: c["bound_ms"])
         kernels.append({
             "name": name, "route": "cuda", "source": f"iou3dmatch_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": train[name],  # over the 5 timed train steps
-            "launches_3_requests": serve[name],
+            "replaces": REPLACES[name], "launches": ssl[name],  # over the 5 timed SSL steps
+            "launches_5_train_steps": train[name], "launches_3_requests": serve[name],
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],

@@ -117,6 +117,9 @@ class ScannetConfig(_BaseConfig):
     def class2angle_tensor(self, pred_cls, residual):
         return torch.zeros(pred_cls.shape, dtype=torch.float32, device=pred_cls.device)
 
+    def angle2class_tensor(self, angle):
+        raise NotImplementedError("ScanNet boxes are axis-aligned")
+
 
 class SunrgbdConfig(_BaseConfig):
     """10 classes, 12 heading bins, 10 size clusters
@@ -157,6 +160,15 @@ class SunrgbdConfig(_BaseConfig):
         class_id = int(shifted / angle_per_class)
         residual = shifted - (class_id * angle_per_class + angle_per_class / 2)
         return class_id, residual
+
+    def angle2class_tensor(self, angle: torch.Tensor):
+        """Headings -> (int32 bin, residual from the bin's center)
+        (sunrgbd/model_util_sunrgbd.py:62-78), elementwise."""
+        angle_per_class = 2 * np.pi / float(self.num_heading_bin)
+        shifted = torch.remainder(torch.remainder(angle, 2 * np.pi) + angle_per_class / 2,
+                                  2 * np.pi)
+        class_id = (shifted / angle_per_class).to(torch.int32)
+        return class_id, shifted - (class_id.float() * angle_per_class + angle_per_class / 2)
 
 
 def get_config(dataset: str):

@@ -1,8 +1,9 @@
 """Box corner math and frame conversions.
 
 Counterpart of ``iou3dmatch_tpu/geometry/boxes.py`` (reference
-``utils/box_util.py`` and ``models/ap_helper.py:28-41``): ``rot_gpu`` on
-tensors for the model, the NumPy helpers for the host-side eval path.
+``utils/box_util.py`` and ``models/ap_helper.py:28-41``): ``rot_gpu`` and
+``corners_aabb`` on tensors for the model and the pseudo labels, the NumPy
+helpers for the host-side eval path.
 """
 import numpy as np
 import torch
@@ -20,6 +21,20 @@ def rot_gpu(t: torch.Tensor) -> torch.Tensor:
         torch.stack([-s, c, z], -1),
         torch.stack([z, z, o], -1),
     ], dim=-2)
+
+
+def corners_aabb(center: torch.Tensor, size: torch.Tensor, heading: torch.Tensor):
+    """Axis-aligned bounds of boxes rotated about z, in the depth frame
+    (JAX ``geometry/boxes.py:222-240``): center and size (..., 3), heading
+    (...,) -> (mins, maxs), each (..., 3). The half extents are
+    ``hx |cos| + hy |sin|`` and ``hx |sin| + hy |cos|``, in that order.
+    The reference takes camera-frame corner bounds on the host
+    (``loss_helper_unlabeled.py:441-490``), an axis permutation that
+    leaves the IoU of the bounds unchanged."""
+    hx, hy, hz = size[..., 0] * 0.5, size[..., 1] * 0.5, size[..., 2] * 0.5
+    c, s = torch.cos(heading).abs(), torch.sin(heading).abs()
+    half = torch.stack([hx * c + hy * s, hx * s + hy * c, hz], -1)
+    return center - half, center + half
 
 
 def roty_batch_np(t):

@@ -1,6 +1,6 @@
 """Chamfer nearest-neighbour distances and the Huber loss.
 
-Counterpart of ``iou3dmatch_tpu/geometry/nn_distance.py:9-35`` (reference
+Counterpart of ``iou3dmatch_tpu/geometry/nn_distance.py:9-47`` (reference
 ``utils/nn_distance.py:16-62``): dense (B, N, M) distance matrices, which
 the losses take at most at (8, 128, 64).
 """
@@ -21,6 +21,17 @@ def nn_distance(pc1: torch.Tensor, pc2: torch.Tensor, l1: bool = False):
     the other set (the L1 distance with ``l1``), the first index on ties."""
     diff = pc1[..., :, None, :] - pc2[..., None, :, :]
     d = diff.abs().sum(-1) if l1 else (diff * diff).sum(-1)
+    dist1, idx1 = d.min(-1)
+    dist2, idx2 = d.min(-2)
+    return dist1, idx1, dist2, idx2
+
+
+def nn_distance_withcls(pc1: torch.Tensor, pc2: torch.Tensor, cls1: torch.Tensor,
+                        cls2: torch.Tensor):
+    """``nn_distance`` with 1000 added to the squared distance of every
+    pair of other classes (nn_distance.py:144-178); cls1 (B, N), cls2 (B, M)."""
+    diff = pc1[..., :, None, :] - pc2[..., None, :, :]
+    d = (diff * diff).sum(-1) + (cls1[..., :, None] != cls2[..., None, :]).to(pc1.dtype) * 1000.0
     dist1, idx1 = d.min(-1)
     dist2, idx2 = d.min(-2)
     return dist1, idx1, dist2, idx2

@@ -47,19 +47,35 @@ def pred_boxes_from_scores(pred_center, pred_heading_scores, pred_heading_residu
         return torch.cat([pred_center, size, -angle[..., None]], -1).float()
 
 
-def compute_iou_labels(labels: dict, pred_votes, pred_center, pred_heading_scores,
-                       pred_heading_residuals, pred_size_scores, pred_size_residuals, cfg):
-    """``labels``: the GT dict, already cut to the labeled rows. Returns
-    (iou_labels (B, K), objectness_label (B, K), object_assignment (B, K))."""
-    gt_bbox = _gt_boxes(labels, cfg)
+def proposal_gt_iou(labels: dict, pred_center, pred_heading_scores, pred_heading_residuals,
+                    pred_size_scores, pred_size_residuals, cfg) -> torch.Tensor:
+    """The (B, K, G) rotated IoU of each argmax-decoded proposal with each GT
+    box of its scene, one launch of the IoU kernel."""
     pred_bbox = pred_boxes_from_scores(pred_center, pred_heading_scores, pred_heading_residuals,
                                        pred_size_scores, pred_size_residuals, cfg)
-    iou = boxes_iou3d_paired_rows(pred_bbox, gt_bbox)  # (B, K, G)
+    return boxes_iou3d_paired_rows(pred_bbox, _gt_boxes(labels, cfg))
+
+
+def iou_labels_from(labels: dict, pred_votes, iou: torch.Tensor):
+    """(iou_labels (B, K), objectness_label (B, K), object_assignment
+    (B, K)) from the (B, K, G) ``proposal_gt_iou``."""
     with torch.no_grad():
         dist1, _, _, _ = nn_distance(pred_votes, placeholder_centers(labels))
         objectness_label = (torch.sqrt(dist1 + 1e-6) < NEAR_THRESHOLD).long()
     iou_labels, object_assignment = iou.max(-1)
     return iou_labels, objectness_label, object_assignment
+
+
+def compute_iou_labels(labels: dict, pred_votes, pred_center, pred_heading_scores,
+                       pred_heading_residuals, pred_size_scores, pred_size_residuals, cfg):
+    """``labels``: the GT dict, already cut to the labeled rows. Returns
+    (iou_labels (B, K), objectness_label (B, K), object_assignment (B, K)).
+    The JAX function's ``reverse`` (the whole IoU, for the pseudo labels'
+    coverage) is ``proposal_gt_iou`` here, so that its one matrix serves
+    both."""
+    iou = proposal_gt_iou(labels, pred_center, pred_heading_scores, pred_heading_residuals,
+                          pred_size_scores, pred_size_residuals, cfg)
+    return iou_labels_from(labels, pred_votes, iou)
 
 
 def compute_iou_from_given_size(labels: dict, pred_center, pred_size, pred_heading, cfg):

@@ -2,7 +2,8 @@
 
 Counterparts of ``iou3dmatch_tpu/ops``. FPS, ball query and the grouping
 gather launch hand-written CUDA kernels (``csrc/``) on CUDA tensors and run
-their plain PyTorch versions on CPU tensors.
+their plain PyTorch versions on CPU tensors; so do lower-half suppression
+(``ops/lhs.py``) and the rotated IoU (``geometry/iou3d.py``).
 """
 from .ball_query import ball_query, group_points
 from .fps import furthest_point_sample

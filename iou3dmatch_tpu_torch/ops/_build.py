@@ -24,14 +24,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fps", "ball_query", "gather", "gather_bwd", "iou3d")
+SOURCES = ("fps", "ball_query", "gather", "gather_bwd", "iou3d", "lhs")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# iou3d follows its plain version operation by operation, each product and
-# sum rounded on its own: no multiply-add contraction anywhere in the file
-SOURCE_FLAGS = {"iou3d": ("-fmad=false",)}
+# iou3d and lhs follow their plain versions operation by operation, each
+# product and sum rounded on its own: no multiply-add contraction anywhere
+# in either file
+SOURCE_FLAGS = {"iou3d": ("-fmad=false",), "lhs": ("-fmad=false",)}
 
 
 def _flags(name: str) -> tuple:

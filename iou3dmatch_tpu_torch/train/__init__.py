@@ -1,1 +1,1 @@
-"""Weight import, train state, schedules, the pretrain step and the eval forward."""
+"""Weight import, train state, schedules, the pretrain and SSL steps and the eval forward."""

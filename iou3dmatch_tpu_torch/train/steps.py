@@ -1,16 +1,20 @@
-"""Pretrain step and eval forward.
+"""Pretrain step, SSL step and eval forward.
 
-Counterpart of ``iou3dmatch_tpu/train/steps.py``: ``make_pretrain_step``
-(``:44-76``) and ``make_eval_forward`` (``:222-245``), whose outputs and
+Counterpart of ``iou3dmatch_tpu/train/steps.py``: ``ema_update``
+(``:25-28``), ``make_pretrain_step`` (``:44-76``), ``make_ssl_step``
+(``:79-215``) and ``make_eval_forward`` (``:222-245``), whose outputs and
 eval-loss metrics the port splits into ``make_eval_forward`` and
 ``make_eval_loss``.
 """
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
-from ..losses import get_labeled_loss, get_loss
+from ..losses import get_labeled_loss, get_loss, get_unlabeled_loss
 from ..models.mlp import set_bn_momentum
+from ..ops import furthest_point_sample
 from .state import TrainState
 
 KEEP = (
@@ -46,6 +50,117 @@ def make_pretrain_step(cfg):
         loss.backward()
         opt.step()
         state.step += 1
+        metrics["loss"] = loss
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def ema_update(ema_model: nn.Module, model: nn.Module, alpha: float) -> None:
+    """ema = alpha * ema + (1 - alpha) * param over ``parameters()``, BN
+    affine weights included, in place (train.py:285-289); BN running
+    statistics are not averaged. ``alpha`` and 1 - alpha are rounded to
+    f32, and the two products are rounded before their sum, as in JAX."""
+    alpha = np.float32(alpha)
+    ema = [p.detach() for p in ema_model.parameters()]
+    torch._foreach_mul_(ema, float(alpha))
+    torch._foreach_add_(ema, torch._foreach_mul([p.detach() for p in model.parameters()],
+                                                float(np.float32(1.0) - alpha)))
+
+
+def make_ssl_step(cfg, num_labeled: int, *, unlabeled_weight: float = 2.0,
+                  ema_decay: float = 0.999, obj_threshold: float = 0.9,
+                  cls_threshold: float = 0.9, iou_threshold: float = 0.25,
+                  nms_iou: float = 0.25, use_lhs: bool = True, samecls_match: bool = False,
+                  dataset: str = "scannet", view_stats: bool = False,
+                  reference_exact: bool = False, full_teacher: bool = False,
+                  exact_jitter: bool = False):
+    """Returns ``step(state, batch, lr, bn_momentum, noise=None) ->
+    metrics``, one mean-teacher SSL step (train.py:305-371) on a batch of
+    ``num_labeled`` labeled scenes followed by unlabeled ones. ``state``
+    needs the teacher (``create_train_state(..., with_ema=True)``). In
+    order:
+
+    1. one SA1 FPS over the teacher's and the student's clouds together;
+    2. the teacher, in train mode without gradient, on
+       ``batch["ema_point_clouds"]`` (BN momentum ``bn_momentum``, its own
+       running statistics updated);
+    3. the student's ``forward_with_pred_jitter`` on
+       ``batch["point_clouds"]``;
+    4. ``get_labeled_loss + unlabeled_weight * get_unlabeled_loss``;
+    5. the backward pass and Adam at ``lr``;
+    6. the EMA of the parameters into the teacher with alpha =
+       min(1 - 1/(step + 2), ema_decay), the code's rule (steps.py:200-206;
+       its docstring says step + 1).
+
+    The knobs are the JAX step's. By default the teacher sees only the
+    unlabeled scenes and runs the plain forward, and the student jitters
+    only the labeled scenes: outputs the reference computes and then
+    discards. ``full_teacher`` runs the teacher on every scene;
+    ``exact_jitter`` gives the teacher the jittered forward and the student
+    jittered copies of every scene; ``reference_exact`` implies both.
+
+    ``noise`` optionally gives the jitter draws as (teacher, student), each
+    the two (B, K, 3) standard-normal tensors of
+    ``forward_with_pred_jitter``, the teacher's unused without jittered
+    teacher forward; else they come from ``state.generator``. The step
+    updates ``state`` in place and returns the loss metrics, ``loss``
+    included, as detached tensors on the model's device, without waiting
+    for the card."""
+    teacher_full = reference_exact or full_teacher
+    jitter_full = reference_exact or exact_jitter
+    nl = num_labeled
+    loss_args = dict(obj_threshold=obj_threshold, cls_threshold=cls_threshold,
+                     iou_threshold=iou_threshold, nms_iou=nms_iou, use_lhs=use_lhs,
+                     samecls_match=samecls_match, dataset=dataset, view_stats=view_stats,
+                     ema_rows_are_unlabeled=not teacher_full)
+
+    def step(state: TrainState, batch: dict, lr: float, bn_momentum: float,
+             noise: Optional[Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                   Tuple[torch.Tensor, torch.Tensor]]] = None) -> dict:
+        model, teacher, opt = state.model, state.ema_model, state.optimizer
+        if teacher is None:
+            raise ValueError("the SSL step needs a teacher: create_train_state(..., with_ema=True)")
+        t_noise, s_noise = (None, None) if noise is None else noise
+        for m in (model, teacher):
+            m.train()
+            set_bn_momentum(m, bn_momentum)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.zero_grad(set_to_none=True)
+
+        # one FPS over the teacher's and the student's clouds: a launch of
+        # 2B scenes costs little more than one of B (PERF.md)
+        ema_clouds = batch["ema_point_clouds"]
+        if not teacher_full:
+            ema_clouds = ema_clouds[nl:]
+        point_clouds = batch["point_clouds"]
+        xyz = torch.cat([ema_clouds[..., 0:3], point_clouds[..., 0:3]], 0).contiguous()
+        inds = furthest_point_sample(xyz, model.backbone_net.sa1.npoint)
+        t_inds, s_inds = inds[:ema_clouds.shape[0]], inds[ema_clouds.shape[0]:]
+
+        with torch.no_grad():
+            if jitter_full:
+                ema_ep = teacher.forward_with_pred_jitter(
+                    ema_clouds, generator=state.generator, noise=t_noise, sa1_inds=t_inds)
+            else:
+                ema_ep = teacher(ema_clouds, sa1_inds=t_inds)
+        ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator,
+                                            noise=s_noise, sa1_inds=s_inds,
+                                            jitter_rows=None if jitter_full else nl)
+        sup_loss, metrics = get_labeled_loss(ep, batch, cfg, nl)
+        unsup_loss, m2 = get_unlabeled_loss(ep, ema_ep, batch, cfg, nl, **loss_args)
+        loss = sup_loss + unlabeled_weight * unsup_loss
+        loss.backward()
+        opt.step()
+        # the reference counts the step before the EMA (train.py:353-354)
+        alpha = min(np.float32(1.0) - np.float32(1.0) / (np.float32(state.step) + np.float32(2.0)),
+                    np.float32(ema_decay))
+        ema_update(teacher, model, alpha)
+        state.step += 1
+        metrics.update(m2)
+        metrics["supervised_loss"] = sup_loss
+        metrics["unsupervised_loss"] = unsup_loss
         metrics["loss"] = loss
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -9,7 +9,9 @@ gather's gradient through autograd, runs planned and forced, empty rows
 and runs, list blocks of thousands of rows, ten channel groups, and first
 hits on low rows; the rotated IoU on axis-aligned ties, degenerate and
 zero-size boxes and placeholder boxes, all pairs of more boxes than one
-tile, and pairs across the reach of the containment margin. The file
+tile, and pairs across the reach of the containment margin; lower-half
+suppression on clustered boxes, duplicates, ties, IoUs at the threshold,
+ragged and largest K, and the wrapper's refusals. The file
 imports no JAX, so it runs on a machine with a card and without JAX; this
 repository's conftest imports JAX, so run it there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 Without a card every test skips.
@@ -18,12 +20,16 @@ import numpy as np
 import pytest
 import torch
 from iou_cases import gap_pairs, random_boxes
+from lhs_cases import CASES as LHS_CASES
+from lhs_cases import clustered
 
 from iou3dmatch_tpu_torch.geometry.iou3d import (MODES, box_pairs, box_pairs_plain, boxes_iou3d,
                                                  pairs_apart)
+from iou3dmatch_tpu_torch.geometry.nms import lhs_3d_samecls_plain
 from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, GatherBwdLaunch,
                                                  ball_query, ball_query_plain, group_points,
                                                  group_points_backward, group_points_plain)
+from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
                                           fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain, max_active_clusters)
@@ -436,3 +442,76 @@ def test_iou_kernel_near_the_reach(cuda, mode, rotated):
         got = box_pairs(x, y, mode)
         torch.testing.assert_close(got, box_pairs_plain(x, y, mode), rtol=0, atol=1e-5)
         assert (got[pairs_apart(x[:, :, None], y[:, None], mode)] == 0).all()
+
+
+# --------------------------------------------------- lower-half suppression
+
+def _lhs_on(cuda, case):
+    mins, maxs, scores, cls, thresh = case
+    return [torch.from_numpy(x).to(cuda) for x in (mins, maxs, scores, cls)], thresh
+
+
+def _lhs_edge_cases():
+    """(name, case): shapes and inputs past the step's (8, 64)."""
+    rng = np.random.RandomState(20)
+    one = np.zeros((2, 40, 3), np.float32)
+    same = (one, one + 1.0, rng.rand(2, 40).astype(np.float32), np.zeros((2, 40), np.int64), 0.25)
+    apart = np.arange(50, dtype=np.float32)[None, :, None].repeat(3, 2) * 3.0
+    tied = np.full((1, 50), 0.5, np.float32)
+    return [
+        ("k1", clustered(21, 5, 1, 1)),
+        ("k33_ragged_warp", clustered(22, 4, 33, 2)),
+        ("k100", clustered(23, 2, 100, 3)),
+        ("k1024_largest", clustered(24, 2, MAX_BOXES, 4)),
+        ("one_cluster_of_copies", same),
+        ("no_overlap_all_tied", (apart, apart + 1.0, tied, np.zeros((1, 50), np.int64), 0.25)),
+        ("negative_threshold", clustered(25, 3, 64, 5, thresh=-0.5)),
+        ("many_scenes", clustered(26, 300, 64, 3)),
+    ]
+
+
+@pytest.mark.parametrize("case", sorted(LHS_CASES))
+def test_lhs_kernel_matches_plain(cuda, case):
+    """The CPU test's cases, at (3, 16) and (8, 64) among them: equal keep
+    masks, on the card and against the plain version on the CPU."""
+    args, thresh = _lhs_on(cuda, LHS_CASES[case]())
+    before = lhs_3d_samecls.launches
+    got = lhs_3d_samecls(*args, thresh)
+    torch.cuda.synchronize()
+    assert lhs_3d_samecls.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == args[2].shape
+    assert torch.equal(got, lhs_3d_samecls_plain(*args, thresh))
+    assert torch.equal(got.cpu(), lhs_3d_samecls_plain(*(a.cpu() for a in args), thresh))
+
+
+@pytest.mark.parametrize("name,case", _lhs_edge_cases(),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_lhs_kernel_edge_cases(cuda, name, case):
+    args, thresh = _lhs_on(cuda, case)
+    got = lhs_3d_samecls(*args, thresh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lhs_3d_samecls_plain(*args, thresh)), name
+    if name == "one_cluster_of_copies":  # the winner and the upper half of the other 39
+        assert got.sum(1).tolist() == [1 + 39 // 2] * 2
+    if name == "no_overlap_all_tied":
+        assert bool(got.all())
+
+
+def test_lhs_kernel_refuses_bad_input(cuda):
+    args, thresh = _lhs_on(cuda, clustered(27, 2, 16, 2))
+    mins, maxs, scores, cls = args
+    with pytest.raises(ValueError):
+        lhs_3d_samecls(*_lhs_on(cuda, clustered(28, 1, MAX_BOXES + 1, 2))[0], thresh)
+    with pytest.raises(TypeError):
+        lhs_3d_samecls(mins, maxs, scores, cls.float(), thresh)
+    with pytest.raises(TypeError):
+        lhs_3d_samecls(mins.double(), maxs, scores, cls, thresh)
+    with pytest.raises(ValueError):
+        lhs_3d_samecls(mins, maxs.cpu(), scores, cls, thresh)
+    with pytest.raises(ValueError):
+        lhs_3d_samecls(mins[:, :, :2], maxs, scores, cls, thresh)
+    with pytest.raises(ValueError):
+        lhs_3d_samecls(mins.transpose(0, 1).contiguous().transpose(0, 1), maxs, scores, cls, thresh)
+    # int64 classes are narrowed to int32 for the kernel
+    assert torch.equal(lhs_3d_samecls(mins, maxs, scores, cls.int(), thresh),
+                       lhs_3d_samecls(mins, maxs, scores, cls, thresh))

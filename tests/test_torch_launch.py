@@ -15,6 +15,10 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
+
+from iou3dmatch_tpu_torch.ops import _build
+from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, lhs_3d_samecls
 
 from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, GBWD_BLOCKS_PER_SM, GBWD_CHUNKS,
                                                  GBWD_LIST_ROWS, GBWD_RUN_WARPS, MAX_TILE, WARPS,
@@ -294,3 +298,38 @@ def test_ball_query_instantiations_match_the_source():
     cases = tuple(int(c) for c in re.findall(r"case (\d+): err = launch<\1>", src))
     assert cases == BQ_CENTERS
     assert f"constexpr int kWarps = {WARPS};" in src
+
+
+def _lhs_inputs(b, k):
+    rng = np.random.RandomState(k)
+    lo = torch.from_numpy(rng.uniform(-1, 1, (b, k, 3)).astype(np.float32))
+    return (lo, lo + 0.5, torch.from_numpy(rng.rand(b, k).astype(np.float32)),
+            torch.from_numpy(rng.randint(0, 3, (b, k))))
+
+
+def test_lhs_refuses_more_boxes_than_a_block_holds():
+    """One thread a box in one block: K up to csrc/lhs.cu's kMaxBoxes."""
+    lhs_3d_samecls(*_lhs_inputs(1, MAX_BOXES), 0.25)
+    with pytest.raises(ValueError, match="at most"):
+        lhs_3d_samecls(*_lhs_inputs(1, MAX_BOXES + 1), 0.25)
+    with pytest.raises(TypeError):
+        mins, maxs, scores, cls = _lhs_inputs(2, 8)
+        lhs_3d_samecls(mins, maxs, scores, cls.float(), 0.25)
+    src = (Path(__file__).resolve().parents[1] / "iou3dmatch_tpu_torch" / "csrc"
+           / "lhs.cu").read_text()
+    assert f"constexpr int kMaxBoxes = {MAX_BOXES};" in src
+
+
+def test_lhs_counts_no_launch_on_the_cpu():
+    before = lhs_3d_samecls.launches
+    keep = lhs_3d_samecls(*_lhs_inputs(3, 16), 0.25)
+    assert keep.dtype == torch.bool and keep.shape == (3, 16)
+    assert lhs_3d_samecls.launches == before
+
+
+def test_lhs_builds_without_multiply_add_contraction():
+    """csrc/lhs.cu rounds each product and sum on its own, as its plain
+    version does."""
+    assert "lhs" in _build.SOURCES
+    assert "-fmad=false" in _build._flags("lhs")
+    assert "--use_fast_math" not in _build._flags("lhs")
