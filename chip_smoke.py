@@ -14,13 +14,16 @@ reported on its own line; a failed check raises and the exit code is not 0:
    the full-width ScanNet forward and pretrain step launch it at, and at the
    SSL step's: FPS at its 24 clouds, the ball query at a forward's 12, the
    gather's backward at SA2 of the student's 12 scenes, LHS at (8, 64)
-   clustered boxes (off every path: the ball query on surface scenes, the
-   rotated IoU on rotated boxes), with CUDA-event timings of kernel, plain
-   version and library call, and the launch plans of FPS, the ball query and
-   the gather's backward; FPS, the ball query, the gather and LHS must be
+   clustered boxes (with the cycles of each step, ``lhs_phases``),
+   three_nn at GridConv's grids of serving, the pretrain step and the SSL
+   step and at FP1 and FP2 of 8 and 12 scenes (off every path: the ball
+   query on surface scenes, the rotated IoU on rotated boxes), with
+   CUDA-event timings of kernel, plain version and library call, and the
+   launch plans of FPS, the ball query and the gather's backward; FPS, the
+   ball query, the gather, LHS and three_nn must be
    exactly equal, the gather's backward within 1e-5 x the sum of |g| of each
    element of an f64 sum, the IoU within atol 1e-5; it fails if a planned
-   FPS variant spills;
+   FPS variant spills, or three_nn or LHS spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene;
 5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
    and IoU-guided class-aware NMS, with the kernels' launch counts;
@@ -39,7 +42,8 @@ reported on its own line; a failed check raises and the exit code is not 0:
    version), then 2 warm-up and 5 timed steps at run_train.sh's settings,
    4 + 8 scenes x 40,000 points (ms a step, scenes/s, peak memory, launches
    a step), one step's spans (the shared FPS, teacher, student, loss and
-   backward, Adam, EMA), its three_nn and LHS time, and its profile.
+   backward, Adam, EMA), its three_nn and LHS time beside their plain
+   versions', and its profile.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
 lines. It also runs from the root of another checkout that has the SSL
@@ -47,7 +51,8 @@ step, so that two versions of the kernels are timed on one card in one call.
 ``--fps-sweep`` adds FPS over every cluster x block size of FPS_SWEEP at
 the serving shape to phase 3; ``--bq-sweep`` adds the ball query over every
 (C, T) of BQ_SWEEP at each of its shapes; ``--gbwd-sweep`` the gather's
-backward over every count of sum blocks of GBWD_SWEEP at each of its shapes.
+backward over every count of sum blocks of GBWD_SWEEP at each of its
+shapes.
 
 The model is the full-width ScanNet VoteNet (128 proposals, height channel,
 SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
@@ -87,8 +92,8 @@ from iou3dmatch_tpu_torch.ops.ball_query import (BallQueryLaunch, GatherBwdLaunc
                                                  group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import (fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain)
-from iou3dmatch_tpu_torch.ops.interpolate import three_nn
-from iou3dmatch_tpu_torch.ops.lhs import lhs_3d_samecls
+from iou3dmatch_tpu_torch.ops.interpolate import three_nn, three_nn_plain
+from iou3dmatch_tpu_torch.ops.lhs import SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.train.schedules import get_bn_momentum
 from iou3dmatch_tpu_torch.train.state import create_train_state
 from iou3dmatch_tpu_torch.train.steps import make_eval_forward, make_pretrain_step, make_ssl_step
@@ -126,7 +131,9 @@ IOU_PAIR_OPS = 16 * 94 + 118 + 21
 IOU_HIT_OPS = 98
 IOU_VERTEX_OPS = 9
 GBWD_SWEEP = (4, 8, 16, 32, 64, 128, 256)  # the gather backward's sum blocks a scene, channel group
-# LHS's operations, counted from csrc/lhs.cu, each product and sum one
+# LHS's operations, counted from the rounds as csrc/lhs.cu's thread-a-box
+# path runs them (the bit-matrix path computes every pair's IoU once, more
+# than the rounds need), each product and sum one
 # instruction: a box's area once (9); in each round, for each box still
 # remaining, its IoU with the winner (3 min, 3 max, 3 sub, 3 clamps, 2 mul,
 # add, sub, div, the class gate and the compare: 19) and its share of the
@@ -144,6 +151,7 @@ KERNELS = {
     "gather_bwd": group_points_backward,
     "iou3d": box_pairs,
     "lhs": lhs_3d_samecls,
+    "three_nn": three_nn,
 }
 REPLACES = {
     "fps": "iou3dmatch_tpu/ops/fps_pallas.py:46",
@@ -152,7 +160,16 @@ REPLACES = {
     "gather_bwd": "iou3dmatch_tpu/ops/ball_query.py:234",
     "iou3d": "iou3dmatch_tpu/geometry/iou3d.py:94",
     "lhs": "iou3dmatch_tpu/geometry/nms.py:115",
+    "three_nn": "iou3dmatch_tpu/ops/interpolate.py:21",
 }
+# three_nn's operations: each (query, seed) pair is a distance test of
+# PAIR_OPS (3 sub, 3 mul, 2 add, 1 compare; no FMA, csrc/three_nn.cu is
+# built with -fmad=false); each query's 3 selected d2 are computed again,
+# with their square roots, at about a pair's cost each: (m + 3) PAIR_OPS a
+# query.
+NN_YARDSTICK = "torch.cdist + topk(3, largest=False): two calls, matmul-form distances, not exact"
+# the kernels whose compiler report must list these entries, none spilling
+NO_SPILL = {"three_nn": ("three_nn_kernel",), "lhs": ("lhs_small_kernel", "lhs_kernel")}
 SSL_NL, SSL_NU = 4, 8  # run_train.sh: 4 labeled + 8 unlabeled scenes a step
 SSL_LR = 2e-3  # train.py:49
 # The card-vs-CPU SSL step's LHS IoU: a random teacher's proposals rarely
@@ -218,8 +235,17 @@ def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
-def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+def max_err(a, b) -> float:
+    """The largest difference of two tensors, or of two tuples of them."""
+    if isinstance(a, tuple):
+        return max(max_err(x, y) for x, y in zip(a, b))
     return float((a.double() - b.double()).abs().max())
+
+
+def same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(same(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
 
 
 def grid_candidates(radius: float, pts: torch.Tensor, ctr: torch.Tensor) -> int:
@@ -265,7 +291,7 @@ def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, ops_
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     err = max_err(got, want)
-    ok = bool(torch.equal(got, want) if agree is None else agree(got, want))
+    ok = same(got, want) if agree is None else bool(agree(got, want))
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops_of(want) / ops_per_s
     row = {
         "shape": label, "ok": ok, "max_abs_err": err,
@@ -465,9 +491,8 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     idx = bq(f"vote_agg r0.3 ns16 ({B},1024)x128", 0.3, 16, votes, votes[:, :128].contiguous())
     gather(f"vote_agg ({B},1024,259)x({B},128,16)", torch.cat([votes, f256], -1), idx)
     gather_bwd(f"vote_agg ({B},{128 * 16},259)->({B},1024,259)", torch.cat([votes, f256], -1), idx)
-    grid = torch.from_numpy(make_scenes(5, B, 128 * 64)[..., :3].copy()).to(dev)
-    _, idx = three_nn(grid, sa2_xyz)
-    gather(f"grid_conv ({B},1024,259)x({B},{128 * 64},3)", torch.cat([sa2_xyz, f256], -1), idx)
+    _, idx = three_nn(grid_queries(sa2_xyz, False, 5), sa2_xyz)
+    gather(f"grid_conv ({B},1024,259)x({B},{K * 64},3)", torch.cat([sa2_xyz, f256], -1), idx)
 
     # the SSL step's shapes: SA2's backward at the student's 12 scenes, and
     # SA1 at a forward's 12 clouds; off every path: SA1 on surface scenes,
@@ -485,7 +510,65 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
         bq(label, 0.2, 64, pts, ctr, main=main)
     iou_rows(dev, ops_per_s, rows)
     lhs_rows(dev, ops_per_s, rows)
+    three_nn_rows(ops_per_s, rows, sa1_xyz, ctr)  # ctr: SA1's centers of the SSL step's 12 clouds
     return rows
+
+
+def grid_queries(seeds: torch.Tensor, jitter: bool, seed: int) -> torch.Tensor:
+    """GridConv's queries among ``seeds`` (b, 1,024, 3): the 4 x 4 x 4 grid
+    of each of K axis-aligned boxes (ScanNet's headings are 0), centred
+    within N(0, 0.1) of the first K seeds, ScanNet class sizes x U(0.8,
+    1.2); with ``jitter`` also each box's jittered copy
+    (``forward_with_pred_jitter``: center + half * N(0, 1) * 0.3, half +
+    half * N(0, 1) * 0.3 clamped at 1e-8), as the training steps run
+    GridConv on 2K boxes. Returns (b, K * 64 or 2K * 64, 3)."""
+    rng = np.random.RandomState(seed)
+    b = seeds.shape[0]
+    mean = get_config("scannet").mean_size_arr
+    half = mean[rng.randint(0, len(mean), (b, K))] * rng.uniform(0.8, 1.2, (b, K, 3)) / 2
+    center = seeds[:, :K].cpu().numpy() + rng.normal(0, 0.1, (b, K, 3))
+    if jitter:
+        center = np.concatenate([center, center + half * rng.randn(b, K, 3) * 0.3], 1)
+        half = np.concatenate([half, np.maximum(half + half * rng.randn(b, K, 3) * 0.3, 1e-8)], 1)
+    grid = center[:, :, None] + grid_conv._grid_offsets()[None, None] * half[:, :, None]
+    return torch.from_numpy(grid.reshape(b, -1, 3).astype(np.float32)).to(seeds.device)
+
+
+def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12):
+    """three_nn at every shape the paths launch it at: GridConv's queries
+    among the 1,024 seeds of B scenes (serving, K boxes) and of B and SSL_B
+    scenes (the pretrain and SSL steps, 2K boxes with the jittered copies),
+    FP1 (512 x 256) and FP2 (1,024 x 512) at B and SSL_B scenes, the seeds
+    and FP inputs the FPS-ordered prefixes of SA1's centers ``sa1_8`` (B,
+    NPOINT, 3) and ``sa1_12`` (SSL_B, NPOINT, 3), as SA2-SA4 take them.
+    Indices and distances bit for bit the plain version's. The bound counts
+    the queries, the seeds and the outputs once, and (m + 3) PAIR_OPS a
+    query; library_ms is None, as no one PyTorch call computes the function
+    exactly, and the yardstick NN_YARDSTICK is timed beside it."""
+    def one(label, unknown, known):
+        b, n, m = unknown.shape[0], unknown.shape[1], known.shape[1]
+        nbytes = (b * n * 3 + b * m * 3) * 4 + b * n * 3 * (4 + 4)
+        _, r = check_kernel("three_nn", label, three_nn, three_nn_plain, None, (unknown, known),
+                            nbytes, lambda _: b * n * (m + 3) * PAIR_OPS, ops_per_s, 5)
+        r["pairs"] = b * n * m
+        r["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        r["ops_bound_ms"] = b * n * (m + 3) * PAIR_OPS / ops_per_s * 1e3
+        r["yardstick_ms"] = cuda_ms(lambda: torch.cdist(unknown, known).topk(3, dim=2, largest=False), 5)
+        r["yardstick"] = NN_YARDSTICK
+        say(phase="three_nn_bound", shape=label, pairs=r["pairs"], ops_a_pair=PAIR_OPS,
+            bytes_bound_ms=r["bytes_bound_ms"], ops_bound_ms=r["ops_bound_ms"],
+            yardstick_ms=r["yardstick_ms"], yardstick=NN_YARDSTICK)
+        rows.setdefault("three_nn", []).append(r)
+
+    for pts, jitter, what in ((sa1_8, False, "serving"), (sa1_8, True, "pretrain"),
+                              (sa1_12, True, "ssl")):
+        seeds = pts[:, :1024].contiguous()
+        grid = grid_queries(seeds, jitter, 60 + len(what))
+        one(f"grid_conv {what} ({pts.shape[0]},{grid.shape[1]})x1024", grid, seeds)
+    for pts in (sa1_8, sa1_12):
+        b = pts.shape[0]
+        one(f"fp1 ({b},512)x256", pts[:, :512].contiguous(), pts[:, :256].contiguous())
+        one(f"fp2 ({b},1024)x512", pts[:, :1024].contiguous(), pts[:, :512].contiguous())
 
 
 def make_boxes(rng, b: int, n: int, rotated: bool) -> np.ndarray:
@@ -575,14 +658,15 @@ def lhs_work(mins, maxs, scores, cls, thresh: float) -> tuple:
     plain version's float32 IoU, until no box remains. Returns (keep mask,
     rounds, suppressed boxes, box-rounds: the boxes still remaining summed
     over the rounds, rank pairs: each cluster's size squared summed over
-    the rounds)."""
+    the rounds, the most rounds of one scene)."""
     mins, maxs, scores, cls = (x.cpu() for x in (mins, maxs, scores, cls))
     thresh = float(np.float32(thresh))
     iou = samecls_iou_aabb(mins, maxs, cls)
     keep = torch.zeros(scores.shape, dtype=torch.bool)
-    rounds = suppressed = box_rounds = rank_pairs = 0
+    rounds = suppressed = box_rounds = rank_pairs = most = 0
     for s in range(scores.shape[0]):
         sc, left = scores[s].tolist(), list(range(scores.shape[1]))
+        before = rounds
         while left:
             w = max(left, key=lambda i: (sc[i], i))  # ties to the higher index
             supp = [i for i in left if i != w and float(iou[s, w, i]) > thresh]
@@ -592,28 +676,63 @@ def lhs_work(mins, maxs, scores, cls, thresh: float) -> tuple:
             rounds, suppressed = rounds + 1, suppressed + len(supp)
             box_rounds, rank_pairs = box_rounds + len(left), rank_pairs + len(supp) ** 2
             left = [i for i in left if i != w and i not in supp]
-    return keep, rounds, suppressed, box_rounds, rank_pairs
+        most = max(most, rounds - before)
+    return keep, rounds, suppressed, box_rounds, rank_pairs, most
 
 
 def lhs_rows(dev, ops_per_s, rows, thresh: float = 0.25):
     """LHS at the SSL step's (8, 64) boxes (``make_lhs_input``): equal to
     the plain version. The bound counts the work this input needs, from a
     replay of its rounds (``lhs_work``, itself held to the kernel's keep
-    mask), and each input byte and output byte once."""
+    mask), and each input byte and output byte once. ns_per_round is the
+    kernel's time over the most rounds of one scene, as the scenes run in
+    parallel (the launch and the sort included)."""
     b, k = SSL_NU, unlabeled.MAX_NUM_OBJ
     args = [torch.from_numpy(x).to(dev) for x in make_lhs_input(40, b, k)] + [thresh]
-    replay, nrounds, nsupp, box_rounds, rank_pairs = lhs_work(*args)
+    replay, nrounds, nsupp, box_rounds, rank_pairs, most = lhs_work(*args)
     ops = b * k * LHS_BOX_OPS + box_rounds * LHS_ROUND_OPS + rank_pairs * LHS_RANK_OPS
-    nbytes = b * k * (8 * 4 + 1)
+    nbytes = b * k * (7 * 4 + 8 + 1)  # bounds and score f32, int64 class, bool keep
     got, r = check_kernel("lhs", f"({b},{k}) boxes, IoU > {thresh}", lhs_3d_samecls,
                           lhs_3d_samecls_plain, None, args, nbytes, lambda _: ops, ops_per_s, 10)
     if not torch.equal(got.cpu(), replay):
         raise AssertionError("LHS's host replay keeps other boxes than the kernel")
-    r.update(rounds=nrounds, suppressed=nsupp, box_rounds=box_rounds, rank_pairs=rank_pairs,
-             kept=int(got.sum()))
-    say(phase="lhs_work", shape=r["shape"], rounds=nrounds, suppressed=nsupp,
-        box_rounds=box_rounds, rank_pairs=rank_pairs, ops=ops, kept=r["kept"])
+    r.update(rounds=nrounds, most_rounds_a_scene=most, suppressed=nsupp, box_rounds=box_rounds,
+             rank_pairs=rank_pairs, kept=int(got.sum()),
+             path="bit matrix" if k <= SMALL_BOXES else "a thread a box",
+             ns_per_round=r["ms"] * 1e6 / most)
+    say(phase="lhs_work", shape=r["shape"], rounds=nrounds, most_rounds_a_scene=most,
+        suppressed=nsupp, box_rounds=box_rounds, rank_pairs=rank_pairs, ops=ops, kept=r["kept"],
+        path=r["path"], ns_per_round=r["ns_per_round"])
+    r["phases"] = lhs_phases(dev, args, thresh)
     rows["lhs"] = [r]
+
+
+LHS_PHASES = ("load", "order", "matrix", "rounds", "write")  # csrc/lhs.cu's LHS_STAMP 0-5
+
+
+def lhs_phases(dev, args, thresh: float) -> dict:
+    """Cycles of each step of csrc/lhs.cu's bit-matrix path on ``args`` (B
+    scenes), from a build with -DLHS_PHASES, whose thread 0 of each block
+    stamps clock64() at its start and after each step; its keep mask must
+    equal the plain version's. Means over the scenes of the second launch.
+    Times only: the stamps cost the kernel a few instructions."""
+    lib = _build.build_variant("lhs", "LHS_PHASES")
+    fn, read = lib.lhs_launch, lib.lhs_phases_read
+    fn.argtypes = [_build.VP] * 5 + [_build.INT] * 2 + [_build.FLOAT, _build.VP]
+    read.argtypes = [_build.VP, _build.INT]
+    b, k = args[2].shape
+    keep = torch.empty((b, k), dtype=torch.bool, device=dev)
+    for _ in range(2):
+        _build.check(fn(*(a.data_ptr() for a in args[:4]), keep.data_ptr(), b, k, thresh,
+                        _build.stream(keep)), "lhs with LHS_PHASES")
+    torch.cuda.synchronize()
+    if not torch.equal(keep, lhs_3d_samecls_plain(*args[:4], thresh)):
+        raise AssertionError("the LHS_PHASES build keeps other boxes than the plain version")
+    stamps = np.zeros((b, len(LHS_PHASES) + 1), np.int64)
+    _build.check(read(stamps.ctypes.data, b), "lhs_phases_read")
+    cycles = dict(zip(LHS_PHASES, np.diff(stamps, axis=1).mean(0).tolist()))
+    say(phase="lhs_phases", cycles=cycles, total_cycles=sum(cycles.values()))
+    return cycles
 
 
 FPS_ENTRY = re.compile(r"fps_cluster_kernelILi(\d+)ELi(n?\d+)E")
@@ -719,9 +838,11 @@ def phase_serve(model, cfg, dev) -> dict:
             boxes_kept_per_scene=[len(p) // cfg.num_class for p in picks])
     wall_s = time.perf_counter() - t_all
     launches = {k: fn.launches for k, fn in KERNELS.items()}
-    expect = {"fps": 3, "ball_query": 15, "gather": 18, "gather_bwd": 0, "iou3d": 0, "lhs": 0}
+    expect = {"fps": 3, "ball_query": 15, "gather": 18, "gather_bwd": 0, "iou3d": 0, "lhs": 0,
+              "three_nn": 9}
     say(phase="serve", requests=3, scenes_per_s=3 * B / wall_s, wall_s=wall_s,
-        max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches)
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches,
+        launches_per_request={k: v / 3 for k, v in launches.items()})
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
     phase_profile(model, forward, batches[0])
@@ -859,7 +980,8 @@ def phase_train(cfg, dev) -> dict:
         adam="torch.optim.Adam, foreach", lr=LR, bn_momentum=momentum)
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses.tolist()}")
-    expect = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2, "lhs": 0}
+    expect = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2, "lhs": 0,
+              "three_nn": 3}
     if launches != expect:
         raise AssertionError(f"launches a step {launches}, expected {expect}")
     phase_train_profile(model, state, step, batch, momentum)
@@ -1099,7 +1221,8 @@ def phase_ssl(cfg, dev) -> dict:
         thresholds="0.9 / 0.9 / 0.25")
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite SSL loss: {losses.tolist()}")
-    expect = {"fps": 1, "ball_query": 10, "gather": 12, "gather_bwd": 4, "iou3d": 3, "lhs": 1}
+    expect = {"fps": 1, "ball_query": 10, "gather": 12, "gather_bwd": 4, "iou3d": 3, "lhs": 1,
+              "three_nn": 6}
     if launches != expect:
         raise AssertionError(f"SSL launches a step {launches}, expected {expect}")
     phase_ssl_profile(state, step, batch, momentum)
@@ -1110,7 +1233,7 @@ def phase_ssl_profile(state, step, batch, momentum):
     """One SSL step's spans by CUDA events (the shared FPS, the teacher's
     forward, the student's, loss and backward, Adam, the EMA), the device
     time of its three_nn calls and of its LHS, each call timed again on its
-    own inputs, the plain LHS beside it; then one step under
+    own inputs, the plain versions beside them; then one step under
     torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1151,6 +1274,7 @@ def phase_ssl_profile(state, step, batch, momentum):
     order = ["fps", "teacher", "student", "loss_backward", "adam", "ema", "end"]
     span_ms = {a: marks[a].elapsed_time(marks[b]) for a, b in zip(order, order[1:])}
     nn_ms = [cuda_ms(lambda a=a: three_nn(*a), 1, 5) for a in nn_calls]
+    nn_plain_ms = sum(cuda_ms(lambda a=a: three_nn_plain(*a), 1, 5) for a in nn_calls)
     lhs_ms = sum(cuda_ms(lambda a=a: lhs_3d_samecls(*a), 10, 5) for a in lhs_calls)
     lhs_plain_ms = sum(cuda_ms(lambda a=a: lhs_3d_samecls_plain(*a), 1, 5) for a in lhs_calls)
 
@@ -1164,7 +1288,8 @@ def phase_ssl_profile(state, step, batch, momentum):
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     say(phase="ssl_profile", span_ms=span_ms,
         three_nn=[[list(a[0].shape), list(a[1].shape), ms] for a, ms in zip(nn_calls, nn_ms)],
-        three_nn_ms_a_step=sum(nn_ms), lhs_ms_a_step=lhs_ms, lhs_plain_ms_a_step=lhs_plain_ms,
+        three_nn_ms_a_step=sum(nn_ms), three_nn_plain_ms_a_step=nn_plain_ms,
+        lhs_ms_a_step=lhs_ms, lhs_plain_ms_a_step=lhs_plain_ms,
         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
         top_kernels=[[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in kern[:15]])
 
@@ -1249,9 +1374,14 @@ def main() -> int:
     # read back whether built now or before, so the spill check below always runs
     logs = {name: _build.build_log(name) for name in _build.SOURCES}
     fps_regs = fps_ptxas(logs["fps"])
-    say(phase="build", seconds=seconds, built=built,
-        ptxas={name: ptxas_report(log) for name, log in logs.items() if name != "fps"},
+    ptxas = {name: ptxas_report(log) for name, log in logs.items() if name != "fps"}
+    say(phase="build", seconds=seconds, built=built, ptxas=ptxas,
         fps_ptxas={f"{t}x{p}": v for (t, p), v in sorted(fps_regs.items())})
+    for name, entries in NO_SPILL.items():
+        for entry in entries:
+            r = ptxas[name].get(entry)
+            if r is None or (r.get("spill_stores"), r.get("spill_loads")) != (0, 0):
+                raise AssertionError(f"{entry} of {name}.cu spills or is missing: {r}")
 
     rows = phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep, args.gbwd_sweep)
     for r in rows["fps"]:  # the planned variants keep their share on chip, without spills

@@ -24,15 +24,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fps", "ball_query", "gather", "gather_bwd", "iou3d", "lhs")
+SOURCES = ("fps", "ball_query", "gather", "gather_bwd", "iou3d", "lhs", "three_nn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# iou3d and lhs follow their plain versions operation by operation, each
-# product and sum rounded on its own: no multiply-add contraction anywhere
-# in either file
-SOURCE_FLAGS = {"iou3d": ("-fmad=false",), "lhs": ("-fmad=false",)}
+# iou3d, lhs and three_nn follow their plain versions operation by
+# operation, each product and sum rounded on its own: no multiply-add
+# contraction anywhere in these files
+SOURCE_FLAGS = {"iou3d": ("-fmad=false",), "lhs": ("-fmad=false",), "three_nn": ("-fmad=false",)}
 
 
 def _flags(name: str) -> tuple:
@@ -97,6 +97,19 @@ def build(names=SOURCES) -> dict:
             "nvcc failed for " + ", ".join(failed) + ":\n"
             + "\n".join(logs[n] for n in failed))
     return logs
+
+
+def build_variant(name: str, define: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built with ``-D<define>`` beside the kernels' own
+    libraries, and loaded: a build for measuring, which no wrapper uses.
+    Raises with the compiler output if nvcc fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"{name}-{define.lower()}.so"
+    proc = subprocess.run([_nvcc(), *_flags(name), f"-D{define}", "-o", str(so),
+                           str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {name} with -D{define}:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(so))
 
 
 def kernel(source: str, symbol: str, argtypes):

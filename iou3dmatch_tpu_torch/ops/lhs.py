@@ -1,7 +1,9 @@
 """Lower-half suppression of the pseudo labels, on the card.
 
-``lhs_3d_samecls`` launches ``csrc/lhs.cu`` on CUDA tensors (one block a
-scene, every round in one launch) and runs its plain PyTorch version,
+``lhs_3d_samecls`` launches ``csrc/lhs.cu`` on CUDA tensors (every round in
+one launch, a block a scene: for K <= 64 its warps fill a 64 x 64 bit
+suppression matrix and one warp runs the rounds on it, above a thread a box
+runs each round) and runs its plain PyTorch version,
 ``geometry/nms.py::lhs_3d_samecls_plain``, on CPU tensors. Counterpart of
 ``iou3dmatch_tpu/geometry/nms.py::lhs_3d_samecls_jax`` vmapped over the
 unlabeled scenes (``losses/unlabeled.py:196-198``).
@@ -12,6 +14,7 @@ from ..geometry.nms import lhs_3d_samecls_plain
 from . import _build
 
 MAX_BOXES = 1024  # one thread a box in one block (csrc/lhs.cu kMaxBoxes)
+SMALL_BOXES = 64  # up to this K the bit-matrix path (csrc/lhs.cu kSmallBoxes)
 
 
 def lhs_3d_samecls(mins: torch.Tensor, maxs: torch.Tensor, scores: torch.Tensor,
@@ -33,8 +36,8 @@ def lhs_3d_samecls(mins: torch.Tensor, maxs: torch.Tensor, scores: torch.Tensor,
     _build.require(mins, torch.float32, "mins")
     _build.require(maxs, torch.float32, "maxs", mins.device)
     _build.require(scores, torch.float32, "scores", mins.device)
-    cls = cls.to(torch.int32).contiguous()
-    _build.require(cls, torch.int32, "cls", mins.device)
+    cls = cls.to(torch.int64).contiguous()
+    _build.require(cls, torch.int64, "cls", mins.device)
     keep = torch.empty((b, k), dtype=torch.bool, device=mins.device)
     if keep.numel() == 0:
         return keep

@@ -11,7 +11,11 @@ hits on low rows; the rotated IoU on axis-aligned ties, degenerate and
 zero-size boxes and placeholder boxes, all pairs of more boxes than one
 tile, and pairs across the reach of the containment margin; lower-half
 suppression on clustered boxes, duplicates, ties, IoUs at the threshold,
-ragged and largest K, and the wrapper's refusals. The file
+-inf and NaN scores, K either side of the switch from a warp a scene to a
+block a scene, ragged and largest K, and the wrapper's refusals;
+three_nn bit for bit on ties, fewer than 3 seeds, overflow, NaN queries,
+seeds beyond one shared-memory tile and the SSL step's GridConv shape, and
+the wrapper's refusals. The file
 imports no JAX, so it runs on a machine with a card and without JAX; this
 repository's conftest imports JAX, so run it there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 Without a card every test skips.
@@ -22,6 +26,8 @@ import torch
 from iou_cases import gap_pairs, random_boxes
 from lhs_cases import CASES as LHS_CASES
 from lhs_cases import clustered
+from three_nn_cases import CASES as NN_CASES
+from three_nn_cases import grids
 
 from iou3dmatch_tpu_torch.geometry.iou3d import (MODES, box_pairs, box_pairs_plain, boxes_iou3d,
                                                  pairs_apart)
@@ -29,7 +35,8 @@ from iou3dmatch_tpu_torch.geometry.nms import lhs_3d_samecls_plain
 from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, GatherBwdLaunch,
                                                  ball_query, ball_query_plain, group_points,
                                                  group_points_backward, group_points_plain)
-from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, lhs_3d_samecls
+from iou3dmatch_tpu_torch.ops.interpolate import three_nn, three_nn_plain
+from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
                                           fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain, max_active_clusters)
@@ -452,7 +459,9 @@ def _lhs_on(cuda, case):
 
 
 def _lhs_edge_cases():
-    """(name, case): shapes and inputs past the step's (8, 64)."""
+    """(name, case): shapes and inputs past the step's (8, 64); k100 and
+    k1024 run the thread-a-box path, the others the bit-matrix path (K <=
+    SMALL_BOXES)."""
     rng = np.random.RandomState(20)
     one = np.zeros((2, 40, 3), np.float32)
     same = (one, one + 1.0, rng.rand(2, 40).astype(np.float32), np.zeros((2, 40), np.int64), 0.25)
@@ -473,7 +482,9 @@ def _lhs_edge_cases():
 @pytest.mark.parametrize("case", sorted(LHS_CASES))
 def test_lhs_kernel_matches_plain(cuda, case):
     """The CPU test's cases, at (3, 16) and (8, 64) among them: equal keep
-    masks, on the card and against the plain version on the CPU."""
+    masks, on the card and against the plain version on the CPU. Cases of
+    K <= SMALL_BOXES run the bit-matrix path, the three of K = 65 and 100
+    the thread-a-box path."""
     args, thresh = _lhs_on(cuda, LHS_CASES[case]())
     before = lhs_3d_samecls.launches
     got = lhs_3d_samecls(*args, thresh)
@@ -497,6 +508,14 @@ def test_lhs_kernel_edge_cases(cuda, name, case):
         assert bool(got.all())
 
 
+@pytest.mark.parametrize("k", [SMALL_BOXES - 1, SMALL_BOXES, SMALL_BOXES + 1])
+def test_lhs_kernel_either_side_of_the_path_switch(cuda, k):
+    args, thresh = _lhs_on(cuda, clustered(30 + k, 5, k, 2))
+    got = lhs_3d_samecls(*args, thresh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lhs_3d_samecls_plain(*args, thresh))
+
+
 def test_lhs_kernel_refuses_bad_input(cuda):
     args, thresh = _lhs_on(cuda, clustered(27, 2, 16, 2))
     mins, maxs, scores, cls = args
@@ -512,6 +531,57 @@ def test_lhs_kernel_refuses_bad_input(cuda):
         lhs_3d_samecls(mins[:, :, :2], maxs, scores, cls, thresh)
     with pytest.raises(ValueError):
         lhs_3d_samecls(mins.transpose(0, 1).contiguous().transpose(0, 1), maxs, scores, cls, thresh)
-    # int64 classes are narrowed to int32 for the kernel
+    # int32 classes are widened to int64 for the kernel
     assert torch.equal(lhs_3d_samecls(mins, maxs, scores, cls.int(), thresh),
                        lhs_3d_samecls(mins, maxs, scores, cls, thresh))
+
+
+# ----------------------------------------------------- three nearest neighbours
+
+def _nn_on(cuda, case):
+    return [torch.from_numpy(x).to(cuda) for x in case]
+
+
+def _nn_equal(got, want):
+    assert got[1].dtype == torch.int32 and got[0].dtype == torch.float32
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", sorted(NN_CASES))
+def test_three_nn_kernel_matches_plain(cuda, case):
+    """The CPU test's cases: indices and distances bit for bit those of the
+    plain version on the card, and the indices those on the CPU."""
+    unknown, known = _nn_on(cuda, NN_CASES[case]())
+    before = three_nn.launches
+    got = three_nn(unknown, known)
+    torch.cuda.synchronize()
+    assert three_nn.launches == before + 1
+    _nn_equal(got, three_nn_plain(unknown, known))
+    assert torch.equal(got[1].cpu(), three_nn_plain(unknown.cpu(), known.cpu())[1])
+
+
+@pytest.mark.parametrize("b,boxes,m", [(12, 256, 1024), (8, 128, 1024), (1, 3, 5000)])
+def test_three_nn_kernel_at_grid_conv_shapes(cuda, b, boxes, m):
+    """The SSL step's GridConv (12, 16,384) x 1,024, serving's (8, 8,192) x
+    1,024, and seeds five tiles deep."""
+    unknown, known = _nn_on(cuda, grids(b * m + boxes, b, boxes, m, duplicates=True))
+    _nn_equal(three_nn(unknown, known), three_nn_plain(unknown, known))
+
+
+def test_three_nn_kernel_refuses_bad_input(cuda):
+    unknown, known = _nn_on(cuda, NN_CASES["m3"]())
+    with pytest.raises(TypeError):
+        three_nn(unknown.double(), known)
+    with pytest.raises(TypeError):
+        three_nn(unknown, known.half())
+    with pytest.raises(ValueError):
+        three_nn(unknown.transpose(0, 1).contiguous().transpose(0, 1), known)
+    with pytest.raises(ValueError):
+        three_nn(unknown, known.cpu())
+    with pytest.raises(ValueError):
+        three_nn(unknown[..., :2].contiguous(), known)
+    with pytest.raises(ValueError):
+        three_nn(unknown, known[:, :0])
+    d, i = three_nn(unknown[:, :0], known)  # nothing to launch
+    assert d.shape == i.shape == (2, 0, 3)

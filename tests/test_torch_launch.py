@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from iou3dmatch_tpu_torch.ops import _build
-from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, lhs_3d_samecls
+from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, SMALL_BOXES, lhs_3d_samecls
 
 from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, GBWD_BLOCKS_PER_SM, GBWD_CHUNKS,
                                                  GBWD_LIST_ROWS, GBWD_RUN_WARPS, MAX_TILE, WARPS,
@@ -318,6 +318,16 @@ def test_lhs_refuses_more_boxes_than_a_block_holds():
     src = (Path(__file__).resolve().parents[1] / "iou3dmatch_tpu_torch" / "csrc"
            / "lhs.cu").read_text()
     assert f"constexpr int kMaxBoxes = {MAX_BOXES};" in src
+
+
+def test_lhs_small_path_holds_a_scene_in_64_bit_masks():
+    """K up to csrc/lhs.cu's kSmallBoxes runs on 64-bit masks over the
+    positions (two a lane); larger K a thread a box."""
+    src = (Path(__file__).resolve().parents[1] / "iou3dmatch_tpu_torch" / "csrc"
+           / "lhs.cu").read_text()
+    assert SMALL_BOXES == 64
+    assert f"constexpr int kSmallBoxes = {SMALL_BOXES};" in src
+    assert "if (k <= kSmallBoxes)" in src
 
 
 def test_lhs_counts_no_launch_on_the_cpu():
