@@ -18,8 +18,10 @@ reported on its own line; a failed check raises and the exit code is not 0:
    three_nn at GridConv's grids of serving, the pretrain step and the SSL
    step and at FP1 and FP2 of 8 and 12 scenes (off every path: the ball
    query on surface scenes, the rotated IoU on rotated boxes), with
-   CUDA-event timings of kernel, plain version and library call, and the
-   launch plans of FPS, the ball query and the gather's backward; FPS, the
+   CUDA-event timings of kernel, plain version and library call, the
+   launch floor (a one-element ``zero_()`` timed the same way), and the
+   launch plans of FPS, the ball query, the gather's backward and
+   three_nn; FPS, the
    ball query, the gather, LHS and three_nn must be
    exactly equal, the gather's backward within 1e-5 x the sum of |g| of each
    element of an f64 sum, the IoU within atol 1e-5; it fails if a planned
@@ -52,7 +54,11 @@ step, so that two versions of the kernels are timed on one card in one call.
 the serving shape to phase 3; ``--bq-sweep`` adds the ball query over every
 (C, T) of BQ_SWEEP at each of its shapes; ``--gbwd-sweep`` the gather's
 backward over every count of sum blocks of GBWD_SWEEP at each of its
-shapes.
+shapes; ``--nn-sweep`` three_nn over every (S, Q) of NN_LAUNCHES at each
+of its seven shapes; ``--nn-counts`` three_nn's counters (a build with
+-DTHREE_NN_COUNTS: 4-seed group steps, those that took the insert path,
+cycles staging, scanning, merging and writing, means a warp) at its seven
+shapes, with the planned launch and with a thread a query (S = Q = 1).
 
 The model is the full-width ScanNet VoteNet (128 proposals, height channel,
 SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
@@ -92,7 +98,8 @@ from iou3dmatch_tpu_torch.ops.ball_query import (BallQueryLaunch, GatherBwdLaunc
                                                  group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import (fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain)
-from iou3dmatch_tpu_torch.ops.interpolate import three_nn, three_nn_plain
+from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, NnLaunch, three_nn, three_nn_plain,
+                                                  three_nn_plan)
 from iou3dmatch_tpu_torch.ops.lhs import SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.train.schedules import get_bn_momentum
 from iou3dmatch_tpu_torch.train.state import create_train_state
@@ -169,7 +176,10 @@ REPLACES = {
 # query.
 NN_YARDSTICK = "torch.cdist + topk(3, largest=False): two calls, matmul-form distances, not exact"
 # the kernels whose compiler report must list these entries, none spilling
-NO_SPILL = {"three_nn": ("three_nn_kernel",), "lhs": ("lhs_small_kernel", "lhs_kernel")}
+NO_SPILL = {"three_nn": tuple(f"three_nn_kernelILi{s}ELi{q}EE" for s, q in NN_LAUNCHES),
+            "lhs": ("lhs_small_kernel", "lhs_kernel")}
+NN_COUNTS = ("warps", "group_steps", "insert_steps", "stage_cycles", "scan_cycles",
+             "merge_cycles", "write_cycles")  # csrc/three_nn.cu nn_counts
 SSL_NL, SSL_NU = 4, 8  # run_train.sh: 4 labeled + 8 unlabeled scenes a step
 SSL_LR = 2e-3  # train.py:49
 # The card-vs-CPU SSL step's LHS IoU: a random teacher's proposals rarely
@@ -372,10 +382,20 @@ def gbwd_sweep(label, args, agree, lists):
     say(phase="gbwd_sweep", shape=label, rows=rows)
 
 
+def launch_floor_ms() -> float:
+    """A one-element ``zero_()`` timed as the kernels are: what any launch
+    costs, the floor of the shapes whose bound lies under it."""
+    z = torch.zeros(1, device="cuda")
+    return cuda_ms(lambda: z.zero_(), 5)
+
+
 def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool = False,
-                  gbwd_sweep_on: bool = False) -> dict:
+                  gbwd_sweep_on: bool = False, nn_sweep_on: bool = False,
+                  nn_counts_on: bool = False) -> dict:
     pc = torch.from_numpy(make_scenes(1, B, N)).to(dev)
     rows = {}
+    floor = launch_floor_ms()
+    say(phase="launch_floor", ms=floor, what="a one-element zero_(), cuda_ms inner 5")
     xyz, inds, r = fps_rows(dev, ops_per_s, B, True)
     rows["fps"] = [r]
     if fps_sweep_on:
@@ -510,7 +530,8 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
         bq(label, 0.2, 64, pts, ctr, main=main)
     iou_rows(dev, ops_per_s, rows)
     lhs_rows(dev, ops_per_s, rows)
-    three_nn_rows(ops_per_s, rows, sa1_xyz, ctr)  # ctr: SA1's centers of the SSL step's 12 clouds
+    # ctr: SA1's centers of the SSL step's 12 clouds
+    three_nn_rows(ops_per_s, rows, sa1_xyz, ctr, floor, nn_sweep_on, nn_counts_on)
     return rows
 
 
@@ -534,7 +555,55 @@ def grid_queries(seeds: torch.Tensor, jitter: bool, seed: int) -> torch.Tensor:
     return torch.from_numpy(grid.reshape(b, -1, 3).astype(np.float32)).to(seeds.device)
 
 
-def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12):
+def nn_sweep(label, args, want):
+    """Every (S, Q) of NN_LAUNCHES on one three_nn input, each checked equal
+    to the plain result; times only, nothing counted."""
+    rows = []
+    for launch in map(NnLaunch._make, NN_LAUNCHES):
+        ok = same(three_nn(*args, launch), want)
+        ms = cuda_ms(lambda: three_nn(*args, launch), 5, 5)
+        rows.append({"plan": list(launch), "blocks": launch.blocks(*args[0].shape[:2]), "ok": ok,
+                     "ms": ms})
+        if not ok:
+            raise AssertionError(f"three_nn at {label} with {launch} differs from its plain version")
+    say(phase="nn_sweep", shape=label, rows=rows)
+
+
+def nn_counts(label, args, want, plan) -> dict:
+    """csrc/three_nn.cu built with -DTHREE_NN_COUNTS, on one input with a
+    thread a query (S = Q = 1) and with ``plan``: each launch's results
+    equal to the plain version's, and its counters over the second of two
+    launches, as means a warp (the warps as a total). Times only: the
+    counters add a vote to every group step."""
+    lib = _build.build_variant("three_nn", "THREE_NN_COUNTS")
+    fn, read = lib.three_nn_launch, lib.three_nn_counts_read
+    fn.argtypes = [_build.VP] * 4 + [_build.INT] * 5 + [_build.VP]
+    read.argtypes = [_build.VP]
+    unknown, known = args
+    b, n, m = unknown.shape[0], unknown.shape[1], known.shape[1]
+    out = {}
+    for name, launch in (("thread_a_query", NnLaunch(1, 1)), ("plan", plan)):
+        dist = torch.empty((b, n, 3), device=unknown.device)
+        idx = torch.empty((b, n, 3), dtype=torch.int32, device=unknown.device)
+        counts = np.zeros(len(NN_COUNTS), np.uint64)
+        for _ in range(2):
+            _build.check(read(counts.ctypes.data), "three_nn_counts_read")  # zeroes them
+            _build.check(fn(unknown.data_ptr(), known.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+                            b, n, m, *launch, _build.stream(unknown)), "three_nn with THREE_NN_COUNTS")
+            torch.cuda.synchronize()
+        _build.check(read(counts.ctypes.data), "three_nn_counts_read")
+        if not same((dist, idx), want):
+            raise AssertionError(f"the THREE_NN_COUNTS build at {label} with {launch} differs")
+        warps = int(counts[0])
+        per = {k: float(v) / warps for k, v in zip(NN_COUNTS[1:], counts[1:])}
+        per["insert_share"] = per["insert_steps"] / max(per["group_steps"], 1.0)
+        out[name] = {"plan": list(launch), "warps": warps, "per_warp": per}
+    say(phase="nn_counts", shape=label, **out)
+    return out
+
+
+def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12, floor: float, sweep_on: bool = False,
+                  counts_on: bool = False):
     """three_nn at every shape the paths launch it at: GridConv's queries
     among the 1,024 seeds of B scenes (serving, K boxes) and of B and SSL_B
     scenes (the pretrain and SSL steps, 2K boxes with the jittered copies),
@@ -544,21 +613,31 @@ def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12):
     Indices and distances bit for bit the plain version's. The bound counts
     the queries, the seeds and the outputs once, and (m + 3) PAIR_OPS a
     query; library_ms is None, as no one PyTorch call computes the function
-    exactly, and the yardstick NN_YARDSTICK is timed beside it."""
+    exactly, and the yardstick NN_YARDSTICK is timed beside it. Each row
+    names its plan (S, Q) and carries the launch floor ``floor``."""
+    n_sm = torch.cuda.get_device_properties(sa1_8.device).multi_processor_count
+
     def one(label, unknown, known):
         b, n, m = unknown.shape[0], unknown.shape[1], known.shape[1]
         nbytes = (b * n * 3 + b * m * 3) * 4 + b * n * 3 * (4 + 4)
-        _, r = check_kernel("three_nn", label, three_nn, three_nn_plain, None, (unknown, known),
-                            nbytes, lambda _: b * n * (m + 3) * PAIR_OPS, ops_per_s, 5)
+        got, r = check_kernel("three_nn", label, three_nn, three_nn_plain, None, (unknown, known),
+                              nbytes, lambda _: b * n * (m + 3) * PAIR_OPS, ops_per_s, 5)
+        plan = three_nn_plan(b, n, m, n_sm)
+        r["plan"], r["blocks"], r["launch_floor_ms"] = list(plan), plan.blocks(b, n), floor
         r["pairs"] = b * n * m
         r["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         r["ops_bound_ms"] = b * n * (m + 3) * PAIR_OPS / ops_per_s * 1e3
         r["yardstick_ms"] = cuda_ms(lambda: torch.cdist(unknown, known).topk(3, dim=2, largest=False), 5)
         r["yardstick"] = NN_YARDSTICK
-        say(phase="three_nn_bound", shape=label, pairs=r["pairs"], ops_a_pair=PAIR_OPS,
-            bytes_bound_ms=r["bytes_bound_ms"], ops_bound_ms=r["ops_bound_ms"],
+        say(phase="three_nn_bound", shape=label, plan=r["plan"], blocks=r["blocks"],
+            pairs=r["pairs"], ops_a_pair=PAIR_OPS, bytes_bound_ms=r["bytes_bound_ms"],
+            ops_bound_ms=r["ops_bound_ms"], launch_floor_ms=floor,
             yardstick_ms=r["yardstick_ms"], yardstick=NN_YARDSTICK)
         rows.setdefault("three_nn", []).append(r)
+        if sweep_on:
+            nn_sweep(label, (unknown, known), got)
+        if counts_on:
+            r["counts"] = nn_counts(label, (unknown, known), got, plan)
 
     for pts, jitter, what in ((sa1_8, False, "serving"), (sa1_8, True, "pretrain"),
                               (sa1_12, True, "ssl")):
@@ -1345,6 +1424,10 @@ def main() -> int:
                     help="also time the ball query at every (C, T) of BQ_SWEEP at each of its shapes")
     ap.add_argument("--gbwd-sweep", action="store_true",
                     help="also time the gather backward at every GBWD_SWEEP launch at each of its shapes")
+    ap.add_argument("--nn-sweep", action="store_true",
+                    help="also time three_nn at every (S, Q) of NN_LAUNCHES at each of its shapes")
+    ap.add_argument("--nn-counts", action="store_true",
+                    help="also run three_nn's -DTHREE_NN_COUNTS build at each of its shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1367,10 +1450,6 @@ def main() -> int:
     t = time.perf_counter()
     built = sorted(_build.build())
     seconds = time.perf_counter() - t
-    if args.kernels_only:
-        say(phase="build", seconds=seconds, built=built)
-        phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep, args.gbwd_sweep)
-        return 0
     # read back whether built now or before, so the spill check below always runs
     logs = {name: _build.build_log(name) for name in _build.SOURCES}
     fps_regs = fps_ptxas(logs["fps"])
@@ -1383,11 +1462,14 @@ def main() -> int:
             if r is None or (r.get("spill_stores"), r.get("spill_loads")) != (0, 0):
                 raise AssertionError(f"{entry} of {name}.cu spills or is missing: {r}")
 
-    rows = phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep, args.gbwd_sweep)
+    rows = phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep, args.gbwd_sweep,
+                         args.nn_sweep, args.nn_counts)
     for r in rows["fps"]:  # the planned variants keep their share on chip, without spills
         key = (r["launch"]["threads"], r["launch"]["ppt"])
         if key not in fps_regs or fps_regs[key][1:] != (0, 0):
             raise AssertionError(f"FPS variant {key} spills or is missing: {fps_regs.get(key)}")
+    if args.kernels_only:
+        return 0
     phase_forward(model, dev)
     serve = phase_serve(model, cfg, dev)
     train = phase_train(cfg, dev)

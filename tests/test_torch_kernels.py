@@ -13,9 +13,10 @@ tile, and pairs across the reach of the containment margin; lower-half
 suppression on clustered boxes, duplicates, ties, IoUs at the threshold,
 -inf and NaN scores, K either side of the switch from a warp a scene to a
 block a scene, ragged and largest K, and the wrapper's refusals;
-three_nn bit for bit on ties, fewer than 3 seeds, overflow, NaN queries,
-seeds beyond one shared-memory tile and the SSL step's GridConv shape, and
-the wrapper's refusals. The file
+three_nn bit for bit on ties, fewer than 3 seeds, overflow, NaN queries
+and seeds, ties across the lanes that split a query's seeds, seeds beyond
+one shared-memory tile, under every (S, Q) the source instantiates, at
+GridConv's and FP's shapes, and the wrapper's refusals. The file
 imports no JAX, so it runs on a machine with a card and without JAX; this
 repository's conftest imports JAX, so run it there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 Without a card every test skips.
@@ -27,7 +28,7 @@ from iou_cases import gap_pairs, random_boxes
 from lhs_cases import CASES as LHS_CASES
 from lhs_cases import clustered
 from three_nn_cases import CASES as NN_CASES
-from three_nn_cases import grids
+from three_nn_cases import grids, room_seeds
 
 from iou3dmatch_tpu_torch.geometry.iou3d import (MODES, box_pairs, box_pairs_plain, boxes_iou3d,
                                                  pairs_apart)
@@ -35,7 +36,7 @@ from iou3dmatch_tpu_torch.geometry.nms import lhs_3d_samecls_plain
 from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, GatherBwdLaunch,
                                                  ball_query, ball_query_plain, group_points,
                                                  group_points_backward, group_points_plain)
-from iou3dmatch_tpu_torch.ops.interpolate import three_nn, three_nn_plain
+from iou3dmatch_tpu_torch.ops.interpolate import NN_LAUNCHES, NnLaunch, three_nn, three_nn_plain
 from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
                                           fps_plan, fps_variant, furthest_point_sample,
@@ -569,6 +570,25 @@ def test_three_nn_kernel_at_grid_conv_shapes(cuda, b, boxes, m):
     _nn_equal(three_nn(unknown, known), three_nn_plain(unknown, known))
 
 
+@pytest.mark.parametrize("launch", NN_LAUNCHES)
+@pytest.mark.parametrize("case", sorted(NN_CASES))
+def test_three_nn_kernel_matches_plain_under_every_launch(cuda, case, launch):
+    """Every (S, Q) of csrc/three_nn.cu through the ``launch`` override:
+    the answer does not depend on how a query's seeds split over lanes."""
+    unknown, known = _nn_on(cuda, NN_CASES[case]())
+    _nn_equal(three_nn(unknown, known, NnLaunch(*launch)), three_nn_plain(unknown, known))
+
+
+@pytest.mark.parametrize("b,n,m", [(8, 512, 256), (8, 1024, 512), (12, 512, 256), (12, 1024, 512)])
+def test_three_nn_kernel_at_fp_shapes(cuda, b, n, m):
+    """FP1 and FP2 of serving and pretraining (8 scenes) and of the SSL
+    step (12): the queries a room's points, the seeds their prefix, as FP
+    takes SA's FPS-ordered points."""
+    pts = room_seeds(np.random.RandomState(b * n + m), b, n).astype(np.float32)
+    unknown, known = _nn_on(cuda, (pts, pts[:, :m].copy()))
+    _nn_equal(three_nn(unknown, known), three_nn_plain(unknown, known))
+
+
 def test_three_nn_kernel_refuses_bad_input(cuda):
     unknown, known = _nn_on(cuda, NN_CASES["m3"]())
     with pytest.raises(TypeError):
@@ -583,5 +603,7 @@ def test_three_nn_kernel_refuses_bad_input(cuda):
         three_nn(unknown[..., :2].contiguous(), known)
     with pytest.raises(ValueError):
         three_nn(unknown, known[:, :0])
+    with pytest.raises(ValueError):
+        three_nn(unknown, known, NnLaunch(3, 1))  # not instantiated
     d, i = three_nn(unknown[:, :0], known)  # nothing to launch
     assert d.shape == i.shape == (2, 0, 3)

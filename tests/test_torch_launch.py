@@ -1,5 +1,5 @@
-"""The kernels' launch-shape rules (``iou3dmatch_tpu_torch/ops/fps.py`` and
-``ops/ball_query.py``).
+"""The kernels' launch-shape rules (``iou3dmatch_tpu_torch/ops/fps.py``,
+``ops/ball_query.py`` and ``ops/interpolate.py``).
 
 ``fps_launch_plan`` is a pure function of (B, N, the card's SM count, its
 ``cudaOccupancyMaxActiveClusters`` answers), so its invariants are checked
@@ -8,7 +8,9 @@ H100 80GB HBM3 gave for the planned candidates at 40,000 points, and
 GPC layouts that hold fewer clusters. ``ball_query_plan`` is a pure
 function of (B, m, N, the SM count), and ``gather_bwd_plan`` of (B, U, N,
 C, the SM count); the runs the gather backward's list kernel cuts from a scene's
-slots are emulated here from its rule.
+slots are emulated here from its rule. ``three_nn_plan`` is a function of
+(B, n, m, the SM count); the queries and lanes its blocks cover are
+emulated from csrc/three_nn.cu's indexing.
 """
 import re
 from pathlib import Path
@@ -24,6 +26,8 @@ from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, GBWD_BLOCKS_PER_SM,
                                                  GBWD_LIST_ROWS, GBWD_RUN_WARPS, MAX_TILE, WARPS,
                                                  BallQueryLaunch, ball_query_plan, gather_bwd_plan,
                                                  gather_bwd_splits)
+from iou3dmatch_tpu_torch.ops.interpolate import (NN_LANES, NN_LAUNCHES, NN_QUERIES, NN_THREADS,
+                                                  NN_WARPS_PER_SM, NnLaunch, three_nn_plan)
 from iou3dmatch_tpu_torch.ops.fps import (FAST_CLUSTER, GLOBAL, MAX_CLUSTER, PLAN_THREADS,
                                           REG_PPTS, SHARED, SHARED_MAX_POINTS, STREAM_THREADS,
                                           FpsLaunch, fps_candidates, fps_launch_plan,
@@ -298,6 +302,79 @@ def test_ball_query_instantiations_match_the_source():
     cases = tuple(int(c) for c in re.findall(r"case (\d+): err = launch<\1>", src))
     assert cases == BQ_CENTERS
     assert f"constexpr int kWarps = {WARPS};" in src
+
+
+NN_SHAPES = [(b, n, m) for b in (1, 2, 8, 12, 24) for n in (1, 37, 512, 1024, 8192, 16384)
+             for m in (1, 3, 8, 256, 301, 512, 1024, 5000)]
+
+
+def _nn_cover(launch: NnLaunch, n: int) -> np.ndarray:
+    """(n, lanes) count of the threads of one scene's blocks that hold each
+    query in each lane, by csrc/three_nn.cu's indexing: thread t of block
+    blk holds queries blk * rows + k * (NN_THREADS / S) + t / S, k < Q, in
+    lane t % S; queries past n are not written."""
+    s, q = launch
+    per_scene = launch.blocks(1, n)
+    blk, t, k = np.meshgrid(np.arange(per_scene), np.arange(NN_THREADS), np.arange(q), indexing="ij")
+    query = blk * launch.rows + k * (NN_THREADS // s) + t // s
+    keep = query < n
+    cover = np.zeros((n, s), int)
+    np.add.at(cover, (query[keep], (t % s)[keep]), 1)
+    return cover
+
+
+def test_three_nn_plan_covers_every_query_once_in_every_lane():
+    for n_sm in (N_SM, 114, 78, 1):
+        for b, n, m in NN_SHAPES:
+            launch = three_nn_plan(b, n, m, n_sm)
+            assert tuple(launch) in NN_LAUNCHES and 32 % launch.lanes == 0
+            assert launch.lanes == 1 or launch.lanes <= m // 4  # a lane for each 4-seed group at most
+            if n <= 16384 and b == 1:
+                assert (_nn_cover(launch, n) == 1).all(), (n, launch)
+            assert launch.blocks(b, n) == b * -(-n // launch.rows)
+            # the smallest S, then the largest Q, that give every SM its warps
+            need = NN_WARPS_PER_SM * n_sm
+            lanes = [s for s in NN_LANES if s <= max(1, m // 4)]
+            if launch.warps(b, n) >= need:
+                assert all(NnLaunch(s, q).warps(b, n) < need
+                           for s in lanes if s < launch.lanes for q in NN_QUERIES)
+                assert all(NnLaunch(launch.lanes, q).warps(b, n) < need
+                           for q in NN_QUERIES if q > launch.queries)
+            else:
+                assert launch == (lanes[-1], 1)
+
+
+def test_three_nn_launches_cover_every_query_once():
+    for launch in map(NnLaunch._make, NN_LAUNCHES):
+        for n in (1, 37, 255, 256, 257, 1024, 1025):
+            assert (_nn_cover(launch, n) == 1).all(), (n, launch)
+
+
+def test_three_nn_plan_at_the_chip_shapes():
+    """The plans PERF.md records, on 132 SMs: more lanes a query at FP's few
+    queries, Q > 1 where GridConv's grids give the warps."""
+    for (b, n, m), want in [
+            ((12, 16384, 1024), (1, 2)),  # GridConv of the SSL step
+            ((8, 16384, 1024), (1, 2)),  # GridConv of the pretrain step
+            ((8, 8192, 1024), (1, 1)),  # GridConv of serving
+            ((12, 1024, 512), (8, 1)),  # FP2 of the SSL step
+            ((12, 512, 256), (16, 1)),  # FP1 of the SSL step
+            ((8, 1024, 512), (8, 1)),  # FP2 of serving and pretraining
+            ((8, 512, 256), (16, 1))]:  # FP1 of serving and pretraining
+        assert tuple(three_nn_plan(b, n, m, N_SM)) == want, (b, n, m)
+        if n <= 1024:
+            assert want[0] >= 4
+
+
+def test_three_nn_instantiations_match_the_source():
+    """NN_LAUNCHES is what csrc/three_nn.cu dispatches on, and its blocks
+    are NN_THREADS threads."""
+    src = (Path(__file__).resolve().parents[1] / "iou3dmatch_tpu_torch" / "csrc"
+           / "three_nn.cu").read_text()
+    cases = tuple((int(s), int(q)) for s, q in re.findall(r"NN_CASE\((\d+), (\d+)\);", src))
+    assert cases == NN_LAUNCHES
+    assert all(32 % s == 0 for s, _ in cases)
+    assert f"constexpr int kThreads = {NN_THREADS};" in src
 
 
 def _lhs_inputs(b, k):

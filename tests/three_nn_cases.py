@@ -9,7 +9,11 @@ seeds, or seeds so far away that every d2 overflows to +inf, where the
 plain version's passes pick index 0; the ragged cases have n that is not a
 multiple of the kernel's 256 queries a block; and the NaN case has queries
 with a NaN coordinate, whose d2 are all NaN (argmin takes NaN as the least
-value, the first one first).
+value, the first one first). The lane cases put what decides an answer in
+the parts of the seeds that different lanes of a query scan (the kernel
+splits them by 4-seed groups over S lanes): copies of a seed 1 to 256
+indices after it, NaN queries at FP1's shape (512 x 256), and NaN seeds
+spread over the groups.
 """
 import numpy as np
 
@@ -76,6 +80,39 @@ def nan_queries(b: int):
     return unknown, known
 
 
+def lane_ties(b: int):
+    """301 seeds (a tail after the last whole 4-seed group), each of five
+    seeds copied onto the seeds 1, 2, 4, ... 256 indices after it; queries
+    on and around the copied seeds, so their nearest three are copies whose
+    d2 tie, scanned by different lanes for most S."""
+    rng = np.random.RandomState(43)
+    m = 301
+    known = room_seeds(rng, b, m)
+    bases = [0, 5, 30, 50, 70]
+    for j in bases:
+        for d in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            if j + d < m:
+                known[:, j + d] = known[:, j]
+    near = np.repeat(known[:, bases], 24, axis=1) + rng.normal(0, 0.05, (b, 24 * len(bases), 3))
+    near[:, ::6] = np.repeat(known[:, bases], 4, axis=1)  # exactly on a copy: d2 0
+    return near.astype(np.float32), known.astype(np.float32)
+
+
+def nan_queries_fp1(b: int):
+    """FP1's shape, 512 queries among 256 seeds, every fifth query NaN."""
+    unknown, known = small(44, b, 512, 256)
+    unknown[:, ::5, 0] = np.nan
+    return unknown, known
+
+
+def nan_seeds(b: int):
+    """NaN seeds in groups far apart: every query's d2 to them is NaN, so
+    its first three are the first three NaN seeds."""
+    unknown, known = small(45, b, 200, 130)
+    known[:, [3, 7, 21, 64, 100, 129], 2] = np.nan
+    return unknown, known
+
+
 CASES = {
     "grid_rotated_boxes_m1024": lambda: grids(0, 2, 16, 1024),
     "grid_duplicate_seeds_m1024": lambda: grids(1, 2, 16, 1024, duplicates=True),
@@ -89,4 +126,7 @@ CASES = {
     "n1": lambda: small(8, 4, 1, 64),
     "overflow_to_inf": lambda: overflow(2),
     "nan_queries": lambda: nan_queries(2),
+    "lane_ties_m301": lambda: lane_ties(2),
+    "nan_queries_fp1": lambda: nan_queries_fp1(2),
+    "nan_seeds": lambda: nan_seeds(2),
 }
