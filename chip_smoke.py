@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's detection forward, pretrain step and SSL step on one NVIDIA GPU.
+"""Drives the PyTorch port's detection forward, eval, pretrain step and SSL step on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (``nvcc``); it builds the kernels from
@@ -16,19 +16,37 @@ reported on its own line; a failed check raises and the exit code is not 0:
    gather's backward at SA2 of the student's 12 scenes, LHS at (8, 64)
    clustered boxes (with the cycles of each step, ``lhs_phases``),
    three_nn at GridConv's grids of serving, the pretrain step and the SSL
-   step and at FP1 and FP2 of 8 and 12 scenes (off every path: the ball
-   query on surface scenes, the rotated IoU on rotated boxes), with
+   step and at FP1 and FP2 of 8 and 12 scenes, greedy NMS at serving's
+   (8, 128) class-aware boxes in float64 (off every path: its float32 3D
+   and 2D branches, tied scores, K = 256 and matrix mode on a rotated BEV
+   IoU; the ball query on surface scenes, the rotated IoU on rotated
+   boxes), with
    CUDA-event timings of kernel, plain version and library call, the
    launch floor (a one-element ``zero_()`` timed the same way), and the
    launch plans of FPS, the ball query, the gather's backward and
    three_nn; FPS, the
-   ball query, the gather, LHS and three_nn must be
+   ball query, the gather, LHS, three_nn and NMS must be
    exactly equal, the gather's backward within 1e-5 x the sum of |g| of each
    element of an f64 sum, the IoU within atol 1e-5; it fails if a planned
-   FPS variant spills, or three_nn or LHS spills;
+   FPS variant spills, or three_nn, LHS or NMS spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene;
 5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
-   and IoU-guided class-aware NMS, with the kernels' launch counts;
+   and ``parse_predictions``' two halves with IoU-guided class-aware NMS on
+   the card, each request's picks equal to the host NumPy parse of the same
+   outputs, which is timed beside it (parse ms, host list ms, old host
+   parse ms), with the kernels' launch counts; then the first request
+   parsed again at IoU SERVE_CHECK_NMS_IOU in each NMS branch, where the
+   NMS must drop boxes, its picks equal to the NumPy parse's;
+5b. eval: ``cli/common.py::evaluate`` as run_eval.sh and run_eval_opt.sh run
+   it, 3 requests of 8 scenes x 40,000 points with 8-16 GT boxes a scene
+   near the model's proposals, AP at 0.25 and 0.5, without and with
+   test-time IoU optimisation (10 steps at 5e-4): ``iou_optimize`` on one
+   scene on the card against the CPU, launches a request of ``evaluate``
+   (the gather's backward never) and its ms a request; then the same
+   requests through evaluate's parts in a plain loop, each request's
+   picks and the mAP and AR equal to those of the host NumPy parse and to
+   evaluate's, ms a request of the forward, the optimisation and the
+   parse's halves, and the AP's wall time;
 6. training: one pretrain step of 2 scenes on the card against the CPU,
    with GT boxes at the random model's own vote centres (the loss within
    rtol 2e-3, the gradient with cosine > 0.999 and relative L2 < 0.05, FPS
@@ -71,6 +89,7 @@ a scan sees it, so that most balls of r 0.2 fill their 64 slots. The last
 two lines are the kernels' JSON and the device JSON.
 """
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -80,11 +99,18 @@ import time
 import numpy as np
 import torch
 
+from iou3dmatch_tpu_torch.cli import common as cli_common
 from iou3dmatch_tpu_torch.data.config import get_config
-from iou3dmatch_tpu_torch.eval.ap_helper import eval_config_dict, parse_predictions
+from iou3dmatch_tpu_torch.eval.ap_helper import (APCalculator, decode_corners, eval_config_dict,
+                                                 nms_scores, pack_predictions,
+                                                 parse_groundtruths, parse_predictions,
+                                                 parse_predictions_np, proposal_lists)
+from iou3dmatch_tpu_torch.eval.iou_opt import iou_optimize
 from iou3dmatch_tpu_torch.geometry.iou3d import (bev_candidates, box_pairs, box_pairs_plain,
                                                  pairs_apart)
-from iou3dmatch_tpu_torch.geometry.nms import lhs_3d_samecls_plain, samecls_iou_aabb
+from iou3dmatch_tpu_torch.geometry.nms import (box_overlaps, lhs_3d_samecls_plain,
+                                               nms_boxes_plain, nms_masked_plain,
+                                               samecls_iou_aabb)
 from iou3dmatch_tpu_torch.losses import unlabeled
 from iou3dmatch_tpu_torch.models.factory import build_votenet
 from iou3dmatch_tpu_torch.models import grid_conv, pointnet2
@@ -101,9 +127,12 @@ from iou3dmatch_tpu_torch.ops.fps import (fps_plan, fps_variant, furthest_point_
 from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, NnLaunch, three_nn, three_nn_plain,
                                                   three_nn_plan)
 from iou3dmatch_tpu_torch.ops.lhs import SMALL_BOXES, lhs_3d_samecls
+from iou3dmatch_tpu_torch.ops.nms import MODE_IDS as NMS_MODE_IDS
+from iou3dmatch_tpu_torch.ops.nms import nms_boxes, nms_masked
 from iou3dmatch_tpu_torch.train.schedules import get_bn_momentum
 from iou3dmatch_tpu_torch.train.state import create_train_state
-from iou3dmatch_tpu_torch.train.steps import make_eval_forward, make_pretrain_step, make_ssl_step
+from iou3dmatch_tpu_torch.train.steps import (make_eval_forward, make_eval_loss,
+                                              make_pretrain_step, make_ssl_step)
 
 B, N, NPOINT = 8, 40_000, 2048
 K, G = 128, 64  # proposals; GT slots a scene (max_num_obj)
@@ -151,6 +180,22 @@ GBWD_SWEEP = (4, 8, 16, 32, 64, 128, 256)  # the gather backward's sum blocks a 
 LHS_BOX_OPS = 9
 LHS_ROUND_OPS = 19 + 4
 LHS_RANK_OPS = 4
+# NMS's operations, counted from csrc/nms.cu as the plain version does
+# them, each product and sum one instruction: a pair's overlap is, per axis,
+# a min, a max, a subtraction and a clamp; the products of the sides; the
+# sum of the areas, the union's subtraction and the division; the class
+# gate's select and product (3d_cls); the compare. A box's area: its sides'
+# subtractions and products. Matrix mode reads a given IoU: a compare a
+# pair. The pairs the function needs are each round's winner against the
+# boxes still remaining (nms_pairs, a replay of the rounds); ordering K
+# keys needs K ceil(log2 K) compares. 3d_cls's float64 operations issue at
+# SMs x FP64_LANES_PER_SM x the top clock, half the float32 rate, and are
+# counted as two instructions each.
+NMS_PAIR_OPS = {"2d": 2 * 4 + 1 + 3 + 1, "3d": 3 * 4 + 2 + 3 + 1, "3d_cls": 3 * 4 + 2 + 3 + 2 + 1,
+                "matrix": 1}
+NMS_AREA_OPS = {"2d": 2 + 1, "3d": 3 + 2, "3d_cls": 3 + 2, "matrix": 0}
+FP64_LANES_PER_SM = 64
+OPT_RATE, OPT_STEP = 5e-4, 10  # run_eval_opt.sh's rate (train.py:69) and steps
 KERNELS = {
     "fps": furthest_point_sample,
     "ball_query": ball_query,
@@ -159,6 +204,7 @@ KERNELS = {
     "iou3d": box_pairs,
     "lhs": lhs_3d_samecls,
     "three_nn": three_nn,
+    "nms": nms_boxes,
 }
 REPLACES = {
     "fps": "iou3dmatch_tpu/ops/fps_pallas.py:46",
@@ -168,6 +214,7 @@ REPLACES = {
     "iou3d": "iou3dmatch_tpu/geometry/iou3d.py:94",
     "lhs": "iou3dmatch_tpu/geometry/nms.py:115",
     "three_nn": "iou3dmatch_tpu/ops/interpolate.py:21",
+    "nms": "iou3dmatch_tpu/geometry/nms.py:170",
 }
 # three_nn's operations: each (query, seed) pair is a distance test of
 # PAIR_OPS (3 sub, 3 mul, 2 add, 1 compare; no FMA, csrc/three_nn.cu is
@@ -177,7 +224,8 @@ REPLACES = {
 NN_YARDSTICK = "torch.cdist + topk(3, largest=False): two calls, matmul-form distances, not exact"
 # the kernels whose compiler report must list these entries, none spilling
 NO_SPILL = {"three_nn": tuple(f"three_nn_kernelILi{s}ELi{q}EE" for s, q in NN_LAUNCHES),
-            "lhs": ("lhs_small_kernel", "lhs_kernel")}
+            "lhs": ("lhs_small_kernel", "lhs_kernel"),
+            "nms": tuple(f"nms_kernelILi{mode}EE" for mode in range(4))}
 NN_COUNTS = ("warps", "group_steps", "insert_steps", "stage_cycles", "scan_cycles",
              "merge_cycles", "write_cycles")  # csrc/three_nn.cu nn_counts
 SSL_NL, SSL_NU = 4, 8  # run_train.sh: 4 labeled + 8 unlabeled scenes a step
@@ -187,6 +235,7 @@ SSL_LR = 2e-3  # train.py:49
 # its gate could not tell a kernel that never suppresses; at 0.05 it
 # drops some (ssl_check fails otherwise).
 SSL_CHECK_NMS_IOU = 0.05
+SERVE_CHECK_NMS_IOU = 0.02  # serving's outputs parsed again where the NMS drops boxes
 
 
 def say(**kw):
@@ -530,6 +579,7 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
         bq(label, 0.2, 64, pts, ctr, main=main)
     iou_rows(dev, ops_per_s, rows)
     lhs_rows(dev, ops_per_s, rows)
+    nms_rows(dev, ops_per_s, rows, floor)
     # ctr: SA1's centers of the SSL step's 12 clouds
     three_nn_rows(ops_per_s, rows, sa1_xyz, ctr, floor, nn_sweep_on, nn_counts_on)
     return rows
@@ -786,6 +836,117 @@ def lhs_rows(dev, ops_per_s, rows, thresh: float = 0.25):
     rows["lhs"] = [r]
 
 
+def nms_pairs(over: torch.Tensor, scores: torch.Tensor, higher_index_first: bool) -> int:
+    """The overlaps greedy NMS needs on these inputs: each round's winner
+    against the boxes still remaining after it, summed over the rounds and
+    scenes, from a replay of the rounds on the host with the plain
+    version's suppression matrix ``over`` (B, K, K) and its pick order."""
+    over, scores = over.cpu(), scores.cpu()
+    total = 0
+    for s in range(scores.shape[0]):
+        sc = scores[s].tolist()
+        order = sorted(range(len(sc)), key=lambda i: (sc[i], i if higher_index_first else -i),
+                       reverse=True)
+        left = list(order)
+        while left:
+            w, rest = left[0], left[1:]
+            total += len(rest)
+            row = over[s, w]
+            left = [j for j in rest if not bool(row[j])]
+    return total
+
+
+def nms_rows(dev, ops_per_s, rows, floor: float):
+    """Greedy NMS (csrc/nms.cu) against its plain versions, exactly: box mode
+    at serving's (B, K) class-aware in float64 at IoU 0.25 (the main path's
+    shape), the 3D and 2D float32 branches, tied scores, K = 256, and
+    matrix mode on the rotated BEV IoU of (B, K) boxes (nms_rotated's).
+    The boxes are ``make_lhs_input``'s clusters of near-duplicates. The
+    bound counts each input and output byte once, the overlaps the rounds
+    need (``nms_pairs``, NMS_PAIR_OPS each) with each box's area, and a
+    sort of the keys; its time lies under any launch's, so each row also
+    gives its time over the launch floor ``floor``."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    f64_ratio = LANES_PER_SM / FP64_LANES_PER_SM  # float32 instructions a float64 one costs
+
+    def one(label, mode, tensors, thresh, main):
+        mins, maxs, scores, cls = tensors
+        b, k = scores.shape
+        if mode == "matrix":
+            iou = box_pairs(mins, mins, "iou_bev")  # mins holds (B, K, 7) boxes here
+            args = (iou, scores, thresh)
+            kernel, plain = nms_masked, nms_masked_plain
+            over = iou > torch.tensor(thresh, dtype=torch.float32)
+            nbytes = b * k * k * 4 + b * k * (4 + 1)
+        else:
+            args = (mins, maxs, scores, cls if mode == "3d_cls" else None, None, mode, False, thresh)
+            kernel, plain = nms_boxes, nms_boxes_plain
+            dtype = torch.float64 if mode == "3d_cls" else torch.float32
+            over = box_overlaps(mins, maxs, cls, mode, False) > torch.tensor(thresh, dtype=dtype)
+            nbytes = b * k * (12 + 12 + 4 + (8 if mode == "3d_cls" else 0) + 1)
+        pairs = nms_pairs(over, scores, mode != "matrix")
+        scale = f64_ratio if mode == "3d_cls" else 1.0
+        ops = (pairs * NMS_PAIR_OPS[mode] + b * k * NMS_AREA_OPS[mode]) * scale \
+            + b * k * int(np.ceil(np.log2(max(k, 2))))
+        got, r = check_kernel("nms", label, kernel, plain, None, args, nbytes, lambda _: ops,
+                              ops_per_s, 10, main=main)
+        r.update(mode=mode, pairs=pairs, kept=int(got.sum()), launch_floor_ms=floor,
+                 of_floor=r["ms"] / floor, plain_rounds="K masked rounds in PyTorch")
+        if mode != "matrix":
+            r["phases"] = nms_phases(args, got)
+        say(phase="nms_work", shape=label, mode=mode, pairs=pairs, ops=ops, kept=r["kept"],
+            of_floor=r["of_floor"], fp64_lanes_per_sm=FP64_LANES_PER_SM, sms=n_sm,
+            cycles=r.get("phases"))
+        rows.setdefault("nms", []).append(r)
+
+    def boxes(seed, k, tied=False):
+        mins, maxs, scores, cls = make_lhs_input(seed, B, k)
+        if tied:
+            scores = (np.round(scores * 4) / 4).astype(np.float32)
+        return [torch.from_numpy(x).to(dev) for x in (mins, maxs, scores, cls)]
+
+    one(f"serving ({B},{K}) 3d_cls float64, IoU > 0.25", "3d_cls", boxes(70, K), 0.25, True)
+    one(f"({B},{K}) 3d float32", "3d", boxes(71, K), 0.25, False)
+    one(f"({B},{K}) 2d float32 (x, z)", "2d", boxes(72, K), 0.25, False)
+    one(f"({B},{K}) 3d_cls, scores on a quarter grid (ties)", "3d_cls", boxes(73, K, True), 0.25,
+        False)
+    one(f"({B},256) 3d_cls float64", "3d_cls", boxes(74, 256), 0.25, False)
+    rot = torch.from_numpy(make_boxes(np.random.RandomState(75), B, K, True)).to(dev)
+    scores = torch.from_numpy(np.random.RandomState(76).rand(B, K).astype(np.float32)).to(dev)
+    one(f"matrix ({B},{K}) rotated BEV IoU, IoU > 0.1", "matrix", (rot, None, scores, None), 0.1,
+        False)
+
+
+NMS_PHASES = ("order", "matrix", "rounds", "write")  # csrc/nms.cu's NMS_STAMP 0-4
+_variant = functools.lru_cache(maxsize=None)(_build.build_variant)  # one nvcc a variant
+
+
+def nms_phases(args, want) -> dict:
+    """Cycles of each step of csrc/nms.cu's box mode on ``args`` (the
+    arguments of ``nms_boxes``), from a build with -DNMS_PHASES, whose
+    thread 0 of each block stamps clock64() at its start and after each
+    step; its keep mask must equal ``want``. Means over the scenes of the
+    second launch. Times only: the stamps cost a few instructions."""
+    mins, maxs, scores, cls, _, mode, old_type, thresh = args
+    lib = _variant("nms", "NMS_PHASES")
+    fn, read = lib.nms_boxes_launch, lib.nms_phases_read
+    fn.argtypes = [_build.VP] * 6 + [_build.INT] * 4 + [_build.DOUBLE, _build.VP]
+    read.argtypes = [_build.VP, _build.INT]
+    b, k = scores.shape
+    keep = torch.empty((b, k), dtype=torch.bool, device=scores.device)
+    for _ in range(2):
+        _build.check(fn(mins.data_ptr(), maxs.data_ptr(), scores.data_ptr(),
+                        0 if cls is None else cls.data_ptr(), 0, keep.data_ptr(), b, k,
+                        NMS_MODE_IDS[mode], int(old_type), thresh, _build.stream(keep)),
+                     "nms with NMS_PHASES")
+    torch.cuda.synchronize()
+    if not torch.equal(keep, want):
+        raise AssertionError("the NMS_PHASES build keeps other boxes than the kernel")
+    stamps = np.zeros((b, len(NMS_PHASES) + 1), np.int64)
+    _build.check(read(stamps.ctypes.data, b), "nms_phases_read")
+    return dict(zip(NMS_PHASES, np.diff(stamps, axis=1).mean(0).tolist()))
+
+
 LHS_PHASES = ("load", "order", "matrix", "rounds", "write")  # csrc/lhs.cu's LHS_STAMP 0-5
 
 
@@ -887,45 +1048,254 @@ def phase_forward(model_gpu, dev):
         max_abs_diff=diffs, gpu_s=gpu_s, cpu_s=cpu_s)
 
 
+def same_picks(got, want, what: str) -> float:
+    """Raises unless the two parses give the same proposals, scene by scene
+    in the same order, with equal classes, corners and scores (the card's
+    parse takes the proposals' scores from the copied logits with NumPy);
+    returns the largest relative difference of the scores, 0."""
+    if [len(g) for g in got] != [len(w) for w in want]:
+        raise AssertionError(f"{what}: proposals a scene {[len(g) for g in got]} against "
+                             f"{[len(w) for w in want]}")
+    worst = 0.0
+    for s, (gs, ws) in enumerate(zip(got, want)):
+        for (gc, gbox, gscore), (wc, wbox, wscore) in zip(gs, ws):
+            if gc != wc or not np.array_equal(gbox, wbox):
+                raise AssertionError(f"{what}: scene {s} picks otherwise ({gc} against {wc})")
+            worst = max(worst, abs(float(gscore) - float(wscore)) / max(abs(float(wscore)), 1e-30))
+    if worst > 0:
+        raise AssertionError(f"{what}: scores off by {worst} (relative)")
+    return worst
+
+
+def kept_per_scene(packed: np.ndarray, num_class: int) -> list:
+    """The boxes each scene's NMS kept, from ``pack_predictions``' copy."""
+    return (packed[..., 26 + num_class] > 0).sum(1).tolist()
+
+
 def phase_serve(model, cfg, dev) -> dict:
+    """3 requests of B scenes: the eval forward, then ``parse_predictions``
+    on its CUDA outputs in its two halves, each timed:
+    ``pack_predictions`` (decode and IoU-guided class-aware NMS on the card,
+    one copy) and ``proposal_lists`` (the per-class lists on the host).
+    Each request's picks are held to the host NumPy parse of the same
+    outputs (``parse_predictions_np``, the path the card replaces), which is
+    timed beside it. scenes/s counts the forward and the parse of each
+    request, not the checks. Then ``serve_suppression_check``."""
     forward = make_eval_forward(model)
     config = eval_config_dict(cfg, use_iou_for_nms=True)
     batches = [torch.from_numpy(make_scenes(10 + i, B, N)).to(dev) for i in range(3)]
-    forward(batches[0])  # warm-up, not counted
+    parse_predictions(forward(batches[0]), config)  # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in KERNELS.values():
         fn.launches = 0
-    t_all = time.perf_counter()
+    request_s, old_s, outs = [], [], []
     for i, pc in enumerate(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
         out = forward(pc)
         end.record()
         end.synchronize()
-        t = time.perf_counter()
-        picks = parse_predictions(out, config)
-        host_ms = (time.perf_counter() - t) * 1e3
+        t1 = time.perf_counter()
+        packed = pack_predictions(out, config)
+        t2 = time.perf_counter()
+        picks = proposal_lists(packed, cfg.num_class, config)
+        t3 = time.perf_counter()
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        t4 = time.perf_counter()
+        want = parse_predictions_np(host, config)
+        t5 = time.perf_counter()
+        worst = same_picks(picks, want, f"request {i}")
         for k, v in out.items():
             if v.shape[0] != B or not torch.isfinite(v).all():
                 raise AssertionError(f"request {i}: {k} has shape {tuple(v.shape)} or non-finite values")
-        if out["center"].shape != (B, 128, 3) or out["iou_scores"].shape != (B, 128, 18):
+        if out["center"].shape != (B, K, 3) or out["iou_scores"].shape != (B, K, 18):
             raise AssertionError(f"request {i}: unexpected output shapes")
-        # per-class proposals: one entry per class for each box NMS kept
-        say(phase="request", i=i, device_ms=start.elapsed_time(end), host_nms_ms=host_ms,
-            boxes_kept_per_scene=[len(p) // cfg.num_class for p in picks])
-    wall_s = time.perf_counter() - t_all
+        request_s.append(t3 - t0)
+        old_s.append(t1 - t0 + t5 - t4)
+        outs.append(out)
+        say(phase="request", i=i, device_ms=start.elapsed_time(end),
+            parse_ms=(t3 - t1) * 1e3, host_list_ms=(t3 - t2) * 1e3,
+            decode_nms_copy_ms=(t2 - t1) * 1e3,
+            host_numpy_parse_ms=(t5 - t4) * 1e3, copy_to_host_ms=(t4 - t3) * 1e3,
+            same_picks_as_numpy=True, max_rel_score_diff=worst,
+            boxes_kept_per_scene=kept_per_scene(packed, cfg.num_class))
     launches = {k: fn.launches for k, fn in KERNELS.items()}
     expect = {"fps": 3, "ball_query": 15, "gather": 18, "gather_bwd": 0, "iou3d": 0, "lhs": 0,
-              "three_nn": 9}
-    say(phase="serve", requests=3, scenes_per_s=3 * B / wall_s, wall_s=wall_s,
+              "three_nn": 9, "nms": 3}
+    say(phase="serve", requests=3, scenes_per_s=3 * B / sum(request_s), wall_s=sum(request_s),
+        scenes_per_s_host_numpy_parse=3 * B / sum(old_s),
         max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches,
         launches_per_request={k: v / 3 for k, v in launches.items()})
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
+    serve_suppression_check(outs[0], cfg)
     phase_profile(model, forward, batches[0])
     return launches
+
+
+def serve_suppression_check(out, cfg):
+    """Serving's first request parsed again at IoU SERVE_CHECK_NMS_IOU in
+    each NMS branch (class-aware IoU-guided, 3D, 2D), on the card and by the
+    NumPy parse: the same picks, and in each branch the card's NMS drops at
+    least one box of some scene. At the released 0.25 it keeps every box of
+    the random model, so the picks checked above would also pass a kernel
+    that kept all."""
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    dropped, largest = {}, {}
+    for mode in ("3d_cls", "3d", "2d"):
+        config = dict(eval_config_dict(cfg, use_iou_for_nms=True), nms_iou=SERVE_CHECK_NMS_IOU,
+                      use_3d_nms=mode != "2d", cls_nms=mode == "3d_cls")
+        packed = pack_predictions(out, config)
+        same_picks(proposal_lists(packed, cfg.num_class, config), parse_predictions_np(host, config),
+                   f"serving at IoU {SERVE_CHECK_NMS_IOU}, {mode}")
+        dropped[mode] = [K - n for n in kept_per_scene(packed, cfg.num_class)]
+        corners = decode_corners(out, cfg)
+        over = box_overlaps(corners.amin(2), corners.amax(2), nms_scores(out, config)[1], mode, False)
+        largest[mode] = float(over.masked_fill(torch.eye(K, dtype=torch.bool, device=over.device), 0).max())
+    say(phase="serve_suppression", nms_iou=SERVE_CHECK_NMS_IOU, dropped_per_scene=dropped,
+        largest_overlap_of_two_boxes=largest, same_picks_as_numpy=True)
+    for mode, d in dropped.items():
+        if not sum(d) > 0:
+            raise AssertionError(f"the NMS dropped no box in branch {mode} at IoU {SERVE_CHECK_NMS_IOU}")
+
+
+def eval_batches(model, cfg, dev) -> list:
+    """3 requests of B rooms (``make_scenes``) with GT: 8-16 boxes a scene of
+    ScanNet classes within 0.05 of the random model's own proposal centers
+    (``make_train_batch``), so that some proposals match; on the card."""
+    forward = make_eval_forward(model)
+    batches = []
+    for i in range(3):
+        pc = make_scenes(80 + i, B, N)
+        anchors = forward(torch.from_numpy(pc).to(dev))["center"].cpu().numpy()
+        batch = make_train_batch(80 + i, B, cfg, anchors)
+        batches.append({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    return batches
+
+
+def iou_opt_check(model, cfg, batch):
+    """``iou_optimize`` on one scene on the card against the CPU from the
+    same eval outputs and weights (OPT_RATE, OPT_STEP): refined center and
+    size within 1e-7 + 1e-2 of the largest move the CPU made, IoU logits
+    within atol 1e-3 (the forward's card-vs-CPU tolerance)."""
+    labels = {k: v[:1] for k, v in batch.items() if k != "point_clouds"}
+    out, _ = make_eval_loss(model, cfg)(batch["point_clouds"][:1], labels)
+    got = iou_optimize(model, out, OPT_RATE, OPT_STEP)
+    model_cpu, _ = build_votenet("scannet", device="cpu")  # same seed, same weights
+    out_cpu = {k: v.detach().cpu() for k, v in out.items()}
+    want = iou_optimize(model_cpu, out_cpu, OPT_RATE, OPT_STEP)
+    moved = max(float((want[k] - out_cpu[k]).abs().max()) for k in ("center", "size"))
+    diffs = {k: max_err(got[k].detach().cpu(), want[k].detach()) for k in
+             ("center", "size", "size_residuals", "iou_scores")}
+    tol = 1e-7 + 1e-2 * moved
+    say(phase="iou_opt_vs_cpu", scenes=1, opt_rate=OPT_RATE, opt_step=OPT_STEP,
+        largest_move=moved, max_abs_diff=diffs,
+        tol=f"center, size, size_residuals within 1e-7 + 1e-2 x the largest move ({tol}); "
+            "iou_scores within 1e-3")
+    if not moved > 0:
+        raise AssertionError("iou_optimize moved no box on the CPU")
+    if max(diffs["center"], diffs["size"], diffs["size_residuals"]) > tol or diffs["iou_scores"] > 1e-3:
+        raise AssertionError(f"iou_optimize differs between the card and the CPU: {diffs}")
+
+
+def phase_eval(model, cfg, dev) -> dict:
+    """``cli/common.py::evaluate`` as run_eval.sh and run_eval_opt.sh run it:
+    3 requests of B scenes x N points with GT (``eval_batches``), IoU-guided
+    class-aware NMS on the card, AP at 0.25 and 0.5; once without and once
+    with test-time IoU optimisation (OPT_STEP at OPT_RATE). ``evaluate``
+    runs with the kernels' counts set to 0 before it and read after it;
+    then the same requests go through evaluate's parts in a plain loop,
+    each part timed (``eval_loss``, ``iou_optimize``, ``pack_predictions``,
+    ``proposal_lists``, AP), each request's parse held to the host NumPy
+    parse of the same outputs, and the mAP and AR of the loop's card parse
+    equal (within 1e-12) to those of the NumPy parse and to evaluate's.
+    Launches a request: FPS 1, ball query 5, NMS 1, the IoU 1 (the eval
+    loss's IoU labels); the gather 6 and three_nn 3 without the
+    optimisation, 6 + 12 and 3 + 12 with it (11 ascent steps and one last
+    forward of GridConv); the gather's backward never. Returns each run's
+    launches."""
+    config = eval_config_dict(cfg, use_iou_for_nms=True)
+    batches = eval_batches(model, cfg, dev)
+    iou_opt_check(model, cfg, batches[0])
+    gts = [parse_groundtruths(b, config) for b in batches]
+    labels = [{k: v for k, v in b.items() if k != "point_clouds"} for b in batches]
+    eval_loss = make_eval_loss(model, cfg)
+    results = {}
+    for opt_step in (0, OPT_STEP):
+        rate = OPT_RATE if opt_step else 0.0
+        out, _ = eval_loss(batches[0]["point_clouds"], labels[0])  # warm-up, not counted
+        if opt_step:
+            iou_optimize(model, out, rate, opt_step)
+        torch.cuda.synchronize()
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        means, ap, map_sum = cli_common.evaluate(model, cfg, batches, config, lambda _: None,
+                                                 eval_loss, opt_rate=rate, opt_step=opt_step)
+        evaluate_s = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+
+        ms = {k: [] for k in ("forward", "iou_opt", "decode_nms_copy", "host_lists",
+                              "host_numpy_parse", "ap")}
+        calcs = {(src, t): APCalculator(t, cfg.class2type) for src in ("card", "host")
+                 for t in (0.25, 0.5)}
+        worst = []
+        for i, (batch, gt) in enumerate(zip(batches, gts)):
+            t0 = time.perf_counter()
+            out, _ = eval_loss(batch["point_clouds"], labels[i])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if opt_step:
+                out = iou_optimize(model, out, rate, opt_step)
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            packed = pack_predictions(out, config)
+            t3 = time.perf_counter()
+            picks = proposal_lists(packed, cfg.num_class, config)
+            t4 = time.perf_counter()
+            host = {k: v.detach().cpu().numpy() for k, v in out.items()}
+            t5 = time.perf_counter()
+            want = parse_predictions_np(host, config)
+            t6 = time.perf_counter()
+            worst.append(same_picks(picks, want, f"eval request {i}"))
+            for (src, _), calc in calcs.items():
+                calc.step(picks if src == "card" else want, gt)
+            for k, dt in (("forward", t1 - t0), ("iou_opt", t2 - t1), ("decode_nms_copy", t3 - t2),
+                          ("host_lists", t4 - t3), ("host_numpy_parse", t6 - t5)):
+                ms[k].append(dt * 1e3)
+        metrics = {}
+        for key, calc in calcs.items():
+            t = time.perf_counter()
+            metrics[key] = calc.compute_metrics()
+            if key[0] == "card":
+                ms["ap"].append((time.perf_counter() - t) * 1e3)
+        scores = {t: {"mAP": float(ap[t]["mAP"]), "AR": float(ap[t]["AR"]),
+                      **{f"{m}_{src}": float(metrics[src, t][m]) for src in ("card", "host")
+                         for m in ("mAP", "AR")}} for t in ap}
+        say(phase="eval", opt_step=opt_step, opt_rate=rate, requests=3, scenes=B, points=N,
+            evaluate_ms_per_request=evaluate_s * 1e3 / 3, ms=ms, max_rel_score_diff=max(worst),
+            ap=scores, ap_of="evaluate; _card: the loop's card parse; _host: its NumPy parse",
+            map_sum=float(map_sum), loss=means.get("loss"), launches=launches,
+            launches_per_request={k: v / 3 for k, v in launches.items()})
+        for t, m in scores.items():
+            for key in ("mAP", "AR"):
+                if not (abs(m[key] - m[f"{key}_card"]) <= 1e-12
+                        and abs(m[f"{key}_card"] - m[f"{key}_host"]) <= 1e-12):
+                    raise AssertionError(f"{key} at {t}: evaluate, the card's parse and the host's "
+                                         f"differ: {m}")
+        if not all(np.isfinite(v) for v in means.values()):
+            raise AssertionError(f"non-finite eval metrics {means}")
+        grid = 1 + (OPT_STEP + 2 if opt_step else 0)  # GridConv runs a request
+        expect = {"fps": 3, "ball_query": 15, "gather": 3 * (5 + grid), "gather_bwd": 0,
+                  "iou3d": 3, "lhs": 0, "three_nn": 3 * (2 + grid), "nms": 3}
+        if launches != expect:
+            raise AssertionError(f"eval launches {launches} with opt_step {opt_step}, "
+                                 f"expected {expect}")
+        results[opt_step] = launches
+    return results
 
 
 def make_train_batch(seed: int, b: int, cfg, anchors=None) -> dict:
@@ -1060,7 +1430,7 @@ def phase_train(cfg, dev) -> dict:
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses.tolist()}")
     expect = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2, "lhs": 0,
-              "three_nn": 3}
+              "three_nn": 3, "nms": 0}
     if launches != expect:
         raise AssertionError(f"launches a step {launches}, expected {expect}")
     phase_train_profile(model, state, step, batch, momentum)
@@ -1301,7 +1671,7 @@ def phase_ssl(cfg, dev) -> dict:
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite SSL loss: {losses.tolist()}")
     expect = {"fps": 1, "ball_query": 10, "gather": 12, "gather_bwd": 4, "iou3d": 3, "lhs": 1,
-              "three_nn": 6}
+              "three_nn": 6, "nms": 0}
     if launches != expect:
         raise AssertionError(f"SSL launches a step {launches}, expected {expect}")
     phase_ssl_profile(state, step, batch, momentum)
@@ -1472,17 +1842,24 @@ def main() -> int:
         return 0
     phase_forward(model, dev)
     serve = phase_serve(model, cfg, dev)
+    evals = phase_eval(model, cfg, dev)
     train = phase_train(cfg, dev)
     ssl = phase_ssl(cfg, dev)
 
     kernels = []
     for name, checks in rows.items():
-        # the heaviest shape of the serving forward, the pretrain or the SSL step
+        # the heaviest shape of the serving forward, the eval, the pretrain or the SSL step
         first = max((c for c in checks if c["main"]), key=lambda c: c["bound_ms"])
+        # launches over the 5 timed SSL steps, or for a kernel off that path
+        # (NMS) over the 3 requests of the eval phase without optimisation
+        on_ssl = ssl[name] > 0
         kernels.append({
             "name": name, "route": "cuda", "source": f"iou3dmatch_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": ssl[name],  # over the 5 timed SSL steps
+            "replaces": REPLACES[name], "launches": ssl[name] if on_ssl else evals[0][name],
+            "launches_of": "5 SSL steps" if on_ssl else "3 eval requests",
             "launches_5_train_steps": train[name], "launches_3_requests": serve[name],
+            "launches_3_eval_requests": evals[0][name],
+            "launches_3_eval_opt_requests": evals[OPT_STEP][name],
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],

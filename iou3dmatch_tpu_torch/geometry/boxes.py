@@ -2,7 +2,8 @@
 
 Counterpart of ``iou3dmatch_tpu/geometry/boxes.py`` (reference
 ``utils/box_util.py`` and ``models/ap_helper.py:28-41``): ``rot_gpu`` and
-``corners_aabb`` on tensors for the model and the pseudo labels, the NumPy
+``corners_aabb`` on tensors for the model and the pseudo labels,
+``get_3d_box_batch_tensor`` for the eval decode on the card, and the NumPy
 helpers for the host-side eval path.
 """
 import numpy as np
@@ -49,6 +50,17 @@ def roty_batch_np(t):
     return out
 
 
+def get_3d_box_np(box_size, heading_angle, center):
+    """One box's upright-camera corners, (8, 3) (utils/box_util.py:335-358)."""
+    R = roty_batch_np(np.asarray(heading_angle))
+    l, w, h = box_size[0], box_size[1], box_size[2]
+    x = np.array([l, l, -l, -l, l, l, -l, -l]) / 2.0
+    y = np.array([h, h, h, h, -h, -h, -h, -h]) / 2.0
+    z = np.array([w, -w, -w, w, w, -w, -w, w]) / 2.0
+    corners = np.stack([x, y, z], axis=-1) @ R.T
+    return corners + np.asarray(center)
+
+
 def get_3d_box_batch_np(box_size, heading_angle, center):
     """Batched corner generation in the upright-camera frame.
 
@@ -84,3 +96,43 @@ def flip_axis_to_camera(pc):
     (models/ap_helper.py:28-35)."""
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
     return np.stack([x, -z, y], axis=-1)
+
+
+def flip_axis_to_depth(pc):
+    """Inverse of ``flip_axis_to_camera`` (models/ap_helper.py:37-41)."""
+    x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
+    return np.stack([x, z, -y], axis=-1)
+
+
+def box3d_vol_batch_np(corners):
+    """(n, 8, 3) corners -> (n,) products of the square roots of the edge
+    lengths, as ``box3d_vol_batch`` (utils/box_util.py:98-104) computes
+    them: (l w h) ** 0.5 for a cuboid, not its volume. Kept as the
+    reference has it because ``boxes3d_iou_batch`` divides by it; the
+    volume is ``eval/box3d_iou_np.py::box3d_vol`` of each box."""
+    l = np.sqrt(np.linalg.norm(corners[:, 1, :] - corners[:, 2, :], axis=1))
+    w = np.sqrt(np.linalg.norm(corners[:, 0, :] - corners[:, 1, :], axis=1))
+    h = np.sqrt(np.linalg.norm(corners[:, 0, :] - corners[:, 4, :], axis=1))
+    return l * w * h
+
+
+# the unit corners of get_3d_box_batch_np: signs of l, h and w for x, y, z
+_CORNER_SIGNS = ((1, 1, -1, -1, 1, 1, -1, -1), (1, 1, 1, 1, -1, -1, -1, -1),
+                 (1, -1, -1, 1, 1, -1, -1, 1))
+
+
+def get_3d_box_batch_tensor(box_size: torch.Tensor, heading_angle: torch.Tensor,
+                            center: torch.Tensor) -> torch.Tensor:
+    """``get_3d_box_batch_np`` on tensors, on their device: box_size (..., 3)
+    full extents, heading_angle (...,), center (..., 3) upright-camera ->
+    (..., 8, 3), in the inputs' dtype (the eval decode passes float64, as
+    NumPy computes it). The corners are (x cos + z sin, y, z cos - x sin)
+    plus the center, the rotation about y of ``roty_batch_np``."""
+    signs = torch.tensor(_CORNER_SIGNS, dtype=box_size.dtype, device=box_size.device)
+    half = box_size / 2.0
+    x = signs[0] * half[..., 0:1]
+    y = signs[1] * half[..., 2:3]
+    z = signs[2] * half[..., 1:2]
+    c, s = torch.cos(heading_angle)[..., None], torch.sin(heading_angle)[..., None]
+    corners = torch.stack([x * c + z * s, y, z * c - x * s], dim=-1)
+    return corners + center[..., None, :]

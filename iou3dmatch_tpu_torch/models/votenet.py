@@ -5,8 +5,8 @@ Counterpart of ``iou3dmatch_tpu/models/votenet.py`` (reference
 L2-normalised vote features) -> proposal decode -> box computation (argmax
 class, HALF sizes) -> GridConv IoU branch, and the training forward
 ``forward_with_pred_jitter`` (``votenet.py:137-203``), which adds jittered
-copies of the boxes. The IoU-only forward comes with the IoU-optimisation
-slice.
+copies of the boxes, and ``forward_onlyiou`` (``votenet.py:205-209``), the
+IoU branch alone on given boxes, for test-time IoU optimisation.
 """
 import math
 from typing import Optional, Tuple
@@ -134,3 +134,14 @@ class VoteNet(nn.Module):
         ep["jitter_size"] = size_jitter * 2
         ep["jitter_heading"] = heading[:nl]
         return ep
+
+    def forward_onlyiou(self, ep: dict, center: torch.Tensor, size: torch.Tensor,
+                        heading: torch.Tensor) -> dict:
+        """Only the GridConv IoU branch, on the boxes given (center, HALF
+        sizes, heading) and ``ep``'s seeds (votenet_iou_branch.py:183-185):
+        a new dict with ``iou_scores`` replaced; ``ep`` is not changed.
+        BatchNorm follows the module's mode: test-time optimisation runs it
+        in eval mode, on running statistics, as JAX's ``train=False``. The
+        gradient reaches ``center`` and ``size`` and not the seeds, which
+        GridConv detaches."""
+        return self.grid_conv(center, size, heading, dict(ep))

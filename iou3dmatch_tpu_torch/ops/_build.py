@@ -24,15 +24,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fps", "ball_query", "gather", "gather_bwd", "iou3d", "lhs", "three_nn")
+SOURCES = ("fps", "ball_query", "gather", "gather_bwd", "iou3d", "lhs", "three_nn", "nms")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# iou3d, lhs and three_nn follow their plain versions operation by
+# iou3d, lhs, three_nn and nms follow their plain versions operation by
 # operation, each product and sum rounded on its own: no multiply-add
 # contraction anywhere in these files
-SOURCE_FLAGS = {"iou3d": ("-fmad=false",), "lhs": ("-fmad=false",), "three_nn": ("-fmad=false",)}
+SOURCE_FLAGS = {name: ("-fmad=false",) for name in ("iou3d", "lhs", "three_nn", "nms")}
 
 
 def _flags(name: str) -> tuple:
@@ -153,3 +153,4 @@ def require(t: torch.Tensor, dtype: torch.dtype, name: str, device=None) -> None
 VP = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
+DOUBLE = ctypes.c_double

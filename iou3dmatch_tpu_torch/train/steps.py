@@ -184,13 +184,15 @@ def make_eval_forward(model):
 def make_eval_loss(model, cfg):
     """Returns ``evaluate(point_clouds, labels) -> (outputs, metrics)``, the
     JAX ``make_eval_forward``: one eval-mode forward under
-    ``torch.inference_mode()``, the outputs ``make_eval_forward`` keeps, and
-    the eval-loss metrics of ``losses/supervised.py::get_loss`` on the GT
-    dict ``labels``, ``loss`` among them."""
+    ``torch.no_grad()``, the outputs ``make_eval_forward`` keeps, and the
+    eval-loss metrics of ``losses/supervised.py::get_loss`` on the GT dict
+    ``labels``, ``loss`` among them. Not ``inference_mode``: test-time IoU
+    optimisation (``eval/iou_opt.py``) differentiates through GridConv on
+    these outputs, and autograd refuses to save inference tensors."""
 
     def evaluate(point_clouds: torch.Tensor, labels: dict):
         model.eval()
-        with torch.inference_mode():
+        with torch.no_grad():
             ep = model(point_clouds)
             loss, metrics = get_loss(ep, labels, cfg)
         metrics["loss"] = loss

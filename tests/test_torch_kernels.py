@@ -16,7 +16,11 @@ block a scene, ragged and largest K, and the wrapper's refusals;
 three_nn bit for bit on ties, fewer than 3 seeds, overflow, NaN queries
 and seeds, ties across the lanes that split a query's seeds, seeds beyond
 one shared-memory tile, under every (S, Q) the source instantiates, at
-GridConv's and FP's shapes, and the wrapper's refusals. The file
+GridConv's and FP's shapes, and the wrapper's refusals; greedy NMS
+exactly on every case of tests/nms_cases.py in its three box modes, both
+old_types and matrix mode, K from 1 to 256 across the bit rows' words,
+300 scenes, the wrapper's refusals, and parse_predictions on the card
+against the NumPy parse. The file
 imports no JAX, so it runs on a machine with a card and without JAX; this
 repository's conftest imports JAX, so run it there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 Without a card every test skips.
@@ -27,17 +31,23 @@ import torch
 from iou_cases import gap_pairs, random_boxes
 from lhs_cases import CASES as LHS_CASES
 from lhs_cases import clustered
+from nms_cases import CASES as NMS_CASES
+from nms_cases import clustered as nms_clustered
 from three_nn_cases import CASES as NN_CASES
 from three_nn_cases import grids, room_seeds
 
 from iou3dmatch_tpu_torch.geometry.iou3d import (MODES, box_pairs, box_pairs_plain, boxes_iou3d,
                                                  pairs_apart)
-from iou3dmatch_tpu_torch.geometry.nms import lhs_3d_samecls_plain
+from iou3dmatch_tpu_torch.geometry.nms import box_overlaps as nms_box_overlaps
+from iou3dmatch_tpu_torch.geometry.nms import (lhs_3d_samecls_plain, nms_boxes_plain,
+                                               nms_masked_plain, nms_rotated)
 from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, GatherBwdLaunch,
                                                  ball_query, ball_query_plain, group_points,
                                                  group_points_backward, group_points_plain)
 from iou3dmatch_tpu_torch.ops.interpolate import NN_LAUNCHES, NnLaunch, three_nn, three_nn_plain
 from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, SMALL_BOXES, lhs_3d_samecls
+from iou3dmatch_tpu_torch.ops.nms import MAX_BOXES as NMS_MAX_BOXES
+from iou3dmatch_tpu_torch.ops.nms import nms_boxes, nms_masked
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
                                           fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain, max_active_clusters)
@@ -607,3 +617,118 @@ def test_three_nn_kernel_refuses_bad_input(cuda):
         three_nn(unknown, known, NnLaunch(3, 1))  # not instantiated
     d, i = three_nn(unknown[:, :0], known)  # nothing to launch
     assert d.shape == i.shape == (2, 0, 3)
+
+
+# ------------------------------------------------------------ greedy NMS
+
+def _nms_on(cuda, case):
+    """The case's tensors on the card; valid is None or a bool tensor."""
+    out = {k: torch.from_numpy(case[k]).to(cuda) for k in ("mins", "maxs", "scores", "cls", "boxes")}
+    out["valid"] = None if case["valid"] is None else torch.from_numpy(case["valid"]).to(cuda)
+    return out
+
+
+@pytest.mark.parametrize("old_type", [False, True])
+@pytest.mark.parametrize("mode", ["2d", "3d", "3d_cls"])
+@pytest.mark.parametrize("case", sorted(NMS_CASES))
+def test_nms_kernel_box_mode_matches_plain(cuda, case, mode, old_type):
+    """Every case of tests/nms_cases.py in each branch of parse_predictions
+    and both old_types: keep masks equal to the plain version's on the card
+    and on the CPU, one launch."""
+    raw = NMS_CASES[case]()
+    t = _nms_on(cuda, raw)
+    args = (t["mins"], t["maxs"], t["scores"], t["cls"] if mode == "3d_cls" else None, t["valid"],
+            mode, old_type, raw["thresh"])
+    before = nms_boxes.launches
+    got = nms_boxes(*args)
+    torch.cuda.synchronize()
+    assert nms_boxes.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == t["scores"].shape
+    assert torch.equal(got, nms_boxes_plain(*args))
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    assert torch.equal(got.cpu(), nms_boxes_plain(*cpu))
+
+
+@pytest.mark.parametrize("case", sorted(NMS_CASES))
+def test_nms_kernel_matrix_mode_matches_plain(cuda, case):
+    """Matrix mode on each case's float32 3D IoU and on its rotated BEV IoU
+    (nms_rotated), against nms_masked_plain."""
+    raw = NMS_CASES[case]()
+    t = _nms_on(cuda, raw)
+    iou = nms_box_overlaps(t["mins"], t["maxs"], None, "3d", False).float().contiguous()
+    before = nms_masked.launches
+    got = nms_masked(iou, t["scores"], raw["thresh"], t["valid"])
+    torch.cuda.synchronize()
+    assert nms_masked.launches == before + 1
+    assert torch.equal(got, nms_masked_plain(iou, t["scores"], raw["thresh"], t["valid"]))
+    assert torch.equal(got.cpu(), nms_masked_plain(iou.cpu(), t["scores"].cpu(), raw["thresh"],
+                                                   None if t["valid"] is None else t["valid"].cpu()))
+    bev = box_pairs(t["boxes"], t["boxes"], "iou_bev")
+    assert torch.equal(nms_rotated(t["boxes"], t["scores"], raw["thresh"]),
+                       nms_masked_plain(bev, t["scores"], raw["thresh"]))
+
+
+def test_nms_kernel_many_scenes_and_every_k(cuda):
+    """Scenes past one wave of blocks, and every K from 1 to 256 in steps
+    that cross the 32-bit words of the bit rows."""
+    for b, k in [(300, 128)] + [(3, k) for k in (31, 32, 33, 63, 64, 65, 95, 96, 97, 255, 256)]:
+        raw = nms_clustered(b + k, b, k, 4)
+        t = _nms_on(cuda, raw)
+        for mode in ("3d", "3d_cls"):
+            args = (t["mins"], t["maxs"], t["scores"], t["cls"], None, mode, False, 0.25)
+            assert torch.equal(nms_boxes(*args), nms_boxes_plain(*args)), (b, k, mode)
+
+
+def test_nms_kernel_refuses_bad_input(cuda):
+    t = _nms_on(cuda, NMS_CASES["clustered_k37"]())
+    mins, maxs, scores, cls = t["mins"], t["maxs"], t["scores"], t["cls"]
+    big = torch.zeros((1, NMS_MAX_BOXES + 1, 3), device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        nms_boxes(big, big, big[..., 0].contiguous(), None, None, "3d", False, 0.25)
+    with pytest.raises(TypeError):
+        nms_boxes(mins.double(), maxs, scores, None, None, "3d", False, 0.25)
+    with pytest.raises(ValueError):
+        nms_boxes(mins, maxs.cpu(), scores, None, None, "3d", False, 0.25)
+    with pytest.raises(ValueError):
+        nms_boxes(mins, maxs, scores, cls, torch.ones_like(scores, dtype=torch.bool).cpu(), "3d",
+                  False, 0.25)
+    with pytest.raises(ValueError):
+        nms_boxes(mins.transpose(0, 1).contiguous().transpose(0, 1), maxs, scores, None, None, "3d",
+                  False, 0.25)
+    with pytest.raises(TypeError):
+        nms_masked(torch.zeros((3, 37, 37), device=cuda, dtype=torch.float64), scores, 0.25)
+    # int32 classes are widened to int64 for the kernel
+    assert torch.equal(nms_boxes(mins, maxs, scores, cls.int(), None, "3d_cls", False, 0.25),
+                       nms_boxes(mins, maxs, scores, cls, None, "3d_cls", False, 0.25))
+
+
+def test_parse_predictions_on_the_card_picks_what_the_numpy_parse_picks(cuda):
+    """parse_predictions on CUDA outputs (decode and NMS on the card, one
+    copy) against parse_predictions_np on the same outputs, in every
+    branch: the same proposals, corners and scores equal (the scores are
+    NumPy's, computed on the host from the copied logits)."""
+    from iou3dmatch_tpu_torch.data.config import get_config
+    from iou3dmatch_tpu_torch.eval.ap_helper import (eval_config_dict, parse_predictions,
+                                                     parse_predictions_np)
+
+    rng = np.random.RandomState(31)
+    b, k, nc = 4, 128, 18
+    center = rng.uniform(-2, 2, (b, k, 3))
+    center[:, k // 2:] = center[:, :k // 2] + rng.normal(0, 0.05, (b, k - k // 2, 3))
+    ep = {"center": center, "heading_scores": rng.randn(b, k, 1),
+          "heading_residuals": rng.randn(b, k, 1) * 0.1, "size_scores": rng.randn(b, k, nc),
+          "size_residuals": rng.randn(b, k, nc, 3) * 0.1, "sem_cls_scores": rng.randn(b, k, nc),
+          "objectness_scores": rng.randn(b, k, 2), "iou_scores": rng.randn(b, k, nc)}
+    ep = {key: v.astype(np.float32) for key, v in ep.items()}
+    for use_3d, cls_nms, iou in ((False, False, False), (True, False, False), (True, True, False),
+                                 (True, True, True)):
+        config = dict(eval_config_dict(get_config("scannet"), use_iou_for_nms=iou),
+                      use_3d_nms=use_3d, cls_nms=cls_nms)
+        got = parse_predictions({key: torch.from_numpy(v).to(cuda) for key, v in ep.items()}, config)
+        want = parse_predictions_np(ep, config)
+        assert [len(g) for g in got] == [len(w) for w in want]
+        for gs, ws in zip(got, want):
+            for (gc, gbox, gscore), (wc, wbox, wscore) in zip(gs, ws):
+                assert gc == wc
+                np.testing.assert_array_equal(gbox, wbox)
+                assert gscore == wscore

@@ -203,12 +203,3 @@ def test_parse_predictions_matches_jax(mode):
         for (gc, gbox, gscore), (wc, wbox, wscore) in zip(gs, ws):
             assert gc == wc and gscore == wscore
             np.testing.assert_array_equal(gbox, wbox)
-
-
-def test_parse_predictions_refuses_remove_empty_box():
-    from iou3dmatch_tpu_torch.data.config import get_config
-    from iou3dmatch_tpu_torch.eval.ap_helper import eval_config_dict, parse_predictions
-
-    config = dict(eval_config_dict(get_config("scannet")), remove_empty_box=True)
-    with pytest.raises(NotImplementedError):
-        parse_predictions(_random_ep(np.random.RandomState(0)), config)
