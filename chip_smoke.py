@@ -18,8 +18,10 @@ reported on its own line; a failed check raises and the exit code is not 0:
    three_nn at GridConv's grids of serving, the pretrain step and the SSL
    step and at FP1 and FP2 of 8 and 12 scenes, greedy NMS at serving's
    (8, 128) class-aware boxes in float64 (off every path: its float32 3D
-   and 2D branches, tied scores, K = 256 and matrix mode on a rotated BEV
-   IoU; the ball query on surface scenes, the rotated IoU on rotated
+   and 2D branches, tied scores, K = 256, 512 and 1,024 and matrix mode on
+   a rotated BEV IoU, each with its planned cluster size and its cycles a
+   step for the leader block and the others, and the overlaps computed and
+   skipped; the ball query on surface scenes, the rotated IoU on rotated
    boxes), with
    CUDA-event timings of kernel, plain version and library call, the
    launch floor (a one-element ``zero_()`` timed the same way), and the
@@ -76,7 +78,9 @@ shapes; ``--nn-sweep`` three_nn over every (S, Q) of NN_LAUNCHES at each
 of its seven shapes; ``--nn-counts`` three_nn's counters (a build with
 -DTHREE_NN_COUNTS: 4-seed group steps, those that took the insert path,
 cycles staging, scanning, merging and writing, means a warp) at its seven
-shapes, with the planned launch and with a thread a query (S = Q = 1).
+shapes, with the planned launch and with a thread a query (S = Q = 1);
+``--nms-sweep`` NMS at every cluster size of NMS_CLUSTERS at each of its
+rows.
 
 The model is the full-width ScanNet VoteNet (128 proposals, height channel,
 SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
@@ -128,7 +132,8 @@ from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, NnLaunch, three_n
                                                   three_nn_plan)
 from iou3dmatch_tpu_torch.ops.lhs import SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.ops.nms import MODE_IDS as NMS_MODE_IDS
-from iou3dmatch_tpu_torch.ops.nms import nms_boxes, nms_masked
+from iou3dmatch_tpu_torch.ops.nms import NMS_CLUSTERS, nms_boxes, nms_masked, planned_cluster
+from iou3dmatch_tpu_torch.ops.nms import max_active_clusters as nms_max_active
 from iou3dmatch_tpu_torch.train.schedules import get_bn_momentum
 from iou3dmatch_tpu_torch.train.state import create_train_state
 from iou3dmatch_tpu_torch.train.steps import (make_eval_forward, make_eval_loss,
@@ -440,7 +445,7 @@ def launch_floor_ms() -> float:
 
 def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool = False,
                   gbwd_sweep_on: bool = False, nn_sweep_on: bool = False,
-                  nn_counts_on: bool = False) -> dict:
+                  nn_counts_on: bool = False, nms_sweep_on: bool = False) -> dict:
     pc = torch.from_numpy(make_scenes(1, B, N)).to(dev)
     rows = {}
     floor = launch_floor_ms()
@@ -579,7 +584,7 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
         bq(label, 0.2, 64, pts, ctr, main=main)
     iou_rows(dev, ops_per_s, rows)
     lhs_rows(dev, ops_per_s, rows)
-    nms_rows(dev, ops_per_s, rows, floor)
+    nms_rows(dev, ops_per_s, rows, floor, nms_sweep_on)
     # ctr: SA1's centers of the SSL step's 12 clouds
     three_nn_rows(ops_per_s, rows, sa1_xyz, ctr, floor, nn_sweep_on, nn_counts_on)
     return rows
@@ -841,26 +846,29 @@ def nms_pairs(over: torch.Tensor, scores: torch.Tensor, higher_index_first: bool
     against the boxes still remaining after it, summed over the rounds and
     scenes, from a replay of the rounds on the host with the plain
     version's suppression matrix ``over`` (B, K, K) and its pick order."""
-    over, scores = over.cpu(), scores.cpu()
+    over, scores = over.cpu().numpy(), scores.cpu()
     total = 0
     for s in range(scores.shape[0]):
         sc = scores[s].tolist()
         order = sorted(range(len(sc)), key=lambda i: (sc[i], i if higher_index_first else -i),
                        reverse=True)
-        left = list(order)
-        while left:
+        left = np.array(order, np.int64)
+        while left.size:
             w, rest = left[0], left[1:]
-            total += len(rest)
-            row = over[s, w]
-            left = [j for j in rest if not bool(row[j])]
-    return total
+            total += rest.size
+            left = rest[~over[s, w, rest]]
+    return int(total)
 
 
-def nms_rows(dev, ops_per_s, rows, floor: float):
+def nms_rows(dev, ops_per_s, rows, floor: float, sweep_on: bool = False):
     """Greedy NMS (csrc/nms.cu) against its plain versions, exactly: box mode
     at serving's (B, K) class-aware in float64 at IoU 0.25 (the main path's
-    shape), the 3D and 2D float32 branches, tied scores, K = 256, and
-    matrix mode on the rotated BEV IoU of (B, K) boxes (nms_rotated's).
+    shape), the 3D and 2D float32 branches, tied scores, K = 256, 512 and
+    1,024 (the most proposals the model makes), and matrix mode on the
+    rotated BEV IoU of (B, K) boxes (nms_rotated's). Each row names its
+    planned cluster size, the card's cudaOccupancyMaxActiveClusters answers
+    it was planned from, and its cycles a step (``nms_phases``);
+    ``sweep_on`` also times every cluster size.
     The boxes are ``make_lhs_input``'s clusters of near-duplicates. The
     bound counts each input and output byte once, the overlaps the rounds
     need (``nms_pairs``, NMS_PAIR_OPS each) with each box's area, and a
@@ -890,14 +898,18 @@ def nms_rows(dev, ops_per_s, rows, floor: float):
             + b * k * int(np.ceil(np.log2(max(k, 2))))
         got, r = check_kernel("nms", label, kernel, plain, None, args, nbytes, lambda _: ops,
                               ops_per_s, 10, main=main)
+        cluster = planned_cluster(dev, b, k, mode)
+        answers = {c: nms_max_active(dev, mode, k, c) for c in NMS_CLUSTERS[1:]}
         r.update(mode=mode, pairs=pairs, kept=int(got.sum()), launch_floor_ms=floor,
-                 of_floor=r["ms"] / floor, plain_rounds="K masked rounds in PyTorch")
-        if mode != "matrix":
-            r["phases"] = nms_phases(args, got)
+                 of_floor=r["ms"] / floor, plain_rounds="K masked rounds in PyTorch",
+                 cluster=cluster, max_active_clusters=answers)
+        r["phases"] = nms_phases(args, got, cluster)
         say(phase="nms_work", shape=label, mode=mode, pairs=pairs, ops=ops, kept=r["kept"],
             of_floor=r["of_floor"], fp64_lanes_per_sm=FP64_LANES_PER_SM, sms=n_sm,
-            cycles=r.get("phases"))
+            cluster=cluster, max_active_clusters=answers, phases=r.get("phases"))
         rows.setdefault("nms", []).append(r)
+        if sweep_on:
+            nms_sweep(label, kernel, args, got)
 
     def boxes(seed, k, tied=False):
         mins, maxs, scores, cls = make_lhs_input(seed, B, k)
@@ -911,40 +923,78 @@ def nms_rows(dev, ops_per_s, rows, floor: float):
     one(f"({B},{K}) 3d_cls, scores on a quarter grid (ties)", "3d_cls", boxes(73, K, True), 0.25,
         False)
     one(f"({B},256) 3d_cls float64", "3d_cls", boxes(74, 256), 0.25, False)
+    one(f"({B},512) 3d_cls float64", "3d_cls", boxes(77, 512), 0.25, False)
+    one(f"({B},1024) 3d_cls float64", "3d_cls", boxes(78, 1024), 0.25, False)
     rot = torch.from_numpy(make_boxes(np.random.RandomState(75), B, K, True)).to(dev)
     scores = torch.from_numpy(np.random.RandomState(76).rand(B, K).astype(np.float32)).to(dev)
     one(f"matrix ({B},{K}) rotated BEV IoU, IoU > 0.1", "matrix", (rot, None, scores, None), 0.1,
         False)
 
 
-NMS_PHASES = ("order", "matrix", "rounds", "write")  # csrc/nms.cu's NMS_STAMP 0-4
+# csrc/nms.cu's NMS_STAMP 0-8: the steps between them ("order_barrier" and
+# "exchange" are nearly nothing up to kLocalOrder boxes, ordered in every block)
+NMS_PHASES = ("load", "order", "order_barrier", "exchange", "matrix", "matrix_barrier", "rounds",
+              "write")
 _variant = functools.lru_cache(maxsize=None)(_build.build_variant)  # one nvcc a variant
 
 
-def nms_phases(args, want) -> dict:
-    """Cycles of each step of csrc/nms.cu's box mode on ``args`` (the
-    arguments of ``nms_boxes``), from a build with -DNMS_PHASES, whose
-    thread 0 of each block stamps clock64() at its start and after each
-    step; its keep mask must equal ``want``. Means over the scenes of the
-    second launch. Times only: the stamps cost a few instructions."""
-    mins, maxs, scores, cls, _, mode, old_type, thresh = args
+def nms_phases(args, want, cluster: int) -> dict:
+    """Cycles of each step of csrc/nms.cu on ``args`` (the arguments of
+    ``nms_boxes``, or of ``nms_masked``) with clusters of ``cluster`` blocks, from a
+    build with -DNMS_PHASES, whose thread 0 of each block stamps clock64()
+    at its start and after each step and counts the overlaps its rows
+    computed and skipped; its keep mask must equal ``want``. Means over the
+    leader blocks (rank 0: the rounds and the write) and over the others of
+    the second launch; the overlaps as totals over the scenes. Times only:
+    the stamps cost a few instructions."""
     lib = _variant("nms", "NMS_PHASES")
-    fn, read = lib.nms_boxes_launch, lib.nms_phases_read
-    fn.argtypes = [_build.VP] * 6 + [_build.INT] * 4 + [_build.DOUBLE, _build.VP]
+    read = lib.nms_phases_read
     read.argtypes = [_build.VP, _build.INT]
+    scores = args[1] if len(args) == 3 else args[2]
     b, k = scores.shape
     keep = torch.empty((b, k), dtype=torch.bool, device=scores.device)
+    if len(args) == 3:  # matrix mode
+        iou, _, thresh = args
+        fn = lib.nms_matrix_launch
+        fn.argtypes = [_build.VP] * 4 + [_build.INT] * 2 + [_build.FLOAT, _build.INT, _build.VP]
+        launch = lambda: fn(iou.data_ptr(), scores.data_ptr(), 0, keep.data_ptr(), b, k,  # noqa: E731
+                            thresh, cluster, _build.stream(keep))
+    else:
+        mins, maxs, _, cls, _, mode, old_type, thresh = args
+        fn = lib.nms_boxes_launch
+        fn.argtypes = [_build.VP] * 6 + [_build.INT] * 4 + [_build.DOUBLE, _build.INT, _build.VP]
+        launch = lambda: fn(mins.data_ptr(), maxs.data_ptr(), scores.data_ptr(),  # noqa: E731
+                            0 if cls is None else cls.data_ptr(), 0, keep.data_ptr(), b, k,
+                            NMS_MODE_IDS[mode], int(old_type), thresh, cluster,
+                            _build.stream(keep))
     for _ in range(2):
-        _build.check(fn(mins.data_ptr(), maxs.data_ptr(), scores.data_ptr(),
-                        0 if cls is None else cls.data_ptr(), 0, keep.data_ptr(), b, k,
-                        NMS_MODE_IDS[mode], int(old_type), thresh, _build.stream(keep)),
-                     "nms with NMS_PHASES")
+        _build.check(launch(), "nms with NMS_PHASES")
     torch.cuda.synchronize()
     if not torch.equal(keep, want):
         raise AssertionError("the NMS_PHASES build keeps other boxes than the kernel")
-    stamps = np.zeros((b, len(NMS_PHASES) + 1), np.int64)
-    _build.check(read(stamps.ctypes.data, b), "nms_phases_read")
-    return dict(zip(NMS_PHASES, np.diff(stamps, axis=1).mean(0).tolist()))
+    stamps = len(NMS_PHASES) + 1
+    out = np.zeros((b * cluster, stamps + 2), np.int64)
+    _build.check(read(out.ctypes.data, b * cluster), "nms_phases_read")
+    steps = np.diff(out[:, :stamps], axis=1)
+    leader = np.arange(b * cluster) % cluster == 0
+    roles = {"leader": dict(zip(NMS_PHASES, steps[leader].mean(0).tolist()))}
+    if cluster > 1:
+        roles["others"] = dict(zip(NMS_PHASES[:-2], steps[~leader, :-2].mean(0).tolist()))
+    return {"cluster": cluster, "cycles": roles, "overlaps_computed": int(out[:, stamps].sum()),
+            "overlaps_skipped": int(out[:, stamps + 1].sum())}
+
+
+def nms_sweep(label, kernel, args, want):
+    """Every cluster size of NMS_CLUSTERS on one NMS input, each checked
+    equal to the plain result; times only, nothing counted."""
+    out = []
+    for cluster in NMS_CLUSTERS:
+        ok = same(kernel(*args, cluster=cluster), want)
+        out.append({"cluster": cluster, "ok": ok,
+                    "ms": cuda_ms(lambda: kernel(*args, cluster=cluster), 10)})
+        if not ok:
+            raise AssertionError(f"NMS at {label} with clusters of {cluster} differs")
+    say(phase="nms_sweep", shape=label, rows=out)
 
 
 LHS_PHASES = ("load", "order", "matrix", "rounds", "write")  # csrc/lhs.cu's LHS_STAMP 0-5
@@ -1798,6 +1848,8 @@ def main() -> int:
                     help="also time three_nn at every (S, Q) of NN_LAUNCHES at each of its shapes")
     ap.add_argument("--nn-counts", action="store_true",
                     help="also run three_nn's -DTHREE_NN_COUNTS build at each of its shapes")
+    ap.add_argument("--nms-sweep", action="store_true",
+                    help="also time NMS at every cluster size of NMS_CLUSTERS at each of its rows")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1833,7 +1885,7 @@ def main() -> int:
                 raise AssertionError(f"{entry} of {name}.cu spills or is missing: {r}")
 
     rows = phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep, args.gbwd_sweep,
-                         args.nn_sweep, args.nn_counts)
+                         args.nn_sweep, args.nn_counts, args.nms_sweep)
     for r in rows["fps"]:  # the planned variants keep their share on chip, without spills
         key = (r["launch"]["threads"], r["launch"]["ppt"])
         if key not in fps_regs or fps_regs[key][1:] != (0, 0):

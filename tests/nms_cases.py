@@ -17,7 +17,14 @@ are (the heading only turns the rotated IoU's boxes).
 - ``special``: some scores -inf and some NaN;
 - ``invalid``: a third of the boxes outside ``valid``, one scene with a
   single valid box and one with none;
-- K = 1, 128 (serving's proposals) and 256 (``--num_target 256``).
+- ``exact_threshold``: overlaps exactly at the threshold, and 2^-20 either
+  side of it;
+- ``negative_thresh``: class-aware boxes at a threshold below 0, where a
+  pair of two classes suppresses too (0 > thresh) unless its overlap is
+  NaN: the one setting where the kernel computes every pair of that mode;
+- K = 1, 128 (serving's proposals), 256, 257 (one box past four 64-bit
+  words), 512 and 1,024 (the most the model makes: vote aggregation samples
+  its proposals from FP2's 1,024 seeds), each a ``--num_target``.
 """
 import numpy as np
 
@@ -100,6 +107,26 @@ def special(seed, b, k, neg_inf=0.15, nan=0.1):
     return case
 
 
+def exact_threshold(b, thresh=0.25):
+    """Pairs of boxes 2.5 x 1 x 1 overlapping by 1 along x, whose IoU 1 / (2.5
+    + 2.5 - 1) is exactly 0.25 in float32 and float64, and pairs moved 2^-20
+    apart either way: where a class-aware overlap meets the threshold exactly
+    and the kernel must divide. One class; scores fall with the index."""
+    shifts = [0.0, 2.0 ** -20, -(2.0 ** -20), 0.0]
+    ctr, half = [], []
+    for s in range(b):
+        rows_c, rows_h = [], []
+        for p, dx in enumerate(shifts):
+            base = np.array([10.0 * p, 10.0 * s, 0.0])
+            rows_c += [base + [1.25, 0.5, 0.5], base + [2.75 + dx, 0.5, 0.5]]
+            rows_h += [[1.25, 0.5, 0.5]] * 2
+        ctr.append(rows_c)
+        half.append(rows_h)
+    k = 2 * len(shifts)
+    scores = np.linspace(1.0, 0.1, k)[None].repeat(b, 0)
+    return _pack(np.array(ctr), np.array(half), scores, np.zeros((b, k), np.int64), thresh=thresh)
+
+
 def invalid(seed, b, k):
     case = clustered(seed, b, k, 3)
     rng = np.random.RandomState(seed + 2000)
@@ -136,6 +163,16 @@ CASES = {
     "all_neg_inf_k20": lambda: all_neg_inf(10, 2, 20),
     "invalid_k128": lambda: invalid(11, 4, 128),
     "k1": lambda: clustered(12, 3, 1, 2),
+    "clustered_k257": lambda: clustered(13, 2, 257, 18),
+    "clustered_k512": lambda: clustered(14, 2, 512, 18),
+    "clustered_k1024": lambda: clustered(15, 2, 1024, 18),
+    "one_class_k1024": lambda: one_class(16, 1, 1024),
+    "tied_k512": lambda: clustered(17, 2, 512, 4, ties=True),
+    "special_k1024": lambda: special(18, 2, 1024),
+    "all_neg_inf_k257": lambda: all_neg_inf(19, 2, 257),
+    "invalid_k512": lambda: invalid(20, 3, 512),
+    "exact_threshold_k8": lambda: exact_threshold(2),
+    "negative_thresh_k64": lambda: clustered(21, 2, 64, 3, thresh=-0.1),
     "k2_same_box": lambda: _pack(np.zeros((1, 2, 3)), np.full((1, 2, 3), 0.5), np.array([[0.3, 0.7]]),
                                  np.zeros((1, 2), np.int64)),
 }

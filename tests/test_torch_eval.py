@@ -110,6 +110,20 @@ def test_parse_predictions_remove_empty_box_matches_jax(mode, dataset):
     assert sum(map(len, want)) < sum(map(len, plain))
 
 
+@pytest.mark.parametrize("mode", ["2d", "3d", "3d_cls", "3d_cls_iou"])
+def test_parse_predictions_k300_matches_jax(mode):
+    """A model built with --num_target 300 (past the card NMS's old 256):
+    parse_predictions on CPU tensors picks what the JAX parse picks."""
+    from iou3dmatch_tpu.eval.ap_helper import parse_predictions as jax_parse
+
+    config = _config("scannet", mode)
+    ep = _random_ep(np.random.RandomState(300 + len(mode)), k=300)
+    got = pap.parse_predictions({k: torch.from_numpy(v) for k, v in ep.items()}, config)
+    want = jax_parse(ep, config)
+    assert sum(map(len, want)) > 0
+    _same_lists(got, want)
+
+
 @pytest.mark.parametrize("use_iou_for_nms", [False, True])
 def test_nms_scores_within_ulps_of_numpy(use_iou_for_nms):
     """``nms_scores`` (torch) against the JAX parse's NumPy scores on 32,768

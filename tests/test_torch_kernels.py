@@ -18,8 +18,10 @@ and seeds, ties across the lanes that split a query's seeds, seeds beyond
 one shared-memory tile, under every (S, Q) the source instantiates, at
 GridConv's and FP's shapes, and the wrapper's refusals; greedy NMS
 exactly on every case of tests/nms_cases.py in its three box modes, both
-old_types and matrix mode, K from 1 to 256 across the bit rows' words,
-300 scenes, the wrapper's refusals, and parse_predictions on the card
+old_types and matrix mode, at the planned cluster size and at every size
+nms_plan can pick, K from 1 to 1,024 across the bit rows' words and the
+blocks' shares, 300 scenes, the plan's residency, the wrapper's refusals
+(K = 1,025), and parse_predictions on the card
 against the NumPy parse. The file
 imports no JAX, so it runs on a machine with a card and without JAX; this
 repository's conftest imports JAX, so run it there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
@@ -47,7 +49,9 @@ from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, Ga
 from iou3dmatch_tpu_torch.ops.interpolate import NN_LAUNCHES, NnLaunch, three_nn, three_nn_plain
 from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.ops.nms import MAX_BOXES as NMS_MAX_BOXES
-from iou3dmatch_tpu_torch.ops.nms import nms_boxes, nms_masked
+from iou3dmatch_tpu_torch.ops.nms import NMS_CLUSTERS, nms_boxes, nms_masked
+from iou3dmatch_tpu_torch.ops.nms import max_active_clusters as nms_max_active_clusters
+from iou3dmatch_tpu_torch.ops.nms import planned_cluster as nms_planned_cluster
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
                                           fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain, max_active_clusters)
@@ -639,14 +643,16 @@ def test_nms_kernel_box_mode_matches_plain(cuda, case, mode, old_type):
     t = _nms_on(cuda, raw)
     args = (t["mins"], t["maxs"], t["scores"], t["cls"] if mode == "3d_cls" else None, t["valid"],
             mode, old_type, raw["thresh"])
-    before = nms_boxes.launches
-    got = nms_boxes(*args)
-    torch.cuda.synchronize()
-    assert nms_boxes.launches == before + 1
-    assert got.dtype == torch.bool and got.shape == t["scores"].shape
-    assert torch.equal(got, nms_boxes_plain(*args))
+    want = nms_boxes_plain(*args)
     cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
-    assert torch.equal(got.cpu(), nms_boxes_plain(*cpu))
+    assert torch.equal(want.cpu(), nms_boxes_plain(*cpu))
+    for cluster in (None,) + NMS_CLUSTERS:  # the plan's, and every size it can pick
+        before = nms_boxes.launches
+        got = nms_boxes(*args, cluster=cluster)
+        torch.cuda.synchronize()
+        assert nms_boxes.launches == before + 1
+        assert got.dtype == torch.bool and got.shape == t["scores"].shape
+        assert torch.equal(got, want), cluster
 
 
 @pytest.mark.parametrize("case", sorted(NMS_CASES))
@@ -656,35 +662,63 @@ def test_nms_kernel_matrix_mode_matches_plain(cuda, case):
     raw = NMS_CASES[case]()
     t = _nms_on(cuda, raw)
     iou = nms_box_overlaps(t["mins"], t["maxs"], None, "3d", False).float().contiguous()
-    before = nms_masked.launches
-    got = nms_masked(iou, t["scores"], raw["thresh"], t["valid"])
-    torch.cuda.synchronize()
-    assert nms_masked.launches == before + 1
-    assert torch.equal(got, nms_masked_plain(iou, t["scores"], raw["thresh"], t["valid"]))
-    assert torch.equal(got.cpu(), nms_masked_plain(iou.cpu(), t["scores"].cpu(), raw["thresh"],
-                                                   None if t["valid"] is None else t["valid"].cpu()))
+    want = nms_masked_plain(iou, t["scores"], raw["thresh"], t["valid"])
+    assert torch.equal(want.cpu(), nms_masked_plain(iou.cpu(), t["scores"].cpu(), raw["thresh"],
+                                                    None if t["valid"] is None else t["valid"].cpu()))
+    for cluster in (None,) + NMS_CLUSTERS:
+        before = nms_masked.launches
+        got = nms_masked(iou, t["scores"], raw["thresh"], t["valid"], cluster=cluster)
+        torch.cuda.synchronize()
+        assert nms_masked.launches == before + 1
+        assert torch.equal(got, want), cluster
     bev = box_pairs(t["boxes"], t["boxes"], "iou_bev")
     assert torch.equal(nms_rotated(t["boxes"], t["scores"], raw["thresh"]),
                        nms_masked_plain(bev, t["scores"], raw["thresh"]))
 
 
+NMS_KS = (1, 2, 15, 16, 31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128, 129, 255, 256, 257, 383,
+          511, 512, 513, 767, 768, 769, 1000, 1023, 1024)
+
+
 def test_nms_kernel_many_scenes_and_every_k(cuda):
-    """Scenes past one wave of blocks, and every K from 1 to 256 in steps
-    that cross the 32-bit words of the bit rows."""
-    for b, k in [(300, 128)] + [(3, k) for k in (31, 32, 33, 63, 64, 65, 95, 96, 97, 255, 256)]:
-        raw = nms_clustered(b + k, b, k, 4)
+    """Scenes past one wave of clusters, and K from 1 to 1,024 in steps that
+    cross the 32- and 64-bit words of the bit rows and the shares of the
+    cluster's blocks, at the planned cluster size and at 16."""
+    for b, k in [(300, 128), (40, 512), (9, 1024)] + [(3, k) for k in NMS_KS]:
+        raw = nms_clustered(b + k, b, k, 18)
         t = _nms_on(cuda, raw)
-        for mode in ("3d", "3d_cls"):
+        for mode in ("2d", "3d", "3d_cls"):
             args = (t["mins"], t["maxs"], t["scores"], t["cls"], None, mode, False, 0.25)
-            assert torch.equal(nms_boxes(*args), nms_boxes_plain(*args)), (b, k, mode)
+            want = nms_boxes_plain(*args)
+            for cluster in (None, 16):
+                assert torch.equal(nms_boxes(*args, cluster=cluster), want), (b, k, mode, cluster)
+        iou = nms_box_overlaps(t["mins"], t["maxs"], None, "3d", False).float().contiguous()
+        assert torch.equal(nms_masked(iou, t["scores"], 0.25),
+                           nms_masked_plain(iou, t["scores"], 0.25)), (b, k)
+
+
+def test_nms_plan_on_the_card(cuda):
+    """The planned cluster sizes at serving's shape and the largest K: one
+    of NMS_CLUSTERS, all B clusters resident at once where larger than 1."""
+    for b, k, mode in ((8, 128, "3d_cls"), (8, 256, "3d_cls"), (8, 1024, "3d_cls"),
+                       (8, 128, "matrix"), (1, 1024, "2d"), (300, 128, "3d")):
+        c = nms_planned_cluster(cuda, b, k, mode)
+        assert c in NMS_CLUSTERS
+        if c > 1:
+            assert nms_max_active_clusters(cuda, mode, k, c) >= b
 
 
 def test_nms_kernel_refuses_bad_input(cuda):
     t = _nms_on(cuda, NMS_CASES["clustered_k37"]())
     mins, maxs, scores, cls = t["mins"], t["maxs"], t["scores"], t["cls"]
     big = torch.zeros((1, NMS_MAX_BOXES + 1, 3), device=cuda)
-    with pytest.raises(ValueError, match="at most"):
+    with pytest.raises(ValueError, match=f"at most {NMS_MAX_BOXES}"):
         nms_boxes(big, big, big[..., 0].contiguous(), None, None, "3d", False, 0.25)
+    with pytest.raises(ValueError, match=f"at most {NMS_MAX_BOXES}"):
+        nms_masked(torch.zeros((1, NMS_MAX_BOXES + 1, NMS_MAX_BOXES + 1), device=cuda),
+                   big[..., 0].contiguous(), 0.25)
+    with pytest.raises(ValueError, match="cluster"):
+        nms_boxes(mins, maxs, scores, None, None, "3d", False, 0.25, cluster=3)
     with pytest.raises(TypeError):
         nms_boxes(mins.double(), maxs, scores, None, None, "3d", False, 0.25)
     with pytest.raises(ValueError):

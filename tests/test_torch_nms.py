@@ -12,10 +12,13 @@ kernel against the plain version, on the CPU.
 - ``nms_masked_plain`` equals ``_nms_jax`` (vmapped) exactly on every case,
   and the port's ``nms_rotated`` and ``nms_normal`` equal
   ``nms_rotated_jax`` and ``nms_normal_jax``.
-- ``kernel_model``, a NumPy model of ``csrc/nms.cu`` (its 64-bit key sort,
-  the bit matrix of later positions with zero intersections tested without
-  dividing, the scan over the positions with the all -inf rule of matrix
-  mode), equals the plain version bit for bit.
+- ``kernel_model``, a NumPy model of ``csrc/nms.cu`` (each block of a
+  cluster ordering its share of the boxes by the 64-bit key, the row strips
+  of the bit matrix with the class skip and zero intersections tested
+  without dividing, the leader's scan a 64-position word at a time with the
+  all -inf rule of matrix mode), equals the plain version bit for bit at
+  every cluster size ``nms_plan`` can pick; ``nms_plan`` keeps its rules.
+- Every K runs on the CPU: K from 257 to 1,025 gives the JAX package's picks.
 - The port's NumPy ``lhs_3d_faster_samecls``, ``nms_2d`` and
   ``nms_crnr_dist`` equal the JAX package's.
 """
@@ -23,12 +26,14 @@ import numpy as np
 import pytest
 import torch
 from nms_cases import CASES, has_ties
+from nms_cases import clustered as nms_clustered
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from iou3dmatch_tpu_torch.geometry import nms as pnms  # noqa: E402
-from iou3dmatch_tpu_torch.ops.nms import MAX_BOXES, nms_boxes, nms_masked  # noqa: E402
+from iou3dmatch_tpu_torch.ops.nms import (MAX_BOXES, MIN_ROWS, MODE_IDS, NMS_CLUSTERS,  # noqa: E402
+                                          nms_boxes, nms_masked, nms_plan)
 
 MODES = ("2d", "3d", "3d_cls")
 
@@ -176,92 +181,196 @@ def order_key(s: np.ndarray, low: np.ndarray) -> np.ndarray:
     return (o.astype(np.uint64) << np.uint64(32)) | low.astype(np.uint64)
 
 
-def _overlap_rows(lo, hi, area, label, mode, old_type, thresh):
-    """(n, n) bool by position: row r suppresses column c > r, each overlap
-    in the kernel's order of operations and type."""
-    dtype = np.float64 if mode == "3d_cls" else np.float32
-    with np.errstate(invalid="ignore", divide="ignore"):
+NEG_INF_HIGH = 0x007FFFFF  # order_key's high word of -inf
+
+
+def _overlap_rows(lo, hi, area, label, gated, dtype, old_type, thresh):
+    """(n, n) bool by position: whether row r suppresses column c, each
+    overlap in the kernel's order of operations and ``dtype``, times the
+    class gate where ``gated``; a zero intersection is tested without
+    dividing."""
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
         side = np.maximum(dtype(0), np.minimum(hi[:, None], hi[None]) - np.maximum(lo[:, None], lo[None]))
         inter = side[..., 0] * side[..., 1]
         if side.shape[-1] == 3:
             inter = inter * side[..., 2]
         den = np.broadcast_to(area[None], inter.shape) if old_type else (area[:, None] + area[None]) - inter
         o = inter / den
-        if mode == "3d_cls":
+        if gated:
             o = o * (label[:, None] == label[None]).astype(dtype)
-        # a zero intersection is tested without dividing
-        over = np.where(inter == 0, (den != 0) & (den == den) & (dtype(0) > dtype(thresh)),
+        return np.where(inter == 0, (den != 0) & (den == den) & (dtype(0) > dtype(thresh)),
                         o > dtype(thresh))
-    return np.triu(over, 1)
+
+
+def _words(bits: np.ndarray, words: int) -> list:
+    """(n, <= 64 words) bool rows -> each row's 64-bit words as Python ints."""
+    pad = np.zeros((bits.shape[0], 64 * words), bool)
+    pad[:, :bits.shape[1]] = bits
+    packed = np.packbits(pad, axis=1, bitorder="little").view("<u8")
+    return [[int(x) for x in row] for row in packed]
+
+
+LOCAL_ORDER = 128  # csrc/nms.cu kLocalOrder
 
 
 def kernel_model(case, mode, old_type):
-    """csrc/nms.cu step by step in NumPy: the keys and positions, the bit
-    rows of later positions as 64-bit words, and thread 0's scan over the
-    positions (a position not removed when the scan reaches it wins; in
-    matrix mode an all -inf remainder gives the first valid box)."""
+    """csrc/nms.cu step by step in NumPy, at every cluster size C of
+    NMS_CLUSTERS:
+
+    - every block's keys (boxes outside ``valid`` last); up to LOCAL_ORDER
+      boxes every block orders all of them, past it block r orders its share
+      [r s, (r + 1) s), s = ceil(K / C), and the others read them;
+    - the bit matrix, a warp a row: in class-aware mode at thresh >= 0 the
+      row queues only the later positions of its own class (every other
+      pair gets a 0 bit without an overlap); else every later position; the
+      row's words from q // 64 on go to the leader's matrix, whose other
+      words hold random bits here, which must change nothing;
+    - the leader's rounds a 64-position word at a time: lane w decides word
+      w's winners serially from its diagonal words, then the winners' rows go
+      into every later word, the lanes of each word ORing the rows of a
+      share of the winners; then matrix mode's all -inf rule: the scan is
+      cut at the first winner scoring -inf other than the first valid box,
+      which wins.
+
+    Returns (keep (B, K) bool, overlaps computed, overlaps skipped)."""
     scores, thresh = case["scores"], case["thresh"]
     b, k = scores.shape
     valid = np.ones((b, k), bool) if case["valid"] is None else case["valid"]
     keep = np.zeros((b, k), bool)
     matrix = mode == "matrix"
     iou = _iou_3d(case).numpy() if matrix else None
+    skip = mode == "3d_cls" and not thresh < 0
+    words = -(-k // 64)
+    computed = skipped = 0
     for s in range(b):
         idx = np.arange(k)
-        key = np.where(valid[s], order_key(scores[s], (k - 1 - idx) if matrix else idx), 0)
-        n = int(valid[s].sum())
-        pos = np.array([(key > key[i]).sum() for i in range(k)])
-        box_at = np.zeros(n, np.int64)
-        box_at[pos[valid[s]]] = idx[valid[s]]
+        key = np.where(valid[s], order_key(scores[s], (k - 1 - idx) if matrix else idx), np.uint64(0))
+        label = case["cls"][s]
+        n = int((key != 0).sum())
+        pos_of = np.where(key != 0, (key[None, :] > key[:, None]).sum(1), -1)
+        for cluster in NMS_CLUSTERS:  # each block's share of the order covers every box once
+            share = k if k <= LOCAL_ORDER else -(-k // cluster)
+            owners = [list(range(r * share, min(k, (r + 1) * share)))
+                      for r in range(cluster if share < k else 1)]
+            assert sorted(sum(owners, [])) == list(range(k))
+        box_at = np.zeros(k, np.int64)
+        box_at[pos_of[pos_of >= 0]] = idx[pos_of >= 0]
+        box = box_at[:n]
         if matrix:
-            over = np.triu(iou[s][np.ix_(box_at, box_at)] > np.float32(thresh), 1)
+            over = iou[s][np.ix_(box, box)] > np.float32(thresh)
         else:
             axes = [0, 2] if mode == "2d" else [0, 1, 2]
             dtype = np.float64 if mode == "3d_cls" else np.float32
-            lo = case["mins"][s][box_at][:, axes].astype(dtype)
-            hi = case["maxs"][s][box_at][:, axes].astype(dtype)
+            lo = case["mins"][s][box][:, axes].astype(dtype)
+            hi = case["maxs"][s][box][:, axes].astype(dtype)
             d = hi - lo
             area = d[:, 0] * d[:, 1]
             if len(axes) == 3:
                 area = area * d[:, 2]
-            over = _overlap_rows(lo, hi, area, case["cls"][s][box_at], mode, old_type, thresh)
-        rows = [0] * n  # row r: the later positions it suppresses, as one int
-        for r in range(n):
-            for c in np.flatnonzero(over[r]):
-                rows[r] |= 1 << int(c)
-        words = [(row >> (64 * v)) & ((1 << 64) - 1) for row in rows for v in range(4)]
-        first = np.where(valid[s])[0]
-        pf = int(pos[first[0]]) if first.size else 0
-        removed, won, stuck = [0] * 4, [0] * 4, False
-        for q in range(n):  # thread 0's scan, 64-bit words
-            w, bit = q // 64, 1 << (q % 64)
-            wins = not removed[w] & bit
-            if matrix:
-                stuck = stuck or (wins and scores[s, box_at[q]] == -np.inf and q != pf)
-                wins = wins and not stuck
-            for v in range(w, 4):
-                removed[v] |= words[4 * q + v] if wins else 0
-            won[w] |= bit if wins else 0
-        if matrix and stuck:
-            won[pf // 64] |= 1 << (pf % 64)
-        for i in idx[valid[s]]:
-            p = int(pos[i])
+            over = _overlap_rows(lo, hi, area, label[box], mode == "3d_cls", dtype, old_type, thresh)
+        later = np.triu(np.ones((n, n), bool), 1)
+        cand = later & (label[box][:, None] == label[box][None]) if skip else later
+        rows = np.where(cand, over, False)
+        computed += int(cand.sum())
+        skipped += int((later & ~cand).sum())
+        # the words of the leader's matrix the kernel writes: row q's from
+        # q // 64 on. Every other word keeps whatever the memory held: here,
+        # random bits, which must change nothing
+        words_n = -(-n // 64)
+        halves = np.random.RandomState(s).randint(0, 2 ** 32, (64 * words, 2 * words), dtype=np.uint64)
+        if n:
+            exact = np.packbits(np.pad(rows, ((0, 0), (0, 64 * words - n))), axis=1,
+                                bitorder="little").view("<u4").astype(np.uint64)
+            for q in range(n):
+                halves[q, 2 * (q // 64):2 * words_n] = exact[q, 2 * (q // 64):2 * words_n]
+        mat = [[int(halves[q, 2 * v]) | int(halves[q, 2 * v + 1]) << 32 for v in range(words)]
+               for q in range(64 * words)]
+        wn = -(-n // 64)
+        first = np.flatnonzero(valid[s])
+        pf = int(pos_of[first[0]]) if first.size else 0
+        wide = 2 if wn <= 2 else 4 if wn <= 4 else 8 if wn <= 8 else 16  # the kernel's S
+        removed, won = [0] * 16, [0] * wn
+        for w in range(wn):
+            mine, rem = 0, removed[w]
+            for bit_at in range(min(64, n - 64 * w)):  # lane w, the diagonal block
+                q, bit = 64 * w + bit_at, 1 << bit_at
+                if not rem & bit:
+                    rem |= mat[q][w]
+                    mine |= bit
+            removed[w] = rem
+            share = 64 * wide // 32  # lanes l with l % wide == v split the winners
+            for v in range(w + 1, wn):
+                parts = [0] * (32 // wide)
+                for part in range(32 // wide):
+                    for b in range(share):
+                        if mine >> (part * share + b) & 1:
+                            parts[part] |= mat[64 * w + part * share + b][v]
+                for part in parts:
+                    removed[v] |= part
+            won[w] = mine
+        if matrix:  # the all -inf rule, after the scan: cut at the first -inf winner but pf
+            neg = [int(key[box_at[q]]) >> 32 == NEG_INF_HIGH for q in range(n)]
+            hits = [q for q in range(n) if won[q // 64] >> (q % 64) & 1 and neg[q] and q != pf]
+            if hits:
+                for q in range(hits[0], n):
+                    won[q // 64] &= ~(1 << (q % 64))
+                won[pf // 64] |= 1 << (pf % 64)
+        for i in idx[pos_of >= 0]:
+            p = int(pos_of[i])
             keep[s, i] = bool(won[p // 64] >> (p % 64) & 1)
-    return keep
+    return keep, computed, skipped
 
 
 @pytest.mark.parametrize("mode,old_type", [(m, o) for m in MODES for o in (False, True)]
                          + [("matrix", False)])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_model_matches_plain(name, mode, old_type):
+    """The model, at every cluster size nms_plan can pick, equals the plain
+    version; the class skip computes only same-class pairs."""
     case = CASES[name]()
-    got = kernel_model(case, mode, old_type)
     if mode == "matrix":
         want = pnms.nms_masked_plain(_iou_3d(case), _t(case["scores"]), case["thresh"],
                                      _t(case["valid"])).numpy()
     else:
         want = _plain_boxes(case, mode, old_type)
+    got, computed, skipped = kernel_model(case, mode, old_type)
     np.testing.assert_array_equal(got, want)
+    if mode != "3d_cls" or case["thresh"] < 0:
+        assert skipped == 0
+    if mode == "3d_cls" and case["thresh"] >= 0 and len(np.unique(case["cls"])) > 1:
+        assert skipped > 0
+
+
+def test_nms_plan():
+    """Clusters fill the SMs at serving's 8 scenes, a block holds at least
+    MIN_ROWS rows, clusters the card cannot hold at once are not taken, and
+    many scenes run as clusters of one."""
+    assert nms_plan(8, 128, 132) == 8
+    assert nms_plan(8, 256, 132) == 16
+    assert nms_plan(8, 1024, 132) == 16
+    assert nms_plan(8, 1024, 132, {2: 66, 4: 33, 8: 16, 16: 7}) == 8
+    assert nms_plan(1, 1, 132) == 1
+    assert nms_plan(1, 31, 132) == 1
+    assert nms_plan(1, 32, 132) == 2
+    assert nms_plan(300, 128, 132) == 1
+    assert nms_plan(40, 128, 132) == 2
+    assert nms_plan(40, 128, 132, {2: 30}) == 1
+    for b in (1, 8, 16, 33, 66, 132, 300):
+        for k in (1, 16, 100, 128, 257, 1024):
+            c = nms_plan(b, k, 132)
+            assert c in NMS_CLUSTERS and (c == 1 or (b * c <= 132 and c * MIN_ROWS <= k))
+
+
+def test_kernel_source_matches_wrapper():
+    """The wrapper's limits are the source's."""
+    from pathlib import Path
+
+    src = (Path(pnms.__file__).parents[1] / "csrc" / "nms.cu").read_text()
+    assert f"constexpr int kMaxBoxes = {MAX_BOXES};" in src
+    assert f"constexpr int kMaxCluster = {max(NMS_CLUSTERS)};" in src
+    for mode, i in MODE_IDS.items():
+        name = {"2d": "k2D", "3d": "k3D", "3d_cls": "k3DCls", "matrix": "kMatrix"}[mode]
+        assert f"{name} = {i}" in src
 
 
 # ----------------------------------------------------------- the NumPy copies
@@ -297,8 +406,13 @@ def test_wrappers_refuse_bad_input():
         nms_boxes(*args[:3], args[3].float(), None, "3d_cls", False, 0.25)
     with pytest.raises(ValueError, match="3d_cls needs cls"):
         nms_boxes(*args[:3], None, None, "3d_cls", False, 0.25)
-    big = torch.zeros((1, MAX_BOXES + 1, 3))
-    with pytest.raises(ValueError, match=f"at most {MAX_BOXES}"):
-        nms_boxes(big, big, torch.zeros((1, MAX_BOXES + 1)), None, None, "3d", False, 0.25)
-    with pytest.raises(ValueError, match=f"at most {MAX_BOXES}"):
-        nms_masked(torch.zeros((1, MAX_BOXES + 1, MAX_BOXES + 1)), torch.zeros((1, MAX_BOXES + 1)), 0.25)
+    # the CPU takes any K, as the JAX package does: past the card's old 256
+    # and at MAX_BOXES + 1, the plain versions pick what the JAX package picks
+    for name in ("clustered_k257", "k1025"):
+        case = CASES["clustered_k257"]() if name == "clustered_k257" else nms_clustered(22, 1, MAX_BOXES + 1, 18)
+        got = nms_boxes(*(_t(case[k]) for k in ("mins", "maxs", "scores", "cls")), None, "3d_cls",
+                        False, case["thresh"])
+        np.testing.assert_array_equal(got.numpy(), _jax_numpy_keep(case, "3d_cls", False))
+        iou = _iou_3d(case)
+        np.testing.assert_array_equal(nms_masked(iou, _t(case["scores"]), case["thresh"]).numpy(),
+                                      _jax_masked(iou.numpy(), case["scores"], None, case["thresh"]))
