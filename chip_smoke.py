@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's detection forward, eval, pretrain step and SSL step on one NVIDIA GPU.
+"""Drives the PyTorch port's detection forward, eval, pretrain step, SSL step and training input path on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (``nvcc``); it builds the kernels from
@@ -65,7 +65,33 @@ reported on its own line; a failed check raises and the exit code is not 0:
    4 + 8 scenes x 40,000 points (ms a step, scenes/s, peak memory, launches
    a step), one step's spans (the shared FPS, teacher, student, loss and
    backward, Adam, EMA), its three_nn and LHS time beside their plain
-   versions', and its profile.
+   versions', and its profile;
+8. data, the training input path: DUMP_SCANS ScanNet-format scans of
+   DUMP_VERTICES vertices (data/prep_scannet.py's size: floor and walls as
+   ``make_surface_scenes`` spreads them, 10-30 boxes of ScanNet classes a
+   scan, rgb, instance and nyu40 labels, fitted boxes; DUMP_TRAIN train, the
+   rest val, DUMP_LABELED labeled) written in a temporary directory, removed
+   at the end, with their bytes and seconds; (b) the first loader batch's
+   ``stage_batch`` equal bit for bit to a copy of each leaf to the card,
+   and so 6 batches staged back to back in the prefetch thread behind a
+   0.5 s spin, with staging's bytes, wall ms and copy ms; (c) the loader
+   alone, ``ScannetDetectionDataset(train, augment, height, 40,000
+   points)`` through ``DataLoader(batch_size=8)``, scenes/s with 1, 2, 4
+   and min(8, cores) process workers (1 warm-up batch, 6 timed), one
+   ``__getitem__`` in this process and a sample's pickle round trip; (d)
+   pretrain fed by ``build_supervised_datasets`` at cli/pretrain.py's
+   defaults through ``DataLoader(8)``, ``prefetch`` and ``stage_batch``,
+   LOADER_WORKERS workers, 2 warm-up and 5 timed steps (CUDA-event ms a
+   step, wall ms a step, the wait on the prefetch queue, scenes/s,
+   launches a step equal to phase 6's) beside phase 6's resident batch;
+   (e) SSL fed by ``build_ssl_datasets`` with view-stats, ``SSLBatcher`` of
+   4 labeled and 8 unlabeled, the same numbers beside phase 7's; (f) the
+   state after (d) saved with ``train/checkpoint.py`` and loaded into a
+   fresh model and state on the card: every tensor of the model and of
+   Adam's state, the step count, the generator and one eval forward equal
+   bit for bit; ``load_pretrain_into_ssl`` of the file gives a student and
+   a teacher equal to the saved model in tensors of their own, and an
+   empty Adam state.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
 lines. It also runs from the root of another checkout that has the SSL
@@ -94,17 +120,28 @@ two lines are the kernels' JSON and the device JSON.
 """
 import argparse
 import functools
+import itertools
 import json
+import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import types
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from iou3dmatch_tpu_torch.cli import common as cli_common
 from iou3dmatch_tpu_torch.data.config import get_config
+from iou3dmatch_tpu_torch.data.loader import DataLoader, SSLBatcher, prefetch
+from iou3dmatch_tpu_torch.data.scannet import ScannetDetectionDataset
+from iou3dmatch_tpu_torch.data.staging import layout as staging_layout
+from iou3dmatch_tpu_torch.data.staging import stage_batch
 from iou3dmatch_tpu_torch.eval.ap_helper import (APCalculator, decode_corners, eval_config_dict,
                                                  nms_scores, pack_predictions,
                                                  parse_groundtruths, parse_predictions,
@@ -134,6 +171,7 @@ from iou3dmatch_tpu_torch.ops.lhs import SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.ops.nms import MODE_IDS as NMS_MODE_IDS
 from iou3dmatch_tpu_torch.ops.nms import NMS_CLUSTERS, nms_boxes, nms_masked, planned_cluster
 from iou3dmatch_tpu_torch.ops.nms import max_active_clusters as nms_max_active
+from iou3dmatch_tpu_torch.train import checkpoint
 from iou3dmatch_tpu_torch.train.schedules import get_bn_momentum
 from iou3dmatch_tpu_torch.train.state import create_train_state
 from iou3dmatch_tpu_torch.train.steps import (make_eval_forward, make_eval_loss,
@@ -241,6 +279,16 @@ SSL_LR = 2e-3  # train.py:49
 # drops some (ssl_check fails otherwise).
 SSL_CHECK_NMS_IOU = 0.05
 SERVE_CHECK_NMS_IOU = 0.02  # serving's outputs parsed again where the NMS drops boxes
+# the kernels' launches a pretrain step and an SSL step
+TRAIN_LAUNCHES = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2, "lhs": 0,
+                  "three_nn": 3, "nms": 0}
+SSL_LAUNCHES = {"fps": 1, "ball_query": 10, "gather": 12, "gather_bwd": 4, "iou3d": 3, "lhs": 1,
+                "three_nn": 6, "nms": 0}
+# Phase 8's dumps: ScanNet scans as data/prep_scannet.py writes them, at
+# its MAX_NUM_POINT of 50,000 vertices (prep_scannet.py:31)
+DUMP_SCANS, DUMP_TRAIN, DUMP_LABELED = 48, 40, 8
+DUMP_VERTICES = 50_000
+LOADER_WORKERS = 4  # the drivers' --num_workers default (cli/pretrain.py:69)
 
 
 def say(**kw):
@@ -1406,14 +1454,14 @@ def vote_anchors(pc: np.ndarray, dev) -> np.ndarray:
         return model.forward_backbone(torch.from_numpy(pc).to(dev))["aggregated_vote_xyz"].cpu().numpy()
 
 
-def phase_train(cfg, dev) -> dict:
+def phase_train(cfg, dev) -> tuple:
     """The pretrain step: one step of 2 scenes on the card and on the CPU
     from the same weights, batch and jitter draws, then 2 warm-up and 5
     timed steps of B scenes, one step's spans and its profile. The check's
     GT boxes sit at the random model's own vote centers, so that at least
     MIN_POS_RATIO of its proposals are positives and every box term of the
     loss carries gradient. Returns the kernels' launches over the 5 timed
-    steps."""
+    steps and the timed steps' ms, wall ms and scenes/s."""
     momentum = get_bn_momentum(0)
     batch = make_train_batch(20, 2, cfg, vote_anchors(make_scenes(20, 2, N), dev))
     noise = torch.randn((2, 2, K, 3), generator=torch.Generator().manual_seed(21))
@@ -1479,12 +1527,11 @@ def phase_train(cfg, dev) -> dict:
         adam="torch.optim.Adam, foreach", lr=LR, bn_momentum=momentum)
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses.tolist()}")
-    expect = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2, "lhs": 0,
-              "three_nn": 3, "nms": 0}
-    if launches != expect:
-        raise AssertionError(f"launches a step {launches}, expected {expect}")
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"launches a step {launches}, expected {TRAIN_LAUNCHES}")
     phase_train_profile(model, state, step, batch, momentum)
-    return counts
+    return counts, {"step_ms": step_ms, "wall_ms_per_step": wall_s * 200,
+                    "scenes_per_s": 5 * B / wall_s}
 
 
 def phase_train_profile(model, state, step, batch, momentum):
@@ -1678,13 +1725,13 @@ def ssl_check(cfg, dev):
         raise AssertionError(f"SSL step gradient: cosine {cos}, relative L2 {rel_l2}")
 
 
-def phase_ssl(cfg, dev) -> dict:
+def phase_ssl(cfg, dev) -> tuple:
     """The SSL step: the card-vs-CPU check (``ssl_check``), then 2 warm-up
     and 5 timed steps at the users' settings (run_train.sh): 4 labeled + 8
     unlabeled scenes, ``reference_exact`` with view-stats, thresholds 0.9 /
     0.9 / 0.25, lr 2e-3, epoch 0's BN momentum, EMA decay 0.999; then one
     step's spans and profile. Returns the kernels' launches over the 5
-    timed steps."""
+    timed steps and the timed steps' ms, wall ms and scenes/s."""
     ssl_check(cfg, dev)
     momentum = get_bn_momentum(0)
     model, _ = build_votenet("scannet", device=dev)
@@ -1712,20 +1759,20 @@ def phase_ssl(cfg, dev) -> dict:
     launches = {k: v / 5 for k, v in counts.items()}
     losses = torch.stack([m["loss"] for m in metrics]).cpu()
     scenes = SSL_NL + SSL_NU
+    step_ms = [a.elapsed_time(e) for a, e in events]
     say(phase="ssl", scenes=f"{SSL_NL} + {SSL_NU}", points=N, steps=5,
-        step_ms=[a.elapsed_time(e) for a, e in events], wall_ms_per_step=wall_s * 200,
+        step_ms=step_ms, wall_ms_per_step=wall_s * 200,
         scenes_per_s=5 * scenes / wall_s, max_memory_allocated=torch.cuda.max_memory_allocated(dev),
         losses=losses.tolist(), pseudo_gt_ratio=[float(m["pseudo_gt_ratio"]) for m in metrics],
         launches_per_step=launches, lr=SSL_LR, bn_momentum=momentum, ema_decay=0.999,
         thresholds="0.9 / 0.9 / 0.25")
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite SSL loss: {losses.tolist()}")
-    expect = {"fps": 1, "ball_query": 10, "gather": 12, "gather_bwd": 4, "iou3d": 3, "lhs": 1,
-              "three_nn": 6, "nms": 0}
-    if launches != expect:
-        raise AssertionError(f"SSL launches a step {launches}, expected {expect}")
+    if launches != SSL_LAUNCHES:
+        raise AssertionError(f"SSL launches a step {launches}, expected {SSL_LAUNCHES}")
     phase_ssl_profile(state, step, batch, momentum)
-    return counts
+    return counts, {"step_ms": step_ms, "wall_ms_per_step": wall_s * 200,
+                    "scenes_per_s": 5 * scenes / wall_s}
 
 
 def phase_ssl_profile(state, step, batch, momentum):
@@ -1791,6 +1838,297 @@ def phase_ssl_profile(state, step, batch, momentum):
         lhs_ms_a_step=lhs_ms, lhs_plain_ms_a_step=lhs_plain_ms,
         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
         top_kernels=[[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in kern[:15]])
+
+
+def scannet_scan(rng, n: int, cfg) -> tuple:
+    """One ScanNet-format scan of ``n`` vertices: 10-30 boxes of ScanNet's
+    18 classes (their mean sizes within 20 %) standing on the floor of the
+    4 x 4 x 2.5 m room of ``make_surface_scenes``, half the points on the
+    boxes' faces, the rest on the floor and walls (nyu40 ids 2 and 1, not
+    detection classes); rgb in 0-255. Returns (verts (n, 6) float32,
+    instance ids, nyu40 ids, boxes (K, 7): center, size, nyu40 id of each
+    instance's points)."""
+    k = rng.randint(10, 31)
+    cls = rng.randint(0, cfg.num_class, k)
+    size = np.minimum(cfg.mean_size_arr[cls] * rng.uniform(0.8, 1.2, (k, 3)), 3.5)
+    ctr = np.c_[rng.uniform(-2 + size[:, :2] / 2, 2 - size[:, :2] / 2), size[:, 2] / 2]
+    on_box = rng.multinomial(n // 2, np.full(k, 1 / k))
+    ins_box = np.repeat(np.arange(1, k + 1), on_box)
+    face = rng.uniform(-0.5, 0.5, (n // 2, 3))
+    axis = rng.randint(0, 3, n // 2)
+    face[np.arange(n // 2), axis] = np.where(rng.rand(n // 2) < 0.5, -0.5, 0.5)
+    box_xyz = ctr[ins_box - 1] + face * size[ins_box - 1]
+    room = make_surface_scenes(rng.randint(2**31), 1, n - n // 2)[0]
+    floor = room[:, 2] == 0
+    xyz = np.concatenate([box_xyz, room]).astype(np.float32)
+    ins = np.concatenate([ins_box, np.where(floor, k + 1, k + 2)])
+    sem = np.concatenate([cfg.nyu40ids[cls][ins_box - 1], np.where(floor, 2, 1)])
+    perm = rng.permutation(n)
+    verts = np.c_[xyz, rng.uniform(0, 255, (n, 3))].astype(np.float32)[perm]
+    ins, sem = ins[perm].astype(np.int64), sem[perm].astype(np.int64)
+    boxes = np.zeros((k, 7))
+    for j in range(k):
+        pts = verts[ins == j + 1, :3]
+        lo, hi = pts.min(0), pts.max(0)
+        boxes[j] = np.r_[(lo + hi) / 2, hi - lo, cfg.nyu40ids[cls[j]]]
+    return verts, ins, sem, boxes
+
+
+def write_dumps(root: Path, cfg, seed: int) -> dict:
+    """``DUMP_SCANS`` scans of ``DUMP_VERTICES`` vertices under ``root`` as
+    ``data/prep_scannet.py`` writes them, in the layout the drivers read
+    (``scannet_train_detection_data/``, ``meta_data/``): DUMP_TRAIN train
+    and the rest val scans, the first DUMP_LABELED train scans listed in
+    ``meta_data/labeled.txt``. Returns the bytes written and the seconds."""
+    t = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    data, meta = root / "scannet_train_detection_data", root / "meta_data"
+    data.mkdir(parents=True)
+    meta.mkdir()
+    names = [f"scene{i:04d}_00" for i in range(DUMP_SCANS)]
+    for name in names:
+        for suffix, arr in zip(("vert", "ins_label", "sem_label", "bbox"),
+                               scannet_scan(rng, DUMP_VERTICES, cfg)):
+            np.save(data / f"{name}_{suffix}.npy", arr)
+    (meta / "scannetv2_train.txt").write_text("\n".join(names[:DUMP_TRAIN]) + "\n")
+    (meta / "scannetv2_val.txt").write_text("\n".join(names[DUMP_TRAIN:]) + "\n")
+    (meta / "labeled.txt").write_text("\n".join(names[:DUMP_LABELED]) + "\n")
+    nbytes = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    return {"bytes": nbytes, "seconds": time.perf_counter() - t}
+
+
+def data_args(root: Path, **kw) -> types.SimpleNamespace:
+    """The drivers' dataset flags at cli/pretrain.py's defaults (40,000
+    points, height on, colour off), with the labeled list."""
+    return types.SimpleNamespace(dataset="scannet", data_path=str(root),
+                                 labeled_sample_list="labeled.txt", num_point=N, no_height=False,
+                                 use_color=False, use_sunrgbd_v2=False, synthetic=False, **kw)
+
+
+def epochs(loader, n: int):
+    """The first ``n`` batches of ``loader``, epoch after epoch."""
+    return itertools.islice(itertools.chain.from_iterable(itertools.repeat(loader)), n)
+
+
+def check_staged(host: dict, staged: dict, dev, what: str) -> None:
+    for k, v in host.items():
+        want = torch.from_numpy(v).to(dev)
+        if staged[k].dtype != want.dtype or not torch.equal(staged[k], want):
+            raise AssertionError(f"{what}: staged {k} differs from its host leaf")
+
+
+def stage_check(loader, dev) -> dict:
+    """(b): the first batch's ``stage_batch`` against a copy of each leaf;
+    then 6 batches staged back to back in the prefetch thread while a
+    0.5 s spin holds the stream, so that every copy is still queued when
+    the next batch is packed, each against its host leaves. Returns the
+    staging's bytes and times."""
+    batches = list(epochs(loader, 6))
+    staged = stage_batch(batches[0])
+    torch.cuda.synchronize()
+    check_staged(batches[0], staged, dev, "the first batch")
+    torch.cuda._sleep(1_000_000_000)
+    pairs = list(prefetch((b, stage_batch(b)) for b in batches))
+    torch.cuda.synchronize()
+    for i, (host, dev_batch) in enumerate(pairs):
+        check_staged(host, dev_batch, dev, f"batch {i} of 6 staged back to back")
+    wall = []
+    for b in batches:
+        t = time.perf_counter()
+        stage_batch(b)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+    _, nbytes = staging_layout(batches[0])
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    copy_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 1, 10)
+    return {"bytes_a_batch": nbytes, "leaves": len(batches[0]),
+            "stage_ms": [float(x) for x in wall], "copy_ms": copy_ms,
+            "copy_gb_per_s": nbytes / copy_ms / 1e6, "equal": "first batch and 6 back to back"}
+
+
+def loader_rates(ds, workers) -> dict:
+    """(c): scenes/s of ``DataLoader(ds, B)`` with W process workers, one
+    warm-up batch (it starts the workers) then 6 timed; beside them one
+    ``__getitem__`` in this process and a sample's pickle round trip, the
+    IPC a worker's sample pays."""
+    ds[0]  # loads the native library in this process
+    getitem_ms = []
+    for i in range(8):
+        np.random.seed(i)
+        t = time.perf_counter()
+        sample = ds[i]
+        getitem_ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    blob = pickle.dumps(sample)
+    pickle.loads(blob)
+    pickle_ms = (time.perf_counter() - t) * 1e3
+    rates = {}
+    for w in workers:
+        loader = DataLoader(ds, B, num_workers=w, seed=w, worker_type="process")
+        try:
+            it = epochs(loader, 7)
+            next(it)
+            t = time.perf_counter()
+            for _ in range(6):
+                next(it)
+            rates[w] = 6 * B / (time.perf_counter() - t)
+        finally:
+            loader.close()
+    return {"cpu_count": os.cpu_count(), "scenes_per_s": rates,
+            "getitem_ms": getitem_ms, "sample_bytes": len(blob), "pickle_round_trip_ms": pickle_ms}
+
+
+def loader_fed_steps(step, state, batches, lr, momentum, scenes: int, expect: dict) -> dict:
+    """(d), (e): 2 warm-up and 5 timed steps on ``batches``, an iterator of
+    staged batches (the loader, ``prefetch`` and ``stage_batch``): each
+    step's CUDA-event ms, the wall ms a step, the host's wait on the
+    prefetch queue a step, scenes/s and the launches a step, which must be
+    ``expect``."""
+    for _ in range(2):
+        step(state, next(batches), lr, momentum)
+    torch.cuda.synchronize()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    events, waits, losses = [], [], []
+    t = time.perf_counter()
+    for _ in range(5):
+        w = time.perf_counter()
+        batch = next(batches)
+        waits.append((time.perf_counter() - w) * 1e3)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        losses.append(step(state, batch, lr, momentum)["loss"])
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = {k: v / 5 for k, v in counts.items()}
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite loader-fed loss: {losses.tolist()}")
+    if launches != expect:
+        raise AssertionError(f"loader-fed launches a step {launches}, expected {expect}")
+    return {"step_ms": [a.elapsed_time(e) for a, e in events], "wall_ms_per_step": wall_s * 200,
+            "prefetch_wait_ms": waits, "scenes_per_s": 5 * scenes / wall_s,
+            "losses": losses.tolist(), "launches_per_step": launches, "counts": counts}
+
+
+def same_tensors(a: dict, b: dict, what: str) -> None:
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: the keys differ")
+    for k in a:
+        x, y = torch.as_tensor(a[k]), torch.as_tensor(b[k])
+        if x.dtype != y.dtype or not torch.equal(x, y.to(x.device)):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def adam_tensors(state) -> dict:
+    return {f"{i}.{k}": v for i, s in state.optimizer.state_dict()["state"].items()
+            for k, v in s.items()}
+
+
+def checkpoint_check(state, cfg, dev, path: str, clouds) -> dict:
+    """(f): the pretrain state after (d) saved, loaded into a fresh model
+    (other weights) and state on the card: every tensor of the model and of
+    Adam's state, the step count and the generator equal bit for bit, one
+    eval forward on ``clouds`` equal bit for bit; ``load_pretrain_into_ssl``
+    of the file: student and teacher equal to the saved model, in tensors
+    of their own, and Adam empty."""
+    t = time.perf_counter()
+    checkpoint.save(path, state, epoch=1, loss=0.0)
+    save_s = time.perf_counter() - t
+    model, _ = build_votenet("scannet", device=dev, generator=torch.Generator().manual_seed(1))
+    fresh = create_train_state(model, seed=1)
+    t = time.perf_counter()
+    checkpoint.load(path, fresh)
+    load_s = time.perf_counter() - t
+    same_tensors(fresh.model.state_dict(), state.model.state_dict(), "loaded model")
+    same_tensors(adam_tensors(fresh), adam_tensors(state), "loaded Adam state")
+    same_tensors({"g": fresh.generator.get_state()}, {"g": state.generator.get_state()},
+                 "loaded generator")
+    if fresh.step != state.step or not adam_tensors(state):
+        raise AssertionError(f"loaded step {fresh.step} of {state.step}, or no Adam state saved")
+    got = make_eval_forward(fresh.model)(clouds)
+    want = make_eval_forward(state.model)(clouds)
+    same_tensors(got, want, "the loaded model's eval forward")
+    model, _ = build_votenet("scannet", device=dev, generator=torch.Generator().manual_seed(2))
+    ssl = create_train_state(model, seed=2, with_ema=True)
+    checkpoint.load_pretrain_into_ssl(path, ssl)
+    saved = state.model.state_dict()
+    for who, m in (("student", ssl.model), ("teacher", ssl.ema_model)):
+        same_tensors(m.state_dict(), saved, f"load_pretrain_into_ssl's {who}")
+    student, teacher = ssl.model.state_dict(), ssl.ema_model.state_dict()
+    if any(student[k].data_ptr() == teacher[k].data_ptr() for k in student):
+        raise AssertionError("load_pretrain_into_ssl's student and teacher share tensors")
+    if ssl.optimizer.state_dict()["state"] or ssl.step:
+        raise AssertionError("load_pretrain_into_ssl left Adam's state or the step count")
+    return {"file_bytes": os.path.getsize(path), "save_s": save_s, "load_s": load_s,
+            "tensors": len(saved) + len(adam_tensors(state)),
+            "equal": "model, Adam, step, generator, eval forward; pretrain -> SSL student "
+                     "and teacher, Adam empty"}
+
+
+def phase_data(cfg, dev, train_stats: dict, ssl_stats: dict) -> dict:
+    """Phase 8, the training input path: ScanNet-format dumps at the prep's
+    size in a temporary directory (removed at the end), then (b) staging's
+    equality, (c) the loader alone per worker count, (d) pretrain and (e)
+    SSL fed by the loader, each beside phase 6's and 7's resident batch, and
+    (f) the checkpoint round trip. Returns the kernels' launches over (d)'s
+    and (e)'s 5 timed steps."""
+    momentum = get_bn_momentum(0)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dumps_"))
+    loaders = []
+
+    def loader(*args, **kw):
+        loaders.append(DataLoader(*args, **kw))
+        return loaders[-1]
+
+    try:
+        say(phase="data_dumps", scans=DUMP_SCANS, train=DUMP_TRAIN, val=DUMP_SCANS - DUMP_TRAIN,
+            labeled=DUMP_LABELED, vertices=DUMP_VERTICES, **write_dumps(root, cfg, 80))
+        train_ds, _, _ = cli_common.build_supervised_datasets(data_args(root))
+        all_train = ScannetDetectionDataset(str(root / "scannet_train_detection_data"),
+                                            str(root / "meta_data"), "train", num_points=N,
+                                            use_height=True, augment=True)
+        workers = sorted({1, 2, 4, min(8, os.cpu_count() or 1)})
+        say(phase="data_staging", **stage_check(loader(all_train, B, num_workers=workers[-1],
+                                                       seed=81, worker_type="process"), dev))
+        say(phase="data_loader", dataset="ScannetDetectionDataset(train, augment, height)",
+            scenes=len(all_train), batch=B, warmup_batches=1, timed_batches=6,
+            **loader_rates(all_train, workers))
+
+        model, _ = build_votenet("scannet", device=dev)
+        state = create_train_state(model)
+        feed = loader(train_ds, B, num_workers=LOADER_WORKERS, seed=82, worker_type="process")
+        batches = prefetch(stage_batch(b) for b in epochs(feed, 7))
+        pretrain = loader_fed_steps(make_pretrain_step(cfg), state, batches, LR, momentum, B,
+                                    TRAIN_LAUNCHES)
+        say(phase="data_train", scenes=B, points=N, workers=LOADER_WORKERS,
+            train_scenes=len(train_ds), resident=train_stats,
+            **{k: v for k, v in pretrain.items() if k != "counts"})
+
+        labeled_ds, unlabeled_ds, _, _ = cli_common.build_ssl_datasets(data_args(root, view_stats=True))
+        ssl_model, _ = build_votenet("scannet", device=dev)
+        ssl_state = create_train_state(ssl_model, with_ema=True)
+        batcher = SSLBatcher(
+            loader(labeled_ds, SSL_NL, num_workers=LOADER_WORKERS, seed=83, worker_type="process"),
+            loader(unlabeled_ds, SSL_NU, num_workers=LOADER_WORKERS, seed=84, worker_type="process"))
+        ssl = loader_fed_steps(make_ssl_step(cfg, SSL_NL, reference_exact=True, view_stats=True),
+                               ssl_state, prefetch(stage_batch(b) for b in epochs(batcher, 7)),
+                               SSL_LR, momentum, SSL_NL + SSL_NU, SSL_LAUNCHES)
+        say(phase="data_ssl", scenes=f"{SSL_NL} + {SSL_NU}", points=N, workers=LOADER_WORKERS,
+            labeled_scenes=len(labeled_ds), unlabeled_scenes=len(unlabeled_ds),
+            resident=ssl_stats, **{k: v for k, v in ssl.items() if k != "counts"})
+
+        clouds = stage_batch(next(iter(feed)))["point_clouds"]
+        say(phase="data_checkpoint",
+            **checkpoint_check(state, cfg, dev, str(root / "checkpoint.tar"), clouds))
+        return {"train": pretrain["counts"], "ssl": ssl["counts"]}
+    finally:
+        for ld in loaders:
+            ld.close()
+        shutil.rmtree(root)
 
 
 def phase_profile(model, forward, pc):
@@ -1895,8 +2233,9 @@ def main() -> int:
     phase_forward(model, dev)
     serve = phase_serve(model, cfg, dev)
     evals = phase_eval(model, cfg, dev)
-    train = phase_train(cfg, dev)
-    ssl = phase_ssl(cfg, dev)
+    train, train_stats = phase_train(cfg, dev)
+    ssl, ssl_stats = phase_ssl(cfg, dev)
+    data = phase_data(cfg, dev, train_stats, ssl_stats)
 
     kernels = []
     for name, checks in rows.items():
@@ -1910,6 +2249,8 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": ssl[name] if on_ssl else evals[0][name],
             "launches_of": "5 SSL steps" if on_ssl else "3 eval requests",
             "launches_5_train_steps": train[name], "launches_3_requests": serve[name],
+            "launches_5_loader_train_steps": data["train"][name],
+            "launches_5_loader_ssl_steps": data["ssl"][name],
             "launches_3_eval_requests": evals[0][name],
             "launches_3_eval_opt_requests": evals[OPT_STEP][name],
             "max_abs_err": max(c["max_abs_err"] for c in checks),

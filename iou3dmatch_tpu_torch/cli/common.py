@@ -1,13 +1,21 @@
-"""Driver plumbing shared by the entry points: the eval config dict, metric
-averaging and the eval epoch.
+"""Driver plumbing shared by the entry points: dataset construction, the
+eval config dict, metric averaging and the eval epoch.
 
-Counterpart of ``iou3dmatch_tpu/cli/common.py:17-36`` and ``:161-226``
-(reference pretrain.py:107-232, train.py:263-275 and 378-535). The data
-loaders are not ported yet: ``evaluate`` takes any iterable of batch dicts
-of tensors.
+Counterpart of ``iou3dmatch_tpu/cli/common.py`` (reference
+pretrain.py:107-232, train.py:91-275 and 378-535). ``evaluate`` takes any
+iterable of batch dicts of tensors, such as ``map(stage_batch, loader)``
+of a ``data/loader.py::DataLoader``.
 """
+import os
+
 import torch
 
+from ..data.config import get_config
+from ..data.scannet import (ScannetDetectionDataset, ScannetSSLLabeledDataset,
+                            ScannetSSLUnlabeledDataset)
+from ..data.sunrgbd import (SunrgbdDetectionVotesDataset, SunrgbdSSLLabeledDataset,
+                            SunrgbdSSLUnlabeledDataset)
+from ..data.synthetic import SyntheticDataset
 from ..eval.ap_helper import APCalculator, parse_groundtruths, parse_predictions
 from ..eval.iou_opt import iou_optimize
 
@@ -33,6 +41,96 @@ def make_config_dict(cfg, args):
         "use_lhs": True,
         "iou_threshold": getattr(args, "iou_threshold", 0.25),
     }
+
+
+def _data_root(args, sub):
+    root = getattr(args, "data_path", None)
+    return os.path.join(root, sub) if root else sub
+
+
+def _sunrgbd_dir(args, split):
+    """v1 (default) or v2 box-label dumps (--use_sunrgbd_v2, mirroring
+    use_v1=(not FLAGS.use_sunrgbd_v2) at pretrain.py:137/train.py:119)."""
+    ver = "v2" if getattr(args, "use_sunrgbd_v2", False) else "v1"
+    return f"sunrgbd_pc_bbox_votes_50k_{ver}_{split}"
+
+
+def build_supervised_datasets(args):
+    """(train_ds, eval_ds, cfg) for stage 1 from the drivers' ``args``
+    (``dataset``, ``data_path``, ``labeled_sample_list``, ``num_point``,
+    ``no_height``, ``use_color``, ``use_sunrgbd_v2``), or synthetic scenes
+    with ``args.synthetic`` (``synthetic_scenes`` of them): the offline
+    dumps need a manual download (README.md:83-117 of the reference)."""
+    cfg = get_config(args.dataset)
+    if getattr(args, "synthetic", False):
+        train_ds = SyntheticDataset(args.dataset, num_scenes=args.synthetic_scenes,
+                                    num_points=args.num_point, seed=1)
+        eval_ds = SyntheticDataset(args.dataset, num_scenes=max(args.synthetic_scenes // 4, 2),
+                                   num_points=args.num_point, seed=2)
+        return train_ds, eval_ds, cfg
+
+    feats = dict(use_height=not args.no_height, use_color=args.use_color)
+    if args.dataset == "scannet":
+        data_path = _data_root(args, "scannet_train_detection_data")
+        split_dir = _data_root(args, "meta_data")
+        train_ds = ScannetDetectionDataset(
+            data_path, split_dir, "train", labeled_sample_list=args.labeled_sample_list,
+            num_points=args.num_point, augment=True, **feats)
+        eval_ds = ScannetDetectionDataset(
+            data_path, split_dir, "val", num_points=args.num_point, augment=False, **feats)
+    else:
+        data_path = _data_root(args, _sunrgbd_dir(args, "train"))
+        split_dir = _data_root(args, "sunrgbd_trainval")
+        train_ds = SunrgbdDetectionVotesDataset(
+            data_path, split_dir, labeled_sample_list=args.labeled_sample_list,
+            num_points=args.num_point, augment=True, **feats)
+        eval_ds = SunrgbdDetectionVotesDataset(
+            _data_root(args, _sunrgbd_dir(args, "val")), num_points=args.num_point,
+            augment=False, **feats)
+    return train_ds, eval_ds, cfg
+
+
+def build_ssl_datasets(args):
+    """(labeled_ds, unlabeled_ds, eval_ds, cfg) for stage 2, from the
+    ``args`` of ``build_supervised_datasets``; with ``args.view_stats`` the
+    unlabeled scenes carry their raw-frame GT."""
+    cfg = get_config(args.dataset)
+    load_labels = bool(getattr(args, "view_stats", False))
+    if getattr(args, "synthetic", False):
+        labeled = SyntheticDataset(args.dataset, num_scenes=args.synthetic_scenes,
+                                   num_points=args.num_point, ssl=True, labeled=True, seed=1)
+        unlabeled = SyntheticDataset(args.dataset, num_scenes=args.synthetic_scenes * 2,
+                                     num_points=args.num_point, ssl=True, labeled=False,
+                                     seed=3, load_labels=load_labels)
+        eval_ds = SyntheticDataset(args.dataset, num_scenes=max(args.synthetic_scenes // 4, 2),
+                                   num_points=args.num_point, seed=2)
+        return labeled, unlabeled, eval_ds, cfg
+
+    feats = dict(use_height=not args.no_height, use_color=args.use_color)
+    if args.dataset == "scannet":
+        data_path = _data_root(args, "scannet_train_detection_data")
+        split_dir = _data_root(args, "meta_data")
+        labeled = ScannetSSLLabeledDataset(
+            data_path, split_dir, args.labeled_sample_list, num_points=args.num_point,
+            augment=True, **feats)
+        unlabeled = ScannetSSLUnlabeledDataset(
+            data_path, split_dir, args.labeled_sample_list, num_points=args.num_point,
+            augment=True, load_labels=load_labels, **feats)
+        eval_ds = ScannetDetectionDataset(
+            data_path, split_dir, "val", num_points=args.num_point, augment=False, **feats)
+    else:
+        data_path = _data_root(args, _sunrgbd_dir(args, "train"))
+        split_dir = _data_root(args, "sunrgbd_trainval")
+        labeled = SunrgbdSSLLabeledDataset(
+            data_path, split_dir, args.labeled_sample_list, num_points=args.num_point,
+            augment=True, **feats)
+        unlabeled = SunrgbdSSLUnlabeledDataset(
+            data_path, split_dir, args.labeled_sample_list, num_points=args.num_point,
+            augment=True, load_labels=load_labels, **feats)
+        eval_ds = SunrgbdDetectionVotesDataset(
+            _data_root(args, _sunrgbd_dir(args, "val")), num_points=args.num_point,
+            augment=False, **feats)
+    return labeled, unlabeled, eval_ds, cfg
 
 
 def fetch_metrics(metrics: dict) -> dict:

@@ -9,9 +9,13 @@ losses use on the device. Mirrors
 
 The ScanNet mean sizes are the dataset statistics shipped as
 `scannet/meta_data/scannet_means.npz` in the reference, inlined here.
+
+The tensor helpers import torch when called: the data loader's worker
+processes import this module through the datasets and do NumPy work only.
 """
+from __future__ import annotations
+
 import numpy as np
-import torch
 
 _SCANNET_MEAN_SIZES = np.array(
     [
@@ -67,6 +71,8 @@ class _BaseConfig:
     def mean_size_tensor(self, device) -> torch.Tensor:
         """``mean_size_arr`` as f32 on ``device``, copied there once and
         kept: a copy to the card waits for the work queued before it."""
+        import torch
+
         cache = self.__dict__.setdefault("_mean_size_on", {})
         device = torch.device(device)
         if device not in cache:
@@ -115,6 +121,8 @@ class ScannetConfig(_BaseConfig):
         return np.zeros(np.asarray(pred_cls).shape)
 
     def class2angle_tensor(self, pred_cls, residual):
+        import torch
+
         return torch.zeros(pred_cls.shape, dtype=torch.float32, device=pred_cls.device)
 
     def angle2class_tensor(self, angle):
@@ -164,6 +172,8 @@ class SunrgbdConfig(_BaseConfig):
     def angle2class_tensor(self, angle: torch.Tensor):
         """Headings -> (int32 bin, residual from the bin's center)
         (sunrgbd/model_util_sunrgbd.py:62-78), elementwise."""
+        import torch
+
         angle_per_class = 2 * np.pi / float(self.num_heading_bin)
         shifted = torch.remainder(torch.remainder(angle, 2 * np.pi) + angle_per_class / 2,
                                   2 * np.pi)

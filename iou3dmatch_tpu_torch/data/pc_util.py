@@ -1,6 +1,6 @@
-"""Point-cloud helpers of the host-side eval path (NumPy).
+"""Point-cloud helpers of the datasets and the host-side eval path (NumPy).
 
-The port's copy of the two functions it needs from
+The port's copy of the functions it needs from
 ``iou3dmatch_tpu/data/pc_util.py`` (reference ``utils/pc_util.py``).
 """
 import numpy as np
@@ -17,6 +17,18 @@ def random_sampling(pc, num_sample, replace=None, return_choices=False, rng=None
     if return_choices:
         return pc[choices], choices
     return pc[choices]
+
+
+def rotz(t):
+    """Rotation about the z-axis (JAX ``pc_util.py:23-25``)."""
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+
+
+def roty(t):
+    """Rotation about the y-axis (JAX ``pc_util.py:28-31``, utils/pc_util.py:287-293)."""
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
 
 
 def bbox_corner_dist_measure(crnr1, crnr2):

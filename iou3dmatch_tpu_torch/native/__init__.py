@@ -1,8 +1,9 @@
-"""Native (C++) host runtime: the oriented 3D IoU of the AP evaluator.
+"""Native (C++) host runtime: the oriented 3D IoU of the AP evaluator, and
+the data loader's vote labels and floor percentile (``native/loader.py``).
 
 The port's copy of ``iou3dmatch_tpu/native/__init__.py:22-101``. It builds
-``iou3d_host.cc`` with ``g++`` at first use into
-``build/native/libiou3d_host-<hash>.so`` at the repository root (the hash
+each source with ``g++`` at first use into
+``build/native/lib<source>-<hash>.so`` at the repository root (the hash
 covers the source and the flags, so an edited source is rebuilt) and binds
 it with ctypes. Unlike the JAX package's binding it does not fall back to
 NumPy: a failed build raises with the compiler's output.
@@ -16,43 +17,46 @@ from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "iou3d_host.cc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+HERE = Path(__file__).resolve().parent
+BUILD_DIR = HERE.parents[1] / "build" / "native"
+SRC = HERE / "iou3d_host.cc"
 FLAGS = ("-O3", "-shared", "-fPIC")
 _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libiou3d_host-{digest}.so"
+def library_path(src: Path, flags) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
-def _build(so: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a temporary name and an atomic rename: a concurrent first use (eval
-    # pool workers) never sees half a library
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    try:
-        proc = subprocess.run(["g++", *FLAGS, "-o", str(tmp), str(SRC)],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"g++ failed for {SRC.name}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if tmp.exists():
-            tmp.unlink()
+def build_library(src: Path, flags) -> ctypes.CDLL:
+    """``src`` built with ``g++ flags`` unless built before, then loaded;
+    raises with the compiler's output if the build fails."""
+    so = library_path(src, flags)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # a temporary name and an atomic rename: a concurrent first use
+        # (loader or eval pool workers) never sees half a library
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        try:
+            proc = subprocess.run(["g++", *flags, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"g++ failed for {src.name}:\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            if tmp.exists():
+                tmp.unlink()
+    return ctypes.CDLL(str(so))
 
 
 def load() -> ctypes.CDLL:
-    """The ctypes library, built at first use; raises if it cannot be built."""
+    """The IoU's ctypes library, built at first use; raises if it cannot be built."""
     global _lib
     with _lock:
         if _lib is None:
-            so = library_path()
-            if not so.exists():
-                _build(so)
-            lib = ctypes.CDLL(str(so))
+            lib = build_library(SRC, FLAGS)
             fp = ctypes.POINTER(ctypes.c_float)
             lib.box3d_iou_pair.restype = ctypes.c_float
             lib.box3d_iou_pair.argtypes = [fp, fp, fp]

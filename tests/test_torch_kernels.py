@@ -22,7 +22,8 @@ old_types and matrix mode, at the planned cluster size and at every size
 nms_plan can pick, K from 1 to 1,024 across the bit rows' words and the
 blocks' shares, 300 scenes, the plan's residency, the wrapper's refusals
 (K = 1,025), and parse_predictions on the card
-against the NumPy parse. The file
+against the NumPy parse; and ``stage_batch`` staging batches back to back
+bit for bit. The file
 imports no JAX, so it runs on a machine with a card and without JAX; this
 repository's conftest imports JAX, so run it there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 Without a card every test skips.
@@ -766,3 +767,25 @@ def test_parse_predictions_on_the_card_picks_what_the_numpy_parse_picks(cuda):
                 assert gc == wc
                 np.testing.assert_array_equal(gbox, wbox)
                 assert gscore == wscore
+
+
+def test_stage_batch_back_to_back_is_bit_exact(cuda):
+    """stage_batch on the card: 6 batches of the pretrain step's leaves
+    staged back to back behind a busy stream, so that each copy is still
+    queued when the next batch is packed, each equal to its host leaves bit
+    for bit, every dtype kept (int64 labels stay int64)."""
+    from iou3dmatch_tpu_torch.data.staging import stage_batch
+
+    rng = np.random.RandomState(41)
+    batches = [{"point_clouds": rng.randn(8, 40000, 4).astype(np.float32),
+                "vote_label": rng.randn(8, 40000, 9).astype(np.float32),
+                "vote_label_mask": rng.randint(0, 2, (8, 40000)).astype(np.int64),
+                "size_class_label": rng.randint(0, 18, (8, 64)).astype(np.int64),
+                "scale": rng.rand(8, 1, 3).astype(np.float32),
+                "odd": rng.randint(0, 255, 7).astype(np.uint8)} for _ in range(6)]
+    torch.cuda._sleep(200_000_000)
+    staged = [stage_batch(b) for b in batches]
+    for host, dev in zip(batches, staged):
+        for k, v in host.items():
+            assert dev[k].device.type == "cuda" and dev[k].dtype == torch.from_numpy(v).dtype, k
+            assert torch.equal(dev[k].cpu(), torch.from_numpy(v)), k
