@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's detection forward, eval, pretrain step, SSL step and training input path on one NVIDIA GPU.
+"""Drives the PyTorch port's detection forward, eval, pretrain step, SSL step, training input path and drivers on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (``nvcc``); it builds the kernels from
@@ -22,8 +22,9 @@ reported on its own line; a failed check raises and the exit code is not 0:
    a rotated BEV IoU, each with its planned cluster size and its cycles a
    step for the leader block and the others, and the overlaps computed and
    skipped; the ball query on surface scenes, the rotated IoU on rotated
-   boxes), with
-   CUDA-event timings of kernel, plain version and library call, the
+   boxes), FPS also at ``--cluster_sampling vote_fps``'s shapes (over
+   1,024 and 2,048 votes),
+   with CUDA-event timings of kernel, plain version and library call, the
    launch floor (a one-element ``zero_()`` timed the same way), and the
    launch plans of FPS, the ball query, the gather's backward and
    three_nn; FPS, the
@@ -31,7 +32,11 @@ reported on its own line; a failed check raises and the exit code is not 0:
    exactly equal, the gather's backward within 1e-5 x the sum of |g| of each
    element of an f64 sum, the IoU within atol 1e-5; it fails if a planned
    FPS variant spills, or three_nn, LHS or NMS spills;
-4. the whole forward on the card against the CPU on one 40,000-point scene;
+4. the whole forward on the card against the CPU on one 40,000-point scene,
+   for the default model and two built with the samplings the drivers'
+   ``--cluster_sampling`` reaches (FORWARD_KNOBS: vote_fps; random at given
+   indices), every index equal, FPS launched once for each layer that runs
+   it;
 5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
    and ``parse_predictions``' two halves with IoU-guided class-aware NMS on
    the card, each request's picks equal to the host NumPy parse of the same
@@ -91,7 +96,27 @@ reported on its own line; a failed check raises and the exit code is not 0:
    Adam's state, the step count, the generator and one eval forward equal
    bit for bit; ``load_pretrain_into_ssl`` of the file gives a student and
    a teacher equal to the saved model in tensors of their own, and an
-   empty Adam state.
+   empty Adam state;
+9. the drivers at full width (``phase_drivers``), on dumps written again as
+   phase 8's: (a) ``cli/pretrain.main`` in this process, 3 epochs of one
+   step of 8 scenes on the 8-scan labeled list and one eval, (b)
+   ``cli/train.main`` with run_train.sh's flags from (a)'s checkpoint, 2
+   epochs of 2 steps of 4 + 8 scenes and one eval, (c) its ``--resume`` for
+   a third epoch, which must continue at epoch 2, (d) the eval entry point
+   with 10 steps of IoU optimisation at 5e-4 as a subprocess
+   ``python3 -m iou3dmatch_tpu_torch.cli.train`` with no device flag, which
+   must log the card as its device and whose mAP and AR lines and dumps
+   must equal those of ``evaluate`` in this process on the same checkpoint
+   and batches, (e) one pretrain epoch with ``--cluster_sampling
+   vote_fps``, (f) 2 epochs of each driver without eval on more scans
+   (pretrain on the 40 train scans, 5 steps an epoch; SSL with 24 labeled,
+   6 steps an epoch), steps 2-4 of each traced by ``--profile_steps 3``
+   and the trace read back: the device's idle share and the host's wait
+   for the card a step. Each run's epoch times, its wait for each epoch's
+   first batch, a step's queuing, wait and loop time on the host clock,
+   ms and scenes/s a step, launches (counted around it: steps x phase 6's
+   or 7's a step, plus phase 5b's a request for each eval batch; FPS 2 a
+   step in (e)) and the files written.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
 lines. It also runs from the root of another checkout that has the SSL
@@ -137,6 +162,8 @@ import numpy as np
 import torch
 
 from iou3dmatch_tpu_torch.cli import common as cli_common
+from iou3dmatch_tpu_torch.cli import pretrain as cli_pretrain
+from iou3dmatch_tpu_torch.cli import train as cli_train
 from iou3dmatch_tpu_torch.data.config import get_config
 from iou3dmatch_tpu_torch.data.loader import DataLoader, SSLBatcher, prefetch
 from iou3dmatch_tpu_torch.data.scannet import ScannetDetectionDataset
@@ -420,16 +447,19 @@ def check_kernel(name, label, kernel, plain, library, args, nbytes, ops_of, ops_
     return got, row
 
 
-def fps_rows(dev, ops_per_s, b, main):
-    """FPS at (b, N) -> NPOINT with the planned launch, µs per step beside it."""
-    xyz = torch.from_numpy(make_scenes(1, b, N)[..., :3].copy()).to(dev)
+def fps_rows(dev, ops_per_s, b, main, xyz=None, npoint=NPOINT, what=""):
+    """FPS at (b, N) -> NPOINT, or over ``xyz`` -> ``npoint``, with the
+    planned launch, µs per step beside it."""
+    if xyz is None:
+        xyz = torch.from_numpy(make_scenes(1, b, N)[..., :3].copy()).to(dev)
+    n = xyz.shape[1]
     inds, r = check_kernel(
-        "fps", f"({b},{N},3)->{NPOINT}", furthest_point_sample, furthest_point_sample_plain,
-        None, (xyz, NPOINT), b * N * 12 + b * NPOINT * 4,
-        lambda _: (NPOINT - 1) * b * N * PAIR_OPS,  # per point and step: 3 sub, 3 mul, 2 add, 1 min
+        "fps", f"{what}({b},{n},3)->{npoint}", furthest_point_sample, furthest_point_sample_plain,
+        None, (xyz, npoint), b * n * 12 + b * npoint * 4,
+        lambda _: (npoint - 1) * b * n * PAIR_OPS,  # per point and step: 3 sub, 3 mul, 2 add, 1 min
         ops_per_s, 3, PLAIN_FPS_REPS, main)
-    r["us_per_step"] = r["ms"] * 1e3 / (NPOINT - 1)
-    launch, answers = fps_plan(dev, b, N)
+    r["us_per_step"] = r["ms"] * 1e3 / (npoint - 1)
+    launch, answers = fps_plan(dev, b, n)
     r.update(variant=launch.variant, launch=launch._asdict(), max_active_clusters=answers)
     say(phase="fps_plan", shape=r["shape"], **{k: r[k] for k in (
         "us_per_step", "variant", "launch", "max_active_clusters")})
@@ -610,6 +640,14 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     gather(f"sa4 ({B},512,259)x({B},256,16)", torch.cat([sa3_xyz, f256[:, :512]], -1), idx)
     gather_bwd(f"sa4 ({B},{256 * 16},259)->({B},512,259)", torch.cat([sa3_xyz, f256[:, :512]], -1),
                idx)
+    # the FPS shapes of --cluster_sampling vote_fps (off the default path):
+    # FPS over the votes at vote_factor 1 and 2
+    for what, pts, npoint in (
+            ("vote_fps vf1 ", votes.contiguous(), K),
+            ("vote_fps vf2 ", (sa1_xyz[:, :1024, None] + torch.from_numpy(
+                np.random.RandomState(12).normal(0, 0.1, (B, 1024, 2, 3)).astype(np.float32))
+                .to(dev)).reshape(B, 2048, 3).contiguous(), K)):
+        rows["fps"].append(fps_rows(dev, ops_per_s, B, False, pts, npoint, what)[2])
     idx = bq(f"vote_agg r0.3 ns16 ({B},1024)x128", 0.3, 16, votes, votes[:, :128].contiguous())
     gather(f"vote_agg ({B},1024,259)x({B},128,16)", torch.cat([votes, f256], -1), idx)
     gather_bwd(f"vote_agg ({B},{128 * 16},259)->({B},1024,259)", torch.cat([votes, f256], -1), idx)
@@ -1123,27 +1161,50 @@ def fps_ptxas(log: str) -> dict:
     return out
 
 
-def phase_forward(model_gpu, dev):
-    model_cpu, _ = build_votenet("scannet", device="cpu")  # same seed, same weights
+# phase 4's models beside the default: the samplings --cluster_sampling reaches
+FORWARD_KNOBS = ({}, {"sampling": "vote_fps"}, {"sampling": "random"})
+
+
+def phase_forward(model_gpu, dev, knobs: dict):
+    """The forward of the full-width model built with ``knobs`` on the card
+    against the CPU on one scene: every index equal, outputs within atol
+    and rtol 1e-3. ``random`` sampling takes the same given indices on both
+    sides, drawn on the CPU."""
+    if knobs:
+        model_gpu, _ = build_votenet("scannet", device=dev, **knobs)
+    model_cpu, _ = build_votenet("scannet", device="cpu", **knobs)  # same seed, same weights
     pc = torch.from_numpy(make_scenes(4, 1, N))
+    inds = {}
+    if knobs.get("sampling") == "random":
+        inds["sample_inds"] = torch.randint(0, 1024, (1, K), generator=torch.Generator().manual_seed(4),
+                                            dtype=torch.int32)
+    for fn in KERNELS.values():
+        fn.launches = 0
     with torch.inference_mode():
         t = time.perf_counter()
-        ep_gpu = model_gpu(pc.to(dev))
+        ep_gpu = model_gpu(pc.to(dev), **{k: v.to(dev) for k, v in inds.items()})
         torch.cuda.synchronize()
         gpu_s = time.perf_counter() - t
         t = time.perf_counter()
-        ep_cpu = model_cpu(pc)
+        ep_cpu = model_cpu(pc, **inds)
         cpu_s = time.perf_counter() - t
-    if not torch.equal(ep_gpu["sa1_inds"].cpu(), ep_cpu["sa1_inds"]):
-        raise AssertionError("sa1_inds differ between the card and the CPU")
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    for k in ("sa1_inds", "sa2_inds", "aggregated_vote_inds"):
+        if not torch.equal(ep_gpu[k].cpu(), ep_cpu[k]):
+            raise AssertionError(f"{k} differ between the card and the CPU ({knobs})")
     diffs = {}
     for k in ("center", "objectness_scores", "sem_cls_scores", "size_residuals", "iou_scores"):
         a, b = ep_gpu[k].cpu(), ep_cpu[k]
         diffs[k] = max_err(a, b)
         if not torch.isfinite(a).all() or not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
-            raise AssertionError(f"{k} differs between the card and the CPU: max {diffs[k]}")
-    say(phase="forward_vs_cpu", scenes=1, points=N, sa1_inds_equal=True, tol="atol 1e-3 rtol 1e-3",
-        max_abs_diff=diffs, gpu_s=gpu_s, cpu_s=cpu_s)
+            raise AssertionError(f"{k} differs between the card and the CPU ({knobs}): max {diffs[k]}")
+    # FPS: SA1, then vote_fps
+    fps = 1 + (knobs.get("sampling") == "vote_fps")
+    if launches["fps"] != fps:
+        raise AssertionError(f"the forward with {knobs} launched FPS {launches['fps']}, not {fps}")
+    say(phase="forward_vs_cpu", knobs=knobs, scenes=1, points=N, indices_equal=True,
+        tol="atol 1e-3 rtol 1e-3", max_abs_diff=diffs, launches=launches, gpu_s=gpu_s,
+        cpu_s=cpu_s)
 
 
 def same_picks(got, want, what: str) -> float:
@@ -2131,6 +2192,276 @@ def phase_data(cfg, dev, train_stats: dict, ssl_stats: dict) -> dict:
         shutil.rmtree(root)
 
 
+def driver_run(name: str, fn, argv: list, log_dir: Path, steps: int, scenes: int,
+               expect: dict) -> dict:
+    """One driver ``main(argv)`` in this process with the kernels' counts
+    set to 0 just before it and read just after; the launches must be
+    ``expect``. The loop is timed on the host clock from outside, with
+    nothing of the driver changed: ``cli_common.train_epochs`` is handed a
+    logger that marks each epoch's header and ``epoch time:`` line, and a
+    step that times its call (the host queuing the step's work), and the
+    ``fetch_metrics`` after a step times its wait for the card; the step
+    and the wait each open a ``torch.profiler.record_function`` span
+    (``driver_step``, ``fetch_metrics``) for ``driver_trace``. Returns its
+    wall time, the epochs' ms, each epoch's wait for its first batch, a
+    step's ms after the first batch (its queuing, its wait, and the loop's
+    own time from a wait's end to the next step or the epoch's end) over
+    the epochs after the first (no warm-up, no trace), ms and scenes/s a
+    step over all (``steps`` steps of ``scenes`` scenes), its launches and
+    the files it wrote."""
+    log_path = log_dir / "log_train.txt"
+    logged = log_path.stat().st_size if log_path.exists() else 0  # a resume appends
+    epochs, calls, pending = [], [], [False]
+    real_epochs, real_fetch = cli_common.train_epochs, cli_common.fetch_metrics
+
+    def timed_fetch(metrics):
+        if not pending[0]:  # an eval's
+            return real_fetch(metrics)
+        pending[0] = False
+        with torch.profiler.record_function("fetch_metrics"):
+            t = time.perf_counter()
+            out = real_fetch(metrics)
+            calls[-1].extend((t, time.perf_counter()))
+        return out
+
+    def timed_epochs(args, state, step, loader, eval_epoch, logger, *rest):
+        def timed_step(*a):
+            with torch.profiler.record_function("driver_step"):
+                t = time.perf_counter()
+                out = step(*a)
+                calls.append([t, time.perf_counter()])
+            pending[0] = True
+            return out
+
+        class MarkingLogger:
+            def __call__(self, line):
+                if line.startswith("**** EPOCH"):
+                    epochs.append([time.perf_counter(), len(calls)])
+                elif line.startswith("epoch time:"):
+                    epochs[-1].extend((time.perf_counter(), len(calls)))
+                logger(line)
+
+            def __getattr__(self, name):  # log_best and the rest
+                return getattr(logger, name)
+
+        return real_epochs(args, state, timed_step, loader, eval_epoch, MarkingLogger(), *rest)
+
+    torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    cli_common.train_epochs, cli_common.fetch_metrics = timed_epochs, timed_fetch
+    t = time.perf_counter()
+    try:
+        result = fn(argv)
+        torch.cuda.synchronize()
+    finally:
+        cli_common.train_epochs, cli_common.fetch_metrics = real_epochs, real_fetch
+    wall_s = time.perf_counter() - t
+    launches = {k: f.launches for k, f in KERNELS.items()}
+    log = log_path.read_bytes()[logged:].decode()
+    files = {str(f.relative_to(log_dir)): f.stat().st_size for f in sorted(log_dir.rglob("*"))
+             if f.is_file()}
+    epoch_ms = [(e - s) * 1e3 for s, _, e, _ in epochs]
+    row = {"wall_s": wall_s, "epoch_ms": epoch_ms,
+           "first_batch_ms": [(calls[i][0] - s) * 1e3 for s, i, _, _ in epochs],
+           "steps": steps, "launches": launches, "files": files}
+    parts = {"enqueue": [], "wait": [], "loop": []}
+    for s, i, e, j in epochs[1:]:
+        for k in range(i, j):
+            nxt = calls[k + 1][0] if k + 1 < j else e
+            parts["enqueue"].append(calls[k][1] - calls[k][0])
+            parts["wait"].append(calls[k][3] - calls[k][2])
+            parts["loop"].append(nxt - calls[k][3])
+    if parts["enqueue"]:
+        row["steady"] = {f"{k}_ms": float(np.mean(v)) * 1e3 for k, v in parts.items()}
+        row["steady"]["step_ms"] = sum(row["steady"].values())
+        row["steady"]["steps"] = len(parts["enqueue"])
+    if epoch_ms:
+        row["ms_per_step"] = sum(epoch_ms) / steps
+        row["scenes_per_s"] = steps * scenes * 1e3 / sum(epoch_ms)
+    say(phase=f"driver_{name}", **row)
+    if launches != expect:
+        raise AssertionError(f"driver {name}: launches {launches}, expected {expect}")
+    if len(calls) != steps or any(len(c) != 4 for c in calls):
+        raise AssertionError(f"driver {name}: {len(calls)} timed steps, expected {steps}")
+    return {"row": row, "result": result, "log": log}
+
+
+def driver_trace(name: str, path: Path) -> dict:
+    """A driver's ``--profile_steps`` trace read back: over the window from
+    its first ``driver_step`` span's start to its last ``fetch_metrics``
+    span's end, the device's busy time (the union of its kernels, copies
+    and sets) and idle share, and a step's mean queuing (``driver_step``)
+    and wait (``fetch_metrics``) on the host. The profiler's own host work
+    slows the queuing, so the trace's step is longer than an untraced
+    one."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(pred):
+        return sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+                      if pred(e))
+
+    steps = spans(lambda e: e.get("cat") == "user_annotation" and e["name"] == "driver_step")
+    waits = spans(lambda e: e.get("cat") == "user_annotation" and e["name"] == "fetch_metrics")
+    device = spans(lambda e: e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not steps or len(steps) != len(waits) or not device:
+        raise AssertionError(f"driver {name}: the trace holds {len(steps)} steps, {len(waits)} "
+                             f"waits and {len(device)} device events")
+    lo, hi = steps[0][0], waits[-1][1]
+    busy, end = 0.0, lo
+    for a, b in device:
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    out = {"steps": len(steps), "window_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1 - busy / (hi - lo),
+           "enqueue_ms": float(np.mean([b - a for a, b in steps])) / 1e3,
+           "wait_ms": float(np.mean([b - a for a, b in waits])) / 1e3,
+           "device_events": len(device)}
+    say(phase=f"driver_trace_{name}", **out)
+    return out
+
+
+def phase_drivers(cfg, dev, eval_request: dict) -> dict:
+    """Phase 9, the drivers at full width on ScanNet-format dumps (written
+    again as phase 8 writes them): (a) ``cli/pretrain.main`` of 3 epochs of
+    one step on the 8-scan labeled list and one eval, (b) ``cli/train.main``
+    with run_train.sh's flags from (a)'s checkpoint, 2 epochs of 2 steps
+    and one eval, (c) its ``--resume`` for a third epoch, (d)
+    ``python3 -m iou3dmatch_tpu_torch.cli.train --eval --use_iou_for_nms
+    --opt_step 10 --opt_rate 5e-4`` on (c)'s checkpoint in a subprocess
+    with no device flag, its mAP and AR lines and its first batch's dumps
+    equal to those of ``evaluate`` in this process on the same checkpoint
+    and batches, (e) one pretrain epoch with ``--cluster_sampling
+    vote_fps``, (f) 2 epochs of each driver on more scans without eval
+    (pretrain on every train scan; SSL with 24 labeled), the steady cost of
+    a driver's step, three steps of each traced and the traces read by
+    ``driver_trace``. Launches: (a) 3 pretrain steps and one eval request of
+    phase 5b's, (b) 4 SSL steps and one eval request, (c) 2 SSL steps, (e)
+    a pretrain step with FPS 2, (f) their steps. Returns each run's
+    launches."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_"))
+    try:
+        say(phase="driver_dumps", **write_dumps(root / "data", cfg, 90))
+        data = ["--dataset", "scannet", "--data_path", str(root / "data"),
+                "--labeled_sample_list", "labeled.txt"]
+
+        def times(launches: dict, n: int) -> dict:
+            return {k: v * n for k, v in launches.items()}
+
+        def plus(*parts) -> dict:
+            return {k: sum(p[k] for p in parts) for k in KERNELS}
+
+        out = {}
+        pre = root / "pretrain"
+        out["pretrain"] = driver_run(
+            "pretrain", cli_pretrain.main,
+            ["--log_dir", str(pre), "--batch_size", str(B), "--max_epoch", "3",
+             "--eval_interval", "3", "--print_interval", "1"] + data, pre, 3, B,
+            plus(times(TRAIN_LAUNCHES, 3), eval_request))
+        if not re.search(r"^eval mAP@0\.5: ", out["pretrain"]["log"], re.M):
+            raise AssertionError("the pretrain driver logged no eval")
+
+        ssl = root / "ssl"
+        ssl_flags = ["--log_dir", str(ssl), "--batch_size", f"{SSL_NL},{SSL_NU}"] + data
+        out["ssl"] = driver_run(
+            "ssl", cli_train.main,
+            ssl_flags + ["--detector_checkpoint", str(pre / "checkpoint.tar"), "--view_stats",
+                         "--reference_exact_step", "--max_epoch", "2", "--eval_interval", "2",
+                         "--print_interval", "1"], ssl, 4, SSL_NL + SSL_NU,
+            plus(times(SSL_LAUNCHES, 4), eval_request))
+        out["resume"] = driver_run(
+            "resume", cli_train.main,
+            ssl_flags + ["--resume", "--view_stats", "--reference_exact_step", "--max_epoch", "3",
+                         "--eval_interval", "2", "--print_interval", "1"], ssl, 2,
+            SSL_NL + SSL_NU, times(SSL_LAUNCHES, 2))
+        resumed = out["resume"]["log"].split("resumed from")[-1]
+        saved = checkpoint.read(str(ssl / "checkpoint.tar"))
+        if ("at epoch 2" not in resumed.splitlines()[0] or "**** EPOCH 002 ****" not in resumed
+                or "**** EPOCH 000 ****" in resumed or saved["epoch"] != 3 or saved["step"] != 6):
+            raise AssertionError(f"the resumed run did not continue at epoch 2: checkpoint epoch "
+                                 f"{saved['epoch']}, step {saved['step']}")
+
+        # (d) the eval entry point as run_eval_opt_torch.sh runs it, in a
+        # subprocess with no device flag, beside evaluate in this process
+        ev = root / "eval"
+        cmd = [sys.executable, "-m", "iou3dmatch_tpu_torch.cli.train", "--log_dir", str(ev),
+               "--detector_checkpoint", str(ssl / "checkpoint.tar"), "--eval",
+               "--use_iou_for_nms", "--opt_step", str(OPT_STEP), "--opt_rate", str(OPT_RATE),
+               "--dump_results"] + data
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                              text=True, timeout=600)
+        sub_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"the eval subprocess exited {proc.returncode}: {proc.stderr[-3000:]}")
+        device_line = [x for x in proc.stdout.splitlines() if x.startswith("device: ")]
+        if device_line != [f"device: cuda:0 ({torch.cuda.get_device_name(0)})"]:
+            raise AssertionError(f"the eval subprocess did not run on the card: {device_line}")
+        args = cli_train.parse_args(cmd[3:])
+        _, _, eval_ds, _ = cli_common.build_ssl_datasets(args)
+        model, _ = build_votenet("scannet", device=dev)
+        state = create_train_state(model, with_ema=True)
+        checkpoint.load(str(ssl / "checkpoint.tar"), state)
+        eval_loader = DataLoader(eval_ds, SSL_NL + SSL_NU, shuffle=False, drop_last=False,
+                                 num_workers=LOADER_WORKERS)
+        lines = []
+        try:
+            _, ap, _ = cli_common.evaluate(
+                model, cfg, cli_common.staged(eval_loader, dev),
+                cli_common.make_config_dict(cfg, args), lines.append,
+                make_eval_loss(model, cfg, generator=torch.Generator(device=dev).manual_seed(2)),
+                opt_rate=OPT_RATE, opt_step=OPT_STEP, dump_dir=str(root / "inproc_dump"))
+        finally:
+            eval_loader.close()
+        want = [x for x in lines if x.startswith("eval mAP@")]
+        got = [x for x in proc.stdout.splitlines() if x.startswith("eval mAP@")]
+        dumps = sorted(os.listdir(root / "inproc_dump"))
+        same_dumps = dumps == sorted(os.listdir(ev / "dump")) and all(
+            (root / "inproc_dump" / f).read_bytes() == (ev / "dump" / f).read_bytes()
+            for f in dumps)
+        say(phase="driver_eval_subprocess", cmd=" ".join(cmd[1:]), seconds=sub_s,
+            device=device_line[0], ap_lines=got, in_process_ap_lines=want,
+            ap={t: {"mAP": float(m["mAP"]), "AR": float(m["AR"])} for t, m in ap.items()},
+            dump_files=len(dumps), dumps_equal=same_dumps)
+        if got != want or len(got) != 2 or not same_dumps:
+            raise AssertionError(f"the subprocess eval {got} differs from evaluate's {want}, "
+                                 f"or its dumps do (equal: {same_dumps})")
+
+        # (f) epochs of several steps, no eval: the steady cost of a step
+        # through the driver beside phase 8's loader-fed step
+        (root / "data" / "meta_data" / "labeled_24.txt").write_text(
+            "\n".join(f"scene{i:04d}_00" for i in range(24)) + "\n")
+        steady = root / "steady_pretrain"
+        out["steady_pretrain"] = driver_run(
+            "steady_pretrain", cli_pretrain.main,
+            ["--log_dir", str(steady), "--batch_size", str(B), "--max_epoch", "2",
+             "--eval_interval", "0", "--print_interval", "5", "--profile_steps", "3",
+             "--dataset", "scannet", "--data_path", str(root / "data")], steady,
+            2 * (DUMP_TRAIN // B), B, times(TRAIN_LAUNCHES, 2 * (DUMP_TRAIN // B)))
+        driver_trace("steady_pretrain", steady / "profile" / "trace.json")
+        steady = root / "steady_ssl"
+        out["steady_ssl"] = driver_run(
+            "steady_ssl", cli_train.main,
+            ["--log_dir", str(steady), "--batch_size", f"{SSL_NL},{SSL_NU}", "--max_epoch", "2",
+             "--eval_interval", "0", "--print_interval", "6", "--view_stats",
+             "--reference_exact_step", "--profile_steps", "3", "--dataset", "scannet",
+             "--data_path", str(root / "data"), "--labeled_sample_list", "labeled_24.txt"],
+            steady, 2 * (24 // SSL_NL), SSL_NL + SSL_NU, times(SSL_LAUNCHES, 2 * (24 // SSL_NL)))
+        driver_trace("steady_ssl", steady / "profile" / "trace.json")
+
+        vote = root / "vote_fps"
+        out["vote_fps"] = driver_run(
+            "vote_fps", cli_pretrain.main,
+            ["--log_dir", str(vote), "--batch_size", str(B), "--max_epoch", "1",
+             "--eval_interval", "0", "--cluster_sampling", "vote_fps"] + data, vote, 1, B,
+            {**TRAIN_LAUNCHES, "fps": 2})
+        return {k: v["row"]["launches"] for k, v in out.items()}
+    finally:
+        shutil.rmtree(root)
+
+
 def phase_profile(model, forward, pc):
     """Where one request's forward spends its time: CUDA-event spans per
     layer (host launch time included, as the request sees it), then the
@@ -2230,12 +2561,14 @@ def main() -> int:
             raise AssertionError(f"FPS variant {key} spills or is missing: {fps_regs.get(key)}")
     if args.kernels_only:
         return 0
-    phase_forward(model, dev)
+    for knobs in FORWARD_KNOBS:
+        phase_forward(model, dev, knobs)
     serve = phase_serve(model, cfg, dev)
     evals = phase_eval(model, cfg, dev)
     train, train_stats = phase_train(cfg, dev)
     ssl, ssl_stats = phase_ssl(cfg, dev)
     data = phase_data(cfg, dev, train_stats, ssl_stats)
+    drivers = phase_drivers(cfg, dev, {k: v // 3 for k, v in evals[0].items()})
 
     kernels = []
     for name, checks in rows.items():
@@ -2253,6 +2586,7 @@ def main() -> int:
             "launches_5_loader_ssl_steps": data["ssl"][name],
             "launches_3_eval_requests": evals[0][name],
             "launches_3_eval_opt_requests": evals[OPT_STEP][name],
+            **{f"launches_driver_{run}": counts[name] for run, counts in drivers.items()},
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],

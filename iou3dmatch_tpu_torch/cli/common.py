@@ -1,23 +1,35 @@
 """Driver plumbing shared by the entry points: dataset construction, the
-eval config dict, metric averaging and the eval epoch.
+eval config dict, metric averaging, the eval epoch, the drivers' device and
+startup refusals, and their training loop.
 
 Counterpart of ``iou3dmatch_tpu/cli/common.py`` (reference
-pretrain.py:107-232, train.py:91-275 and 378-535). ``evaluate`` takes any
-iterable of batch dicts of tensors, such as ``map(stage_batch, loader)``
-of a ``data/loader.py::DataLoader``.
+pretrain.py:107-232, train.py:91-275 and 378-535) and of the loop the JAX
+drivers each write out (``cli/pretrain.py:174-235``, ``cli/train.py:255-322``).
+``evaluate`` takes any iterable of batch dicts of tensors, such as
+``map(stage_batch, loader)`` of a ``data/loader.py::DataLoader``.
 """
+import functools
 import os
+import time
 
+import numpy as np
 import torch
 
 from ..data.config import get_config
+from ..data.loader import prefetch
 from ..data.scannet import (ScannetDetectionDataset, ScannetSSLLabeledDataset,
                             ScannetSSLUnlabeledDataset)
 from ..data.sunrgbd import (SunrgbdDetectionVotesDataset, SunrgbdSSLLabeledDataset,
                             SunrgbdSSLUnlabeledDataset)
+from ..data.staging import stage_batch
 from ..data.synthetic import SyntheticDataset
 from ..eval.ap_helper import APCalculator, parse_groundtruths, parse_predictions
 from ..eval.iou_opt import iou_optimize
+from ..ops.nms import MAX_BOXES
+from ..train import checkpoint
+from ..train.schedules import get_bn_momentum, get_lr
+from ..utils import dump_helper
+from ..utils.tb_writer import Visualizer
 
 
 def make_config_dict(cfg, args):
@@ -171,14 +183,14 @@ def evaluate(model, cfg, eval_loader, config_dict, logger, eval_loss,
     GT labels ``get_loss`` and ``parse_groundtruths`` read. ``eval_loss`` is
     ``train/steps.py::make_eval_loss(model, cfg)``, and ``model`` the model
     it runs, whose GridConv the optimisation re-runs. ``logger`` takes lines.
+    With ``dump_dir``, the first batch's PLYs go there
+    (``utils/dump_helper.py::dump_results``, JAX ``cli/common.py:212-215``).
 
     Returns (metric_means, {thresh: metrics_dict}, map_sum).
     """
-    if dump_dir is not None:
-        raise NotImplementedError("dump_dir needs utils/dump_helper.py, not ported yet")
     calculators = {t: APCalculator(t, cfg.class2type) for t in ap_iou_thresholds}
     averager = MetricAverager()
-    for batch in eval_loader:
+    for bi, batch in enumerate(eval_loader):
         labels = {k: v for k, v in batch.items() if k != "point_clouds"}
         out, metrics = eval_loss(batch["point_clouds"], labels)
         if opt_step > 0:
@@ -191,6 +203,8 @@ def evaluate(model, cfg, eval_loader, config_dict, logger, eval_loss,
         gt_map_cls = parse_groundtruths(batch, config_dict)
         for calc in calculators.values():
             calc.step(pred_map_cls, gt_map_cls)
+        if dump_dir is not None and bi == 0:
+            dump_helper.dump_results(out, batch, dump_dir, cfg)
 
     means = averager.means()
     for k in sorted(means):
@@ -202,3 +216,127 @@ def evaluate(model, cfg, eval_loader, config_dict, logger, eval_loss,
         map_sum += m["mAP"]
         logger(f"eval mAP@{t}: {m['mAP']:.4f}  AR@{t}: {m['AR']:.4f}")
     return means, ap_results, map_sum
+
+
+def driver_device(args) -> torch.device:
+    """The drivers' startup checks, before any data or model: raises
+    ``SystemExit`` for ``--bf16`` and ``--f32_gridconv`` (not ported yet) and,
+    on the card, for a ``--num_target`` above what its NMS takes
+    (``ops/nms.py::MAX_BOXES``); then the device ``--device`` names, the
+    card's first by default. Raises when CUDA is asked for and absent:
+    nothing falls back to the CPU."""
+    if args.bf16 or args.f32_gridconv:
+        raise SystemExit("--bf16 and --f32_gridconv are not ported yet (ROADMAP Queue 1 item "
+                         "11): the port computes in float32 only")
+    dev = torch.device(args.device)
+    num_target = args.num_target or (16 if args.tiny else 128)
+    if dev.type == "cuda" and num_target > MAX_BOXES:
+        raise SystemExit(f"--num_target {num_target}: NMS on the card takes at most "
+                         f"{MAX_BOXES} proposals a scene (ops/nms.py MAX_BOXES)")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", 0)
+    return dev
+
+
+def log_device(dev: torch.device, logger) -> None:
+    """The device line, and one more when more cards are visible than the
+    one the drivers use."""
+    logger(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        logger(f"{torch.cuda.device_count()} cards visible; this driver uses {dev} only "
+               "(multi-GPU is ROADMAP Queue 1 item 7)")
+
+
+def staged(loader, dev: torch.device):
+    """The loader's next epoch, each batch staged onto ``dev`` in one copy
+    (``data/staging.py``), a batch ahead in a thread."""
+    return prefetch(map(functools.partial(stage_batch, device=dev), iter(loader)))
+
+
+def _write_trace(profiler, log_dir: str, logger) -> None:
+    profiler.stop()
+    os.makedirs(os.path.join(log_dir, "profile"), exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(log_dir, "profile", "trace.json"))
+    logger(f"profiler trace written to {log_dir}/profile")
+
+
+def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
+                 start_epoch: int, dev: torch.device) -> None:
+    """The drivers' loop (pretrain.py:310-406, train.py:305-371 and
+    569-611 of the reference), epochs ``start_epoch`` to ``args.max_epoch``:
+    per epoch the lr and BN momentum schedules and their header line; per
+    step ``step(state, batch, lr, bn_momentum)`` on the staged batch and one
+    copy of its metrics to the host, a non-finite loss writing
+    ``nan_checkpoint.tar`` and raising ``FloatingPointError``, and every
+    ``print_interval`` steps the means of the loss, acc, ratio and value
+    metrics logged and all of them written to TensorBoard
+    (``<log_dir>/tb/train``); then ``checkpoint.tar`` every ``ckpt_interval``
+    epochs and at the last, ``checkpoint_{epoch}.tar`` every
+    ``save_interval``, and every ``eval_interval`` ``eval_epoch()`` (which
+    returns ``evaluate``'s triple), its mAPs to ``<log_dir>/tb/eval`` and,
+    on a new best mAP sum, ``best_checkpoint_sum.tar`` and ``best.txt``.
+    ``--profile_steps`` steps from the first epoch's second go to a
+    ``torch.profiler`` Chrome trace in ``<log_dir>/profile``."""
+    lr_steps = [int(x) for x in args.lr_decay_steps.split(",")]
+    lr_rates = [float(x) for x in args.lr_decay_rates.split(",")]
+    viz_train = Visualizer(args.log_dir, "train")
+    viz_eval = Visualizer(args.log_dir, "eval")
+    try:
+        best_map_sum = -1.0
+        global_step = state.step
+        for epoch in range(start_epoch, args.max_epoch):
+            lr = get_lr(epoch, args.learning_rate, lr_steps, lr_rates)
+            bn_mom = get_bn_momentum(epoch, args.bn_decay_step, args.bn_decay_rate)
+            logger(f"**** EPOCH {epoch:03d} ****  lr {lr:.6f}  bn_momentum {bn_mom:.4f}")
+            averager = MetricAverager()
+            profiler = None
+            t0 = time.time()
+            for bi, batch in enumerate(staged(loader, dev)):
+                if args.profile_steps and epoch == start_epoch and bi == 1:
+                    profiler = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                        if dev.type == "cuda" else [torch.profiler.ProfilerActivity.CPU])
+                    profiler.start()
+                metrics = fetch_metrics(step(state, batch, lr, bn_mom))  # one copy, one wait
+                loss_val = metrics["loss"]
+                if not np.isfinite(loss_val):
+                    checkpoint.save(os.path.join(args.log_dir, "nan_checkpoint.tar"), state, epoch)
+                    logger(f"FATAL: non-finite loss {loss_val} at epoch {epoch} "
+                           f"batch {bi}; state saved to nan_checkpoint.tar")
+                    raise FloatingPointError("non-finite training loss")
+                averager.update(metrics)
+                if profiler is not None and bi == args.profile_steps:
+                    _write_trace(profiler, args.log_dir, logger)
+                    profiler = None
+                global_step += 1
+                if (bi + 1) % args.print_interval == 0:
+                    means = averager.means()
+                    logger(f" batch {bi + 1:04d} " + " ".join(
+                        f"{k}: {v:.4f}" for k, v in sorted(means.items())
+                        if "loss" in k or "acc" in k or "ratio" in k or "value" in k))
+                    viz_train.log_scalars(means, global_step)
+                    averager.reset()
+            if profiler is not None:  # the epoch ended first
+                _write_trace(profiler, args.log_dir, logger)
+            logger(f"epoch time: {time.time() - t0:.1f}s")
+
+            if (epoch + 1) % args.ckpt_interval == 0 or epoch + 1 == args.max_epoch:
+                checkpoint.save(ckpt_path, state, epoch + 1)
+            if (epoch + 1) % args.save_interval == 0:
+                checkpoint.save(os.path.join(args.log_dir, f"checkpoint_{epoch + 1}.tar"),
+                                state, epoch + 1)
+            if args.eval_interval > 0 and (epoch + 1) % args.eval_interval == 0:
+                _, ap_results, map_sum = eval_epoch()
+                viz_eval.log_scalars({f"mAP_{t}": m["mAP"] for t, m in ap_results.items()},
+                                     global_step)
+                if map_sum > best_map_sum:
+                    best_map_sum = map_sum
+                    checkpoint.save(os.path.join(args.log_dir, "best_checkpoint_sum.tar"),
+                                    state, epoch + 1, loss=map_sum)
+                    logger.log_best(f"epoch {epoch + 1}: mAP sum {map_sum:.4f}")
+    finally:
+        viz_train.close()
+        viz_eval.close()

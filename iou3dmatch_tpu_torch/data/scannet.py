@@ -12,8 +12,8 @@ augmentations.
 
 The port's copy of ``iou3dmatch_tpu/data/scannet.py``, NumPy only, each ``__getitem__`` bit for bit the JAX one after the same
 ``np.random.seed``. The vote labels and the floor percentile always run
-natively (``native/loader.py``); the debug dumps ``viz_votes`` and
-``viz_obb`` wait for ``utils/dump_helper.py``.
+natively (``native/loader.py``). The debug dumps ``viz_votes`` and
+``viz_obb`` write the JAX package's PLY files.
 """
 import os
 
@@ -368,3 +368,40 @@ class ScannetSSLUnlabeledDataset:
                 "sem_cls_label": semcls.astype(np.int64),
             })
         return ret
+
+
+# ------------------------------------------------------- debug visualization
+def viz_votes(pc, point_votes, point_votes_mask, name="", out_dir="."):
+    """Dump PLYs of voting points and their first vote targets
+    (scannet_detection_dataset.py:262-270)."""
+    from ..utils.dump_helper import write_ply
+
+    inds = point_votes_mask == 1
+    pc_obj = pc[inds, 0:3]
+    pc_obj_voted1 = pc_obj + point_votes[inds, 0:3]
+    write_ply(pc_obj, os.path.join(out_dir, f"pc_obj{name}.ply"))
+    write_ply(pc_obj_voted1, os.path.join(out_dir, f"pc_obj_voted1{name}.ply"))
+
+
+def viz_obb(pc, label, mask, angle_classes, angle_residuals,
+            size_classes, size_residuals, name="", out_dir=".", config=None):
+    """Dump GT OBBs + centroids as PLY meshes
+    (scannet_detection_dataset.py:272-296; ScanNet headings are hardcoded 0).
+    """
+    from ..utils.dump_helper import write_oriented_bbox, write_ply
+
+    cfg = config if config is not None else ScannetConfig()
+    oriented_boxes = []
+    for i in range(label.shape[0]):
+        if mask[i] == 0:
+            continue
+        obb = np.zeros(7)
+        obb[0:3] = label[i, 0:3]
+        heading_angle = 0  # hardcoded, like the reference (:289)
+        obb[3:6] = cfg.mean_size_arr[size_classes[i], :] + size_residuals[i, :]
+        obb[6] = -1 * heading_angle
+        oriented_boxes.append(obb)
+    write_oriented_bbox(
+        np.array(oriented_boxes).reshape(-1, 7),
+        os.path.join(out_dir, f"gt_obbs{name}.ply"))
+    write_ply(label[mask == 1, :], os.path.join(out_dir, f"gt_centroids{name}.ply"))

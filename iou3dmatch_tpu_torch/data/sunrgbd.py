@@ -12,8 +12,9 @@ bins. RNG draw order matches the reference.
 The port's copy of ``iou3dmatch_tpu/data/sunrgbd.py:1-307``, NumPy only,
 each ``__getitem__`` bit for bit the JAX one after the same
 ``np.random.seed``. The floor percentile always runs natively
-(``native/loader.py``); ``viz_votes``, ``viz_obb`` and
-``get_sem_cls_statistics`` wait for ``utils/dump_helper.py``.
+(``native/loader.py``). The debug dumps ``viz_votes`` and ``viz_obb``
+write the JAX package's PLY files; ``get_sem_cls_statistics`` counts the
+boxes of each class.
 """
 import os
 
@@ -310,3 +311,61 @@ class SunrgbdSSLUnlabeledDataset:
                 "sem_cls_label": semcls.astype(np.int64),
             })
         return ret
+
+
+# ------------------------------------------------------- debug visualization
+def viz_votes(pc, point_votes, point_votes_mask, out_dir="."):
+    """Dump PLYs of voting points and all three vote targets
+    (sunrgbd_detection_dataset.py:248-260)."""
+    from ..utils.dump_helper import write_ply
+
+    inds = point_votes_mask == 1
+    pc_obj = pc[inds, 0:3]
+    write_ply(pc_obj, os.path.join(out_dir, "pc_obj.ply"))
+    for k in range(3):
+        voted = pc_obj + point_votes[inds, 3 * k:3 * k + 3]
+        write_ply(voted, os.path.join(out_dir, f"pc_obj_voted{k + 1}.ply"))
+
+
+def viz_obb(pc, label, mask, angle_classes, angle_residuals,
+            size_classes, size_residuals, out_dir=".", config=None):
+    """Dump GT OBBs + centroids as PLY meshes
+    (sunrgbd_detection_dataset.py:262-286)."""
+    from ..utils.dump_helper import write_oriented_bbox, write_ply
+
+    cfg = config if config is not None else SunrgbdConfig()
+    oriented_boxes = []
+    for i in range(label.shape[0]):
+        if mask[i] == 0:
+            continue
+        obb = np.zeros(7)
+        obb[0:3] = label[i, 0:3]
+        heading_angle = cfg.class2angle(angle_classes[i], angle_residuals[i])
+        obb[3:6] = cfg.class2size(int(size_classes[i]), size_residuals[i])
+        obb[6] = -1 * heading_angle
+        oriented_boxes.append(obb)
+    write_oriented_bbox(
+        np.array(oriented_boxes).reshape(-1, 7),
+        os.path.join(out_dir, "gt_obbs.ply"))
+    write_ply(label[mask == 1, :], os.path.join(out_dir, "gt_centroids.ply"))
+
+
+def get_sem_cls_statistics(dataset, max_scenes=None):
+    """{class id: boxes} over the first ``max_scenes`` scenes of ``dataset``
+    (sunrgbd_detection_dataset.py:288-303; the reference indexes ``mask[j]``
+    with class ids, skipping classes whose id meets a padded label slot;
+    this counts the masked boxes). ``dataset`` is required: the JAX
+    function's default dataset cannot be built (it passes no data path and
+    a ``use_v1`` the dataset does not take)."""
+    sem_cls_cnt = {}
+    n = len(dataset) if max_scenes is None else min(len(dataset), max_scenes)
+    for i in range(n):
+        sample = dataset[i]
+        sem_cls = sample["sem_cls_label"]
+        mask = sample["box_label_mask"]
+        for j in range(len(sem_cls)):
+            if mask[j] == 0:
+                continue
+            key = int(sem_cls[j])
+            sem_cls_cnt[key] = sem_cls_cnt.get(key, 0) + 1
+    return sem_cls_cnt

@@ -22,9 +22,13 @@ def resolve_device(device=None) -> torch.device:
 
 def build_votenet(dataset: str = "scannet", num_proposal: Optional[int] = None,
                   input_feature_dim: int = 1, tiny: bool = False, device=None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None, sampling: str = "seed_fps",
+                  vote_factor: int = 1):
     """Returns (model in eval mode on ``device``, dataset config). Defaults
-    mirror the JAX ``build_votenet`` (num_proposal 128, or 16 when tiny).
+    mirror the JAX ``build_votenet`` (``models/factory.py:9-44``):
+    num_proposal 128, or 16 when tiny; ``seed_fps`` sampling, one vote a
+    seed. JAX's ``query_feats`` and ``fps_prefix`` are fixed at its defaults
+    (GridConv on the seeds, the FPS prefix path): no driver sets them.
 
     Weights are drawn on the CPU from ``generator`` (seed 0 when None) and
     then moved, so one seed gives the same model on every device. On CUDA,
@@ -37,8 +41,8 @@ def build_votenet(dataset: str = "scannet", num_proposal: Optional[int] = None,
         num_class=cfg.num_class, num_heading_bin=cfg.num_heading_bin,
         num_size_cluster=cfg.num_size_cluster, mean_size_arr=cfg.mean_size_arr,
         generator=generator, input_feature_dim=input_feature_dim,
-        num_proposal=num_proposal or (16 if tiny else 128),
-        sa_npoints=TINY_SA_NPOINTS if tiny else (2048, 1024, 512, 256))
+        num_proposal=num_proposal or (16 if tiny else 128), vote_factor=vote_factor,
+        sa_npoints=TINY_SA_NPOINTS if tiny else (2048, 1024, 512, 256), sampling=sampling)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -1,15 +1,25 @@
 """Proposal module: vote aggregation and box/class decoding.
 
 Counterpart of ``iou3dmatch_tpu/models/proposal.py`` (reference
-``models/proposal_module.py:24-125``) with ``seed_fps`` sampling. The seeds
-(SA2's xyz) are FPS-ordered, so FPS over them picks the first num_proposal
-in order: vote aggregation takes the "prefix" path and no kernel runs.
+``models/proposal_module.py:24-125``). Where vote aggregation centres its
+num_proposal groups, by ``sampling``:
+
+- ``seed_fps`` (the default): at FPS over the seeds. The seeds (SA2's xyz)
+  are FPS-ordered, so FPS picks the first num_proposal in order: the
+  "prefix" path, no kernel.
+- ``vote_fps``: at FPS over the votes.
+- ``random``: at indices drawn uniformly from [0, num_seed) by
+  ``torch.randint`` from the ``generator`` the caller passes (the
+  reference's ``torch.randint``, proposal_module.py:104-106; JAX draws
+  ``jax.random.randint`` from a key), or at ``sample_inds`` given.
 
 Decoding (``decode_scores``, proposal_module.py:24-54) splits the channels
 [objectness(2) | center offset(3) | heading scores(NH) | heading residuals
 (NH, x pi/NH) | size scores(NS) | size residuals (NS*3, softplus(x)-1 then
 x mean sizes) | sem-cls scores(NC)].
 """
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -18,12 +28,19 @@ from torch import nn
 from .mlp import BatchNorm, head_conv
 from .pointnet2 import PointnetSAModuleVotes
 
+SAMPLINGS = ("vote_fps", "seed_fps", "random")
+
 
 class ProposalModule(nn.Module):
     def __init__(self, num_class: int, num_heading_bin: int, num_size_cluster: int,
                  mean_size_arr, generator: torch.Generator, num_proposal: int = 128,
-                 seed_feat_dim: int = 256, agg_radius: float = 0.3, agg_nsample: int = 16):
+                 seed_feat_dim: int = 256, agg_radius: float = 0.3, agg_nsample: int = 16,
+                 sampling: str = "seed_fps"):
         super().__init__()
+        if sampling not in SAMPLINGS:
+            raise ValueError(f"sampling is one of {SAMPLINGS}, not {sampling!r}")
+        self.num_proposal = num_proposal
+        self.sampling = sampling
         self.num_class = num_class
         self.num_heading_bin = num_heading_bin
         self.num_size_cluster = num_size_cluster
@@ -40,10 +57,26 @@ class ProposalModule(nn.Module):
         self.bn1 = BatchNorm(128)
         self.bn2 = BatchNorm(128)
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor, ep: dict) -> dict:
-        """xyz: votes (B, K, 3); features: vote features (B, K, C)."""
-        new_xyz, agg_features, sample_inds = self.vote_aggregation(
-            xyz, features, inds="prefix")
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor, ep: dict,
+                generator: Optional[torch.Generator] = None,
+                sample_inds: Optional[torch.Tensor] = None) -> dict:
+        """xyz: votes (B, K, 3); features: vote features (B, K, C).
+        ``random`` sampling takes ``sample_inds`` (B, num_proposal) int32 if
+        given, else draws them from ``generator``, which lives on the
+        votes' device; other samplings read neither."""
+        if self.sampling == "vote_fps":
+            inds = None
+        elif self.sampling == "seed_fps":
+            inds = "prefix"
+        else:
+            inds = sample_inds
+            if inds is None:
+                if generator is None:
+                    raise ValueError("sampling='random' draws from an explicit generator: "
+                                     "pass generator= or sample_inds=")
+                inds = torch.randint(0, ep["seed_xyz"].shape[1], (xyz.shape[0], self.num_proposal),
+                                     generator=generator, device=xyz.device, dtype=torch.int32)
+        new_xyz, agg_features, sample_inds = self.vote_aggregation(xyz, features, inds=inds)
         ep["aggregated_vote_xyz"] = new_xyz
         ep["aggregated_vote_inds"] = sample_inds
         net = F.relu(self.bn1(self.conv1(agg_features)))

@@ -7,6 +7,11 @@ class, HALF sizes) -> GridConv IoU branch, and the training forward
 ``forward_with_pred_jitter`` (``votenet.py:137-203``), which adds jittered
 copies of the boxes, and ``forward_onlyiou`` (``votenet.py:205-209``), the
 IoU branch alone on given boxes, for test-time IoU optimisation.
+
+``sampling`` goes to the proposal module. With ``random`` sampling every
+forward takes a ``generator`` (or given ``sample_inds``);
+``forward_with_pred_jitter`` draws the proposal indices first and the
+jitter after them, from the same generator.
 """
 import math
 from typing import Optional, Tuple
@@ -25,7 +30,7 @@ class VoteNet(nn.Module):
     def __init__(self, num_class: int, num_heading_bin: int, num_size_cluster: int,
                  mean_size_arr, generator: torch.Generator, input_feature_dim: int = 0,
                  num_proposal: int = 128, vote_factor: int = 1,
-                 sa_npoints=(2048, 1024, 512, 256)):
+                 sa_npoints=(2048, 1024, 512, 256), sampling: str = "seed_fps"):
         super().__init__()
         self.num_heading_bin = num_heading_bin
         self.register_buffer(
@@ -35,7 +40,8 @@ class VoteNet(nn.Module):
                                               sa_npoints=sa_npoints)
         self.vgen = VotingModule(vote_factor, 256, generator)
         self.pnet = ProposalModule(num_class, num_heading_bin, num_size_cluster,
-                                   mean_size_arr, generator, num_proposal=num_proposal)
+                                   mean_size_arr, generator, num_proposal=num_proposal,
+                                   sampling=sampling)
         self.grid_conv = GridConv(num_class, num_heading_bin, num_size_cluster, generator)
 
     def class2angle(self, cls: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
@@ -46,8 +52,11 @@ class VoteNet(nn.Module):
         return angle - 2 * math.pi * (angle > math.pi).float()
 
     def forward_backbone(self, point_clouds: torch.Tensor,
-                         sa1_inds: Optional[torch.Tensor] = None) -> dict:
-        """(B, N, 3+C) -> end_points (votenet_iou_branch.py:75-109)."""
+                         sa1_inds: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         sample_inds: Optional[torch.Tensor] = None) -> dict:
+        """(B, N, 3+C) -> end_points (votenet_iou_branch.py:75-109).
+        ``generator`` and ``sample_inds`` go to the proposal module."""
         ep = self.backbone_net(point_clouds, sa1_inds=sa1_inds)
         ep["seed_inds"] = ep["fp2_inds"]
         ep["seed_xyz"] = ep["fp2_xyz"]
@@ -56,7 +65,7 @@ class VoteNet(nn.Module):
         features = features / torch.linalg.norm(features, dim=-1, keepdim=True)
         ep["vote_xyz"] = xyz
         ep["vote_features"] = features
-        return self.pnet(xyz, features, ep)
+        return self.pnet(xyz, features, ep, generator=generator, sample_inds=sample_inds)
 
     def calculate_bbox(self, ep: dict):
         """Argmax-class box decode; HALF sizes with negative components
@@ -76,10 +85,13 @@ class VoteNet(nn.Module):
         return ep["center"], size, heading
 
     def forward(self, point_clouds: torch.Tensor,
-                sa1_inds: Optional[torch.Tensor] = None) -> dict:
+                sa1_inds: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                sample_inds: Optional[torch.Tensor] = None) -> dict:
         """Standard forward (votenet_iou_branch.py:139-151); the boxes are
         detached before the IoU branch."""
-        ep = self.forward_backbone(point_clouds, sa1_inds=sa1_inds)
+        ep = self.forward_backbone(point_clouds, sa1_inds=sa1_inds, generator=generator,
+                                   sample_inds=sample_inds)
         center, size, heading = self.calculate_bbox(ep)
         return self.grid_conv(center.detach(), size.detach(), heading.detach(), ep)
 
@@ -87,19 +99,21 @@ class VoteNet(nn.Module):
                                  generator: Optional[torch.Generator] = None,
                                  noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                                  sa1_inds: Optional[torch.Tensor] = None,
-                                 jitter_rows: Optional[int] = None) -> dict:
+                                 jitter_rows: Optional[int] = None,
+                                 sample_inds: Optional[torch.Tensor] = None) -> dict:
         """Training forward with jittered box copies
         (votenet_iou_branch.py:157-181): center + size * N(0, 1) * 0.3 and
         size + size * N(0, 1) * 0.3 clamped at 1e-8, sizes HALF extents.
 
         ``noise`` gives the two (B, K, 3) standard-normal draws (center,
         then size); without it they are drawn from ``generator``, which
-        must live on the model's device. With ``jitter_rows`` None
+        must live on the model's device, after ``random`` sampling's draw. With ``jitter_rows`` None
         GridConv runs on (B, 2K) boxes; with an int nl only the first nl
         scenes keep jittered copies, which ride along as nl extra scenes
         sharing those scenes' seeds. The boxes are detached, and
         ``jitter_size`` holds full extents, as the reference does."""
-        ep = self.forward_backbone(point_clouds, sa1_inds=sa1_inds)
+        ep = self.forward_backbone(point_clouds, sa1_inds=sa1_inds, generator=generator,
+                                   sample_inds=sample_inds)
         center, size, heading = (t.detach() for t in self.calculate_bbox(ep))
         b, k = heading.shape
         if noise is None:

@@ -30,10 +30,10 @@ def save(path: str, state: TrainState, epoch: int, loss: float = 0.0) -> None:
     os.replace(tmp, path)
 
 
-def _read(path: str) -> dict:
-    # onto the CPU: load_state_dict copies each tensor to its parameter's
-    # device, and Adam keeps its step counts on the CPU, where reading them
-    # does not wait for the card
+def read(path: str) -> dict:
+    """A checkpoint's payload, every tensor on the CPU: ``load_state_dict``
+    copies each tensor to its parameter's device, and Adam keeps its step
+    counts on the CPU, where reading them does not wait for the card."""
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -45,7 +45,7 @@ def load(path: str, state: TrainState):
     the step count and the generator where the file has them. A file
     without an optimizer state (the JAX package's ``cli/export_torch.py``
     writes none) leaves Adam as it is."""
-    payload = _read(path)
+    payload = read(path)
     state.model.load_state_dict(payload["model_state_dict"])
     if state.ema_model is not None:
         state.ema_model.load_state_dict(
@@ -65,7 +65,7 @@ def load_pretrain_into_ssl(path: str, state: TrainState) -> None:
     non-``--resume`` path does (JAX ``checkpoint.py:130-160``)."""
     if state.ema_model is None:
         raise ValueError("the SSL state needs a teacher: create_train_state(..., with_ema=True)")
-    payload = _read(path)
+    payload = read(path)
     state.model.load_state_dict(payload["model_state_dict"])
     state.ema_model.load_state_dict(payload["model_state_dict"])
     state.optimizer.state.clear()

@@ -34,7 +34,8 @@ def make_pretrain_step(cfg):
     and returns the loss metrics, ``loss`` included, as detached tensors
     on the model's device, without waiting for the card. ``noise``
     optionally gives the two jitter draws; else they come from
-    ``state.generator``."""
+    ``state.generator``, after the proposal indices of ``random``
+    sampling."""
 
     def step(state: TrainState, batch: dict, lr: float, bn_momentum: float,
              noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> dict:
@@ -104,6 +105,10 @@ def make_ssl_step(cfg, num_labeled: int, *, unlabeled_weight: float = 2.0,
     the two (B, K, 3) standard-normal tensors of
     ``forward_with_pred_jitter``, the teacher's unused without jittered
     teacher forward; else they come from ``state.generator``. The step
+    draws from ``state.generator`` in this order: the teacher's proposal
+    indices (``random`` sampling only), the teacher's jitter (jittered
+    teacher forward only), the student's indices, the student's jitter;
+    a resume restores the generator, so it continues the sequence. The step
     updates ``state`` in place and returns the loss metrics, ``loss``
     included, as detached tensors on the model's device, without waiting
     for the card."""
@@ -144,7 +149,7 @@ def make_ssl_step(cfg, num_labeled: int, *, unlabeled_weight: float = 2.0,
                 ema_ep = teacher.forward_with_pred_jitter(
                     ema_clouds, generator=state.generator, noise=t_noise, sa1_inds=t_inds)
             else:
-                ema_ep = teacher(ema_clouds, sa1_inds=t_inds)
+                ema_ep = teacher(ema_clouds, sa1_inds=t_inds, generator=state.generator)
         ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator,
                                             noise=s_noise, sa1_inds=s_inds,
                                             jitter_rows=None if jitter_full else nl)
@@ -167,33 +172,35 @@ def make_ssl_step(cfg, num_labeled: int, *, unlabeled_weight: float = 2.0,
     return step
 
 
-def make_eval_forward(model):
+def make_eval_forward(model, generator: Optional[torch.Generator] = None):
     """Returns ``forward(point_clouds) -> dict`` of the outputs the host-side
     AP pipeline reads. It runs ``model`` in eval mode under
-    ``torch.inference_mode()``; the outputs stay on the model's device."""
+    ``torch.inference_mode()``; the outputs stay on the model's device.
+    ``generator`` draws ``random`` sampling's proposal indices."""
 
     def forward(point_clouds: torch.Tensor) -> dict:
         model.eval()
         with torch.inference_mode():
-            ep = model(point_clouds)
+            ep = model(point_clouds, generator=generator)
         return {k: ep[k] for k in KEEP if k in ep}
 
     return forward
 
 
-def make_eval_loss(model, cfg):
+def make_eval_loss(model, cfg, generator: Optional[torch.Generator] = None):
     """Returns ``evaluate(point_clouds, labels) -> (outputs, metrics)``, the
     JAX ``make_eval_forward``: one eval-mode forward under
     ``torch.no_grad()``, the outputs ``make_eval_forward`` keeps, and the
     eval-loss metrics of ``losses/supervised.py::get_loss`` on the GT dict
     ``labels``, ``loss`` among them. Not ``inference_mode``: test-time IoU
     optimisation (``eval/iou_opt.py``) differentiates through GridConv on
-    these outputs, and autograd refuses to save inference tensors."""
+    these outputs, and autograd refuses to save inference tensors.
+    ``generator`` draws ``random`` sampling's proposal indices."""
 
     def evaluate(point_clouds: torch.Tensor, labels: dict):
         model.eval()
         with torch.no_grad():
-            ep = model(point_clouds)
+            ep = model(point_clouds, generator=generator)
             loss, metrics = get_loss(ep, labels, cfg)
         metrics["loss"] = loss
         return {k: ep[k] for k in KEEP if k in ep}, metrics

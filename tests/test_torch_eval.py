@@ -23,6 +23,8 @@
   same weights: loss metrics within rtol 1e-4 (the port's also hold the
   total ``loss``), mAP and AR at 0.25 and 0.5 within 1e-6 (GT boxes near
   the model's own proposals, so AP is not 0).
+- ``evaluate(dump_dir=...)``: the first batch's PLYs, byte for byte the JAX
+  ``evaluate``'s.
 """
 import importlib
 import types
@@ -405,12 +407,59 @@ def test_evaluate_matches_jax(tiny_pair, opt_step, opt_rate):
     assert any(line.startswith("eval mAP@0.25") for line in lines)
 
 
-def test_evaluate_refuses_dump_dir(tiny_pair):
+def test_evaluate_dump_dir_writes_the_jax_files(tiny_pair, tmp_path):
+    """``evaluate(dump_dir=...)`` writes the first batch's PLYs: byte for
+    byte those of JAX's ``dump_results`` on the port's outputs; the files of
+    inputs and GT byte for byte the JAX ``evaluate``'s for the same weights
+    and batches, and those of model outputs equal to them in every header
+    line and within 1e-4 in every number (the forward's tolerance in
+    ``tests/test_torch_models.py``: a value within an ulp of a rounding
+    boundary prints differently at 6 decimals)."""
+    import os
+
+    from iou3dmatch_tpu.cli import common as jcommon
+    from iou3dmatch_tpu.data import get_config as jax_get_config
+    from iou3dmatch_tpu.train.state import TrainState
+    from iou3dmatch_tpu.train.steps import make_eval_forward as jax_eval_forward
+    from iou3dmatch_tpu.utils import dump_helper as jdump
+
     from iou3dmatch_tpu_torch.cli import common as pcommon
     from iou3dmatch_tpu_torch.train.steps import make_eval_loss
 
-    _, _, pm, pcfg, batches, _ = tiny_pair
-    tb = [{k: torch.from_numpy(v) for k, v in batches[0].items()}]
-    config = pcommon.make_config_dict(pcfg, types.SimpleNamespace())
-    with pytest.raises(NotImplementedError, match="dump_helper"):
-        pcommon.evaluate(pm, pcfg, tb, config, print, make_eval_loss(pm, pcfg), dump_dir="out")
+    jm, variables, pm, pcfg, batches, cache = tiny_pair
+    args = types.SimpleNamespace(use_iou_for_nms=True)
+    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    outs = []
+    eval_loss = make_eval_loss(pm, pcfg)
+    pcommon.evaluate(pm, pcfg, tb, pcommon.make_config_dict(pcfg, args), lambda _: None,
+                     lambda pc, labels: outs.append(eval_loss(pc, labels)) or outs[-1],
+                     dump_dir=str(tmp_path / "port"))
+    jcfg = jax_get_config("scannet")
+    jdump.dump_results({k: v.numpy() for k, v in outs[0][0].items()}, batches[0],
+                       str(tmp_path / "jax_writer"), jcfg)
+    state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
+                       opt_state=None, step=jnp.asarray(0))
+    if "forward" not in cache:
+        cache["forward"] = jax_eval_forward(jm, jcfg)
+    jcommon.evaluate(jm, jcfg, state, batches, jcommon.make_config_dict(jcfg, args),
+                     lambda _: None, cache["forward"], dump_dir=str(tmp_path / "jax"))
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax")) == sorted(
+        os.listdir(tmp_path / "jax_writer"))
+    assert {"000000_pc.ply", "000001_gt_bbox.ply", "000001_proposal_pc.ply"} <= set(names)
+    for n in names:
+        got = (tmp_path / "port" / n).read_bytes()
+        want = (tmp_path / "jax" / n).read_bytes()
+        assert got == (tmp_path / "jax_writer" / n).read_bytes(), n
+        if n.endswith(("_pc.ply", "_gt_bbox.ply")) and not n.endswith(
+                ("seed_pc.ply", "vgen_pc.ply", "vote_pc.ply", "proposal_pc.ply")):
+            assert got == want, n  # the batch's clouds and GT
+            continue
+        g_lines, w_lines = got.decode().splitlines(), want.decode().splitlines()
+        end = g_lines.index("end_header") + 1
+        assert g_lines[:end] == w_lines[:end] and len(g_lines) == len(w_lines), n
+        assert [len(x.split()) for x in g_lines] == [len(x.split()) for x in w_lines], n
+        np.testing.assert_allclose(
+            np.array([float(v) for line in g_lines[end:] for v in line.split()]),
+            np.array([float(v) for line in w_lines[end:] for v in line.split()]),
+            rtol=0, atol=1e-4, err_msg=n)
