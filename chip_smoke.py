@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's detection forward, eval, pretrain step, SSL step, training input path and drivers on one NVIDIA GPU.
+"""Drives the PyTorch port's detection forward, eval, pretrain step, SSL step, training input path, drivers and SUN RGB-D end to end on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (``nvcc``); it builds the kernels from
@@ -116,7 +116,31 @@ reported on its own line; a failed check raises and the exit code is not 0:
    first batch, a step's queuing, wait and loop time on the host clock,
    ms and scenes/s a step, launches (counted around it: steps x phase 6's
    or 7's a step, plus phase 5b's a request for each eval batch; FPS 2 a
-   step in (e)) and the files written.
+   step in (e)) and the files written;
+10. SUN RGB-D end to end (``phase_sunrgbd``) at the full width of its
+   VoteNet (10 classes, 12 heading bins, 10 size clusters): (a) SUN_TRAIN +
+   SUN_VAL synthetic frames of SUN_POINTS points (a floor, 3-4 walls, 3-8
+   boxes of the 10 classes near their mean sizes with headings uniform in
+   [-pi, pi), half extents in the label files) written in the
+   ``sunrgbd_trainval`` layout, ``python -m
+   iou3dmatch_tpu_torch.data.prep_sunrgbd`` to the 50k v1 dumps (in
+   SUN_PREP_PROCESSES processes) and ``gen_split sunrgbd 0.05`` (8 labeled
+   frames covering the 10 classes), with the frame, box and vote counts and
+   the seconds; ``prep_scannet`` on RAW_SCANS raw ScanNet scans, read back
+   by ``ScannetDetectionDataset``; (b) the forward on one 40,000-point
+   frame on the card against the CPU, every index equal; one pretrain step
+   of 2 frames on the card against the CPU with its IoU labels on rotated
+   GT (atol IOU_LABEL_ATOL) and the card's IoU on those inputs against its
+   plain version; the first SSL step (1 + 1 frames, ``trans_angle`` on) on
+   the card against the CPU at phase 7's gates; the rotated IoU, class-aware
+   NMS and LHS at SUN RGB-D's shapes (kernel rows marked ``dataset``); (c)
+   ``cli/pretrain.main`` (3 one-step epochs and one eval), ``cli/train.main``
+   with run_train.sh's flags from its checkpoint (2 epochs of 2 steps and
+   one eval), the eval entry point with 10 steps of IoU optimisation as a
+   subprocess, its AP lines and dumps equal to an in-process ``evaluate``'s;
+   (d) each run's ms and scenes/s a step and launches a step beside the
+   card's name and power limit, and the cuts of the recipe under ``reduced``.
+   Its temporary directory stays under 1 GB and is removed.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
 lines. It also runs from the root of another checkout that has the SSL
@@ -165,10 +189,13 @@ from iou3dmatch_tpu_torch.cli import common as cli_common
 from iou3dmatch_tpu_torch.cli import pretrain as cli_pretrain
 from iou3dmatch_tpu_torch.cli import train as cli_train
 from iou3dmatch_tpu_torch.data.config import get_config
-from iou3dmatch_tpu_torch.data.loader import DataLoader, SSLBatcher, prefetch
+from iou3dmatch_tpu_torch.data import gen_split, prep_scannet
+from iou3dmatch_tpu_torch.data.loader import DataLoader, SSLBatcher, collate, prefetch
+from iou3dmatch_tpu_torch.data.pc_util import rotz
 from iou3dmatch_tpu_torch.data.scannet import ScannetDetectionDataset
 from iou3dmatch_tpu_torch.data.staging import layout as staging_layout
 from iou3dmatch_tpu_torch.data.staging import stage_batch
+from iou3dmatch_tpu_torch.eval import ap_helper
 from iou3dmatch_tpu_torch.eval.ap_helper import (APCalculator, decode_corners, eval_config_dict,
                                                  nms_scores, pack_predictions,
                                                  parse_groundtruths, parse_predictions,
@@ -179,6 +206,8 @@ from iou3dmatch_tpu_torch.geometry.iou3d import (bev_candidates, box_pairs, box_
 from iou3dmatch_tpu_torch.geometry.nms import (box_overlaps, lhs_3d_samecls_plain,
                                                nms_boxes_plain, nms_masked_plain,
                                                samecls_iou_aabb)
+from iou3dmatch_tpu_torch.losses import iou_labels as iou_labels_mod
+from iou3dmatch_tpu_torch.losses import labeled as labeled_loss
 from iou3dmatch_tpu_torch.losses import unlabeled
 from iou3dmatch_tpu_torch.models.factory import build_votenet
 from iou3dmatch_tpu_torch.models import grid_conv, pointnet2
@@ -316,6 +345,24 @@ SSL_LAUNCHES = {"fps": 1, "ball_query": 10, "gather": 12, "gather_bwd": 4, "iou3
 DUMP_SCANS, DUMP_TRAIN, DUMP_LABELED = 48, 40, 8
 DUMP_VERTICES = 50_000
 LOADER_WORKERS = 4  # the drivers' --num_workers default (cli/pretrain.py:69)
+# Phase 10's SUN RGB-D frames, in the sunrgbd_trainval layout data/prep_sunrgbd.py
+# reads (a depth .mat of about 52,000 points, label_v1 and calib a frame, the
+# index files), and the raw ScanNet scans data/prep_scannet.py reads
+SUN_TRAIN, SUN_VAL, SUN_POINTS = 160, 8, 52_000
+SUN_RATIO = 0.05  # the SUN RGB-D split of run_train.sh: 5 % of the train frames
+SUN_PREP_PROCESSES = 8  # prep_sunrgbd processes a split, each over its share of the indices
+RAW_SCANS, RAW_VERTICES = 4, 60_000  # above prep_scannet.py's 50,000 cap, so the cap draws
+IOU_LABEL_ATOL = 2e-3  # the card's IoU labels against the CPU's, as the step's loss is held
+SUN_DIR_LIMIT = 1 << 30  # phase 10's temporary directory stays under 1 GB
+ANCHORED_BOXES = 16  # GT slots phase 10's card-vs-CPU checks fill, as phase 6's 8-16 a scene
+BOX_KEYS = ("heading_class_label", "heading_residual_label", "size_class_label",
+            "size_residual_label", "sem_cls_label")
+# the SUN RGB-D recipe (run_pretrain.sh, run_train.sh; PAPER.md) beside phase 10's cut of it
+SUN_REDUCED = ["train frames 5,285 -> 160 (synthetic, the sunrgbd_trainval layout), "
+               "val frames 5,050 -> 8",
+               "pretrain epochs 180 -> 3 of one step (8 labeled frames), one eval",
+               "SSL epochs 1,000 -> 2 of 2 steps (8 labeled + 152 unlabeled frames), one eval",
+               "eval: the 8 val frames, one request"]
 
 
 def say(**kw):
@@ -791,11 +838,11 @@ def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12, floor: float, sweep_on: bool =
         one(f"fp2 ({b},1024)x512", pts[:, :1024].contiguous(), pts[:, :512].contiguous())
 
 
-def make_boxes(rng, b: int, n: int, rotated: bool) -> np.ndarray:
-    """(b, n, 7) boxes of ScanNet classes inside the room: sizes from the
-    class means x U(0.8, 1.2), headings uniform when ``rotated`` (SUN RGB-D
-    has them), else 0."""
-    mean = get_config("scannet").mean_size_arr
+def make_boxes(rng, b: int, n: int, rotated: bool, cfg=None) -> np.ndarray:
+    """(b, n, 7) boxes of ScanNet's (or ``cfg``'s) classes inside the room:
+    sizes from the class means x U(0.8, 1.2), headings uniform when
+    ``rotated`` (SUN RGB-D has them), else 0."""
+    mean = (cfg or get_config("scannet")).mean_size_arr
     size = mean[rng.randint(0, len(mean), (b, n))] * rng.uniform(0.8, 1.2, (b, n, 3))
     center = np.stack([rng.uniform(-3, 3, (b, n)), rng.uniform(-3, 3, (b, n)),
                        size[..., 2] / 2 + rng.uniform(0, 0.5, (b, n))], -1)
@@ -856,14 +903,15 @@ def iou_rows(dev, ops_per_s, rows):
         rows.setdefault("iou3d", []).append(r)
 
 
-def make_lhs_input(seed: int, b: int, k: int) -> tuple:
+def make_lhs_input(seed: int, b: int, k: int, cfg=None) -> tuple:
     """LHS's input at the SSL step's shape: (b, k) axis-aligned bounds of
-    boxes of ScanNet classes in the room, half of them copies of others
-    moved by N(0, 0.1) m with the same class, as a teacher's clusters of
-    near-duplicate proposals; scores uniform."""
+    boxes of ScanNet's (or ``cfg``'s) classes in the room, half of them
+    copies of others moved by N(0, 0.1) m with the same class, as a
+    teacher's clusters of near-duplicate proposals; scores uniform."""
+    cfg = cfg or get_config("scannet")
     rng = np.random.RandomState(seed)
-    box = make_boxes(rng, b, k, False)
-    cls = rng.randint(0, 18, (b, k))
+    box = make_boxes(rng, b, k, False, cfg)
+    cls = rng.randint(0, cfg.num_class, (b, k))
     src = np.where(rng.rand(b, k) < 0.5, rng.randint(0, k, (b, k)), np.arange(k))
     box = np.take_along_axis(box, src[..., None], 1)
     box[..., 0:3] += rng.normal(0, 0.1, (b, k, 3))
@@ -900,20 +948,22 @@ def lhs_work(mins, maxs, scores, cls, thresh: float) -> tuple:
     return keep, rounds, suppressed, box_rounds, rank_pairs, most
 
 
-def lhs_rows(dev, ops_per_s, rows, thresh: float = 0.25):
-    """LHS at the SSL step's (8, 64) boxes (``make_lhs_input``): equal to
-    the plain version. The bound counts the work this input needs, from a
-    replay of its rounds (``lhs_work``, itself held to the kernel's keep
-    mask), and each input byte and output byte once. ns_per_round is the
-    kernel's time over the most rounds of one scene, as the scenes run in
-    parallel (the launch and the sort included)."""
+def lhs_rows(dev, ops_per_s, rows, thresh: float = 0.25, cfg=None, seed: int = 40,
+             what: str = "", main: bool = True):
+    """LHS at the SSL step's (8, 64) boxes (``make_lhs_input``, of ``cfg``'s
+    classes): equal to the plain version. The bound counts the work this
+    input needs, from a replay of its rounds (``lhs_work``, itself held to
+    the kernel's keep mask), and each input byte and output byte once.
+    ns_per_round is the kernel's time over the most rounds of one scene, as
+    the scenes run in parallel (the launch and the sort included)."""
     b, k = SSL_NU, unlabeled.MAX_NUM_OBJ
-    args = [torch.from_numpy(x).to(dev) for x in make_lhs_input(40, b, k)] + [thresh]
+    args = [torch.from_numpy(x).to(dev) for x in make_lhs_input(seed, b, k, cfg)] + [thresh]
     replay, nrounds, nsupp, box_rounds, rank_pairs, most = lhs_work(*args)
     ops = b * k * LHS_BOX_OPS + box_rounds * LHS_ROUND_OPS + rank_pairs * LHS_RANK_OPS
     nbytes = b * k * (7 * 4 + 8 + 1)  # bounds and score f32, int64 class, bool keep
-    got, r = check_kernel("lhs", f"({b},{k}) boxes, IoU > {thresh}", lhs_3d_samecls,
-                          lhs_3d_samecls_plain, None, args, nbytes, lambda _: ops, ops_per_s, 10)
+    got, r = check_kernel("lhs", f"{what}({b},{k}) boxes, IoU > {thresh}", lhs_3d_samecls,
+                          lhs_3d_samecls_plain, None, args, nbytes, lambda _: ops, ops_per_s, 10,
+                          main=main)
     if not torch.equal(got.cpu(), replay):
         raise AssertionError("LHS's host replay keeps other boxes than the kernel")
     r.update(rounds=nrounds, most_rounds_a_scene=most, suppressed=nsupp, box_rounds=box_rounds,
@@ -924,7 +974,7 @@ def lhs_rows(dev, ops_per_s, rows, thresh: float = 0.25):
         suppressed=nsupp, box_rounds=box_rounds, rank_pairs=rank_pairs, ops=ops, kept=r["kept"],
         path=r["path"], ns_per_round=r["ns_per_round"])
     r["phases"] = lhs_phases(dev, args, thresh)
-    rows["lhs"] = [r]
+    rows.setdefault("lhs", []).append(r)
 
 
 def nms_pairs(over: torch.Tensor, scores: torch.Tensor, higher_index_first: bool) -> int:
@@ -946,6 +996,48 @@ def nms_pairs(over: torch.Tensor, scores: torch.Tensor, higher_index_first: bool
     return int(total)
 
 
+def nms_row(dev, ops_per_s, rows, floor: float, label: str, mode: str, tensors, thresh: float,
+            main: bool, sweep_on: bool = False):
+    """One row of ``nms_rows``: the kernel against its plain version on
+    ``tensors`` (mins, maxs, scores, classes; in matrix mode the boxes
+    (B, K, 7) in place of mins), its bound from a replay of the rounds, its
+    planned cluster and its cycles a step."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    f64_ratio = LANES_PER_SM / FP64_LANES_PER_SM  # float32 instructions a float64 one costs
+    mins, maxs, scores, cls = tensors
+    b, k = scores.shape
+    if mode == "matrix":
+        iou = box_pairs(mins, mins, "iou_bev")  # mins holds (B, K, 7) boxes here
+        args = (iou, scores, thresh)
+        kernel, plain = nms_masked, nms_masked_plain
+        over = iou > torch.tensor(thresh, dtype=torch.float32)
+        nbytes = b * k * k * 4 + b * k * (4 + 1)
+    else:
+        args = (mins, maxs, scores, cls if mode == "3d_cls" else None, None, mode, False, thresh)
+        kernel, plain = nms_boxes, nms_boxes_plain
+        dtype = torch.float64 if mode == "3d_cls" else torch.float32
+        over = box_overlaps(mins, maxs, cls, mode, False) > torch.tensor(thresh, dtype=dtype)
+        nbytes = b * k * (12 + 12 + 4 + (8 if mode == "3d_cls" else 0) + 1)
+    pairs = nms_pairs(over, scores, mode != "matrix")
+    scale = f64_ratio if mode == "3d_cls" else 1.0
+    ops = (pairs * NMS_PAIR_OPS[mode] + b * k * NMS_AREA_OPS[mode]) * scale \
+        + b * k * int(np.ceil(np.log2(max(k, 2))))
+    got, r = check_kernel("nms", label, kernel, plain, None, args, nbytes, lambda _: ops,
+                          ops_per_s, 10, main=main)
+    cluster = planned_cluster(dev, b, k, mode)
+    answers = {c: nms_max_active(dev, mode, k, c) for c in NMS_CLUSTERS[1:]}
+    r.update(mode=mode, pairs=pairs, kept=int(got.sum()), launch_floor_ms=floor,
+             of_floor=r["ms"] / floor, plain_rounds="K masked rounds in PyTorch",
+             cluster=cluster, max_active_clusters=answers)
+    r["phases"] = nms_phases(args, got, cluster)
+    say(phase="nms_work", shape=label, mode=mode, pairs=pairs, ops=ops, kept=r["kept"],
+        of_floor=r["of_floor"], fp64_lanes_per_sm=FP64_LANES_PER_SM, sms=n_sm,
+        cluster=cluster, max_active_clusters=answers, phases=r.get("phases"))
+    rows.setdefault("nms", []).append(r)
+    if sweep_on:
+        nms_sweep(label, kernel, args, got)
+
+
 def nms_rows(dev, ops_per_s, rows, floor: float, sweep_on: bool = False):
     """Greedy NMS (csrc/nms.cu) against its plain versions, exactly: box mode
     at serving's (B, K) class-aware in float64 at IoU 0.25 (the main path's
@@ -960,42 +1052,7 @@ def nms_rows(dev, ops_per_s, rows, floor: float, sweep_on: bool = False):
     need (``nms_pairs``, NMS_PAIR_OPS each) with each box's area, and a
     sort of the keys; its time lies under any launch's, so each row also
     gives its time over the launch floor ``floor``."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    f64_ratio = LANES_PER_SM / FP64_LANES_PER_SM  # float32 instructions a float64 one costs
-
-    def one(label, mode, tensors, thresh, main):
-        mins, maxs, scores, cls = tensors
-        b, k = scores.shape
-        if mode == "matrix":
-            iou = box_pairs(mins, mins, "iou_bev")  # mins holds (B, K, 7) boxes here
-            args = (iou, scores, thresh)
-            kernel, plain = nms_masked, nms_masked_plain
-            over = iou > torch.tensor(thresh, dtype=torch.float32)
-            nbytes = b * k * k * 4 + b * k * (4 + 1)
-        else:
-            args = (mins, maxs, scores, cls if mode == "3d_cls" else None, None, mode, False, thresh)
-            kernel, plain = nms_boxes, nms_boxes_plain
-            dtype = torch.float64 if mode == "3d_cls" else torch.float32
-            over = box_overlaps(mins, maxs, cls, mode, False) > torch.tensor(thresh, dtype=dtype)
-            nbytes = b * k * (12 + 12 + 4 + (8 if mode == "3d_cls" else 0) + 1)
-        pairs = nms_pairs(over, scores, mode != "matrix")
-        scale = f64_ratio if mode == "3d_cls" else 1.0
-        ops = (pairs * NMS_PAIR_OPS[mode] + b * k * NMS_AREA_OPS[mode]) * scale \
-            + b * k * int(np.ceil(np.log2(max(k, 2))))
-        got, r = check_kernel("nms", label, kernel, plain, None, args, nbytes, lambda _: ops,
-                              ops_per_s, 10, main=main)
-        cluster = planned_cluster(dev, b, k, mode)
-        answers = {c: nms_max_active(dev, mode, k, c) for c in NMS_CLUSTERS[1:]}
-        r.update(mode=mode, pairs=pairs, kept=int(got.sum()), launch_floor_ms=floor,
-                 of_floor=r["ms"] / floor, plain_rounds="K masked rounds in PyTorch",
-                 cluster=cluster, max_active_clusters=answers)
-        r["phases"] = nms_phases(args, got, cluster)
-        say(phase="nms_work", shape=label, mode=mode, pairs=pairs, ops=ops, kept=r["kept"],
-            of_floor=r["of_floor"], fp64_lanes_per_sm=FP64_LANES_PER_SM, sms=n_sm,
-            cluster=cluster, max_active_clusters=answers, phases=r.get("phases"))
-        rows.setdefault("nms", []).append(r)
-        if sweep_on:
-            nms_sweep(label, kernel, args, got)
+    one = functools.partial(nms_row, dev, ops_per_s, rows, floor, sweep_on=sweep_on)
 
     def boxes(seed, k, tied=False):
         mins, maxs, scores, cls = make_lhs_input(seed, B, k)
@@ -1165,15 +1222,16 @@ def fps_ptxas(log: str) -> dict:
 FORWARD_KNOBS = ({}, {"sampling": "vote_fps"}, {"sampling": "random"})
 
 
-def phase_forward(model_gpu, dev, knobs: dict):
-    """The forward of the full-width model built with ``knobs`` on the card
-    against the CPU on one scene: every index equal, outputs within atol
-    and rtol 1e-3. ``random`` sampling takes the same given indices on both
-    sides, drawn on the CPU."""
+def phase_forward(model_gpu, dev, knobs: dict, dataset: str = "scannet", pc=None):
+    """The forward of the full-width model of ``dataset`` built with
+    ``knobs`` on the card against the CPU on one scene (``pc``, or a room of
+    ``make_scenes``): every index equal, outputs within atol and rtol 1e-3.
+    ``random`` sampling takes the same given indices on both sides, drawn
+    on the CPU."""
     if knobs:
-        model_gpu, _ = build_votenet("scannet", device=dev, **knobs)
-    model_cpu, _ = build_votenet("scannet", device="cpu", **knobs)  # same seed, same weights
-    pc = torch.from_numpy(make_scenes(4, 1, N))
+        model_gpu, _ = build_votenet(dataset, device=dev, **knobs)
+    model_cpu, _ = build_votenet(dataset, device="cpu", **knobs)  # same seed, same weights
+    pc = torch.from_numpy(make_scenes(4, 1, N) if pc is None else pc)
     inds = {}
     if knobs.get("sampling") == "random":
         inds["sample_inds"] = torch.randint(0, 1024, (1, K), generator=torch.Generator().manual_seed(4),
@@ -1202,7 +1260,7 @@ def phase_forward(model_gpu, dev, knobs: dict):
     fps = 1 + (knobs.get("sampling") == "vote_fps")
     if launches["fps"] != fps:
         raise AssertionError(f"the forward with {knobs} launched FPS {launches['fps']}, not {fps}")
-    say(phase="forward_vs_cpu", knobs=knobs, scenes=1, points=N, indices_equal=True,
+    say(phase="forward_vs_cpu", dataset=dataset, knobs=knobs, scenes=1, points=N, indices_equal=True,
         tol="atol 1e-3 rtol 1e-3", max_abs_diff=diffs, launches=launches, gpu_s=gpu_s,
         cpu_s=cpu_s)
 
@@ -1504,15 +1562,88 @@ def _grads(model) -> torch.Tensor:
     return torch.cat([p.grad.detach().double().cpu().ravel() for p in model.parameters()])
 
 
-def vote_anchors(pc: np.ndarray, dev) -> np.ndarray:
+def vote_anchors(pc: np.ndarray, dev, dataset: str = "scannet") -> np.ndarray:
     """The random model's (b, K, 3) aggregated_vote_xyz on ``pc`` in train
     mode, where the step's objectness labels are taken; from a model of its
     own, so that no state the step starts from moves."""
-    model, _ = build_votenet("scannet", device=dev)
+    model, _ = build_votenet(dataset, device=dev)
     model.train()
     set_bn_momentum(model, get_bn_momentum(0))
     with torch.no_grad():
         return model.forward_backbone(torch.from_numpy(pc).to(dev))["aggregated_vote_xyz"].cpu().numpy()
+
+
+def train_check(cfg, dev, batch: dict, dataset: str = "scannet", what: str = "train_vs_cpu",
+                iou_labels: bool = False) -> dict:
+    """One pretrain step of ``batch`` (2 scenes) on the card and on the CPU
+    from the same weights and jitter draws: the loss within rtol 2e-3, the
+    gradient with cosine > 0.999 and relative L2 < 0.05, FPS indices equal,
+    at least MIN_POS_RATIO positives. With ``iou_labels``, also the step's
+    IoU labels (``compute_iou_labels``, the rotated IoU of its proposals and
+    GT) within atol IOU_LABEL_ATOL of the CPU's, some above 0.25, and the
+    card's IoU kernel on the card's own inputs within atol 1e-5 of its
+    plain version. Returns the losses and, with ``iou_labels``, the IoU
+    labels' largest difference."""
+    momentum = get_bn_momentum(0)
+    noise = torch.randn((2, 2, K, 3), generator=torch.Generator().manual_seed(21))
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        model, _ = build_votenet(dataset, device=where)  # seed 0: the same weights
+        state = create_train_state(model)
+        seen, iou_calls, pair_calls = {}, [], []
+        hook = model.backbone_net.register_forward_hook(
+            lambda m, a, ep: seen.__setitem__("sa1_inds", ep["sa1_inds"].cpu()))
+        patched = [(labeled_loss, "compute_iou_labels", iou_calls),
+                   (iou_labels_mod, "boxes_iou3d_paired_rows", pair_calls)] if iou_labels else []
+        reals = [recorded(module, name, calls) for module, name, calls in patched]
+        try:
+            t = time.perf_counter()
+            metrics = make_pretrain_step(cfg)(
+                state, {k: torch.from_numpy(np.asarray(v)).to(where) for k, v in batch.items()},
+                LR, momentum, noise=(noise[0].to(where), noise[1].to(where)))
+            loss = float(metrics["loss"])
+            seconds = time.perf_counter() - t
+        finally:
+            for (module, name, _), real in zip(patched, reals):
+                setattr(module, name, real)
+            hook.remove()
+        runs.append((loss, _grads(model), seen["sa1_inds"], seconds, float(metrics["pos_ratio"]),
+                     iou_calls, pair_calls))
+    (loss_gpu, g_gpu, inds_gpu, gpu_s, pos, iou_gpu, pairs_gpu), \
+        (loss_cpu, g_cpu, inds_cpu, cpu_s, pos_cpu, iou_cpu, _) = runs
+    cos = float(g_gpu @ g_cpu / (g_gpu.norm() * g_cpu.norm()))
+    rel_l2 = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    row = {"loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "grad_cosine": cos, "grad_rel_l2": rel_l2}
+    tol = (f"loss rtol 2e-3, gradient cosine > 0.999 and relative L2 < 0.05, "
+           f"pos_ratio >= {MIN_POS_RATIO}")
+    if iou_labels:
+        labels_gpu, labels_cpu = iou_gpu[0][1][0].cpu(), iou_cpu[0][1][0]
+        boxes, got = pairs_gpu[0]  # the labels' IoU matrix, the step's first
+        args = tuple(x.float().contiguous() for x in boxes) + ("iou3d",)
+        row.update(iou_labels_max_diff=max_err(labels_gpu, labels_cpu),
+                   iou_labels_above_025=int((labels_gpu > 0.25).sum()),
+                   iou_labels=labels_gpu.numel(),
+                   iou_kernel_vs_plain=max_err(got, box_pairs_plain(*args)),
+                   gt_headings_nonzero=int((args[1][..., 6] != 0).sum()))
+        tol += f", IoU labels atol {IOU_LABEL_ATOL}, the card's IoU atol 1e-5 of its plain version"
+    say(phase=what, dataset=dataset, scenes=len(batch["point_clouds"]), points=N, **row,
+        pos_ratio=pos, pos_ratio_cpu=pos_cpu, gpu_s=gpu_s, cpu_s=cpu_s, tol=tol)
+    if not torch.equal(inds_gpu, inds_cpu):
+        raise AssertionError("the step's FPS indices differ between the card and the CPU")
+    if min(pos, pos_cpu) < MIN_POS_RATIO:
+        raise AssertionError(f"pos_ratio {pos} on the card, {pos_cpu} on the CPU: too few positives")
+    if not (np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 2e-3 * abs(loss_cpu)):
+        raise AssertionError(f"step loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    if not (cos > 0.999 and rel_l2 < 0.05):
+        raise AssertionError(f"step gradient: cosine {cos}, relative L2 {rel_l2}")
+    if iou_labels:
+        if not row["iou_labels_max_diff"] <= IOU_LABEL_ATOL:
+            raise AssertionError(f"IoU labels differ by {row['iou_labels_max_diff']}")
+        if not row["iou_labels_above_025"] > 0:
+            raise AssertionError("no IoU label above 0.25: the check holds nothing")
+        if not (row["iou_kernel_vs_plain"] <= 1e-5 and row["gt_headings_nonzero"] > 0):
+            raise AssertionError(f"the card's IoU on rotated GT: {row}")
+    return row
 
 
 def phase_train(cfg, dev) -> tuple:
@@ -1524,38 +1655,7 @@ def phase_train(cfg, dev) -> tuple:
     loss carries gradient. Returns the kernels' launches over the 5 timed
     steps and the timed steps' ms, wall ms and scenes/s."""
     momentum = get_bn_momentum(0)
-    batch = make_train_batch(20, 2, cfg, vote_anchors(make_scenes(20, 2, N), dev))
-    noise = torch.randn((2, 2, K, 3), generator=torch.Generator().manual_seed(21))
-    runs = []
-    for where in (dev, torch.device("cpu")):
-        model, _ = build_votenet("scannet", device=where)  # seed 0: the same weights
-        state = create_train_state(model)
-        seen = {}
-        hook = model.backbone_net.register_forward_hook(
-            lambda m, a, ep: seen.__setitem__("sa1_inds", ep["sa1_inds"].cpu()))
-        t = time.perf_counter()
-        metrics = make_pretrain_step(cfg)(
-            state, {k: torch.from_numpy(v).to(where) for k, v in batch.items()}, LR, momentum,
-            noise=(noise[0].to(where), noise[1].to(where)))
-        loss = float(metrics["loss"])
-        seconds = time.perf_counter() - t
-        hook.remove()
-        runs.append((loss, _grads(model), seen["sa1_inds"], seconds, float(metrics["pos_ratio"])))
-    (loss_gpu, g_gpu, inds_gpu, gpu_s, pos), (loss_cpu, g_cpu, inds_cpu, cpu_s, pos_cpu) = runs
-    cos = float(g_gpu @ g_cpu / (g_gpu.norm() * g_cpu.norm()))
-    rel_l2 = float((g_gpu - g_cpu).norm() / g_cpu.norm())
-    say(phase="train_vs_cpu", scenes=2, points=N, loss_gpu=loss_gpu, loss_cpu=loss_cpu,
-        grad_cosine=cos, grad_rel_l2=rel_l2, pos_ratio=pos, pos_ratio_cpu=pos_cpu, gpu_s=gpu_s,
-        cpu_s=cpu_s, tol=f"loss rtol 2e-3, gradient cosine > 0.999 and relative L2 < 0.05, "
-                         f"pos_ratio >= {MIN_POS_RATIO}")
-    if not torch.equal(inds_gpu, inds_cpu):
-        raise AssertionError("the step's FPS indices differ between the card and the CPU")
-    if min(pos, pos_cpu) < MIN_POS_RATIO:
-        raise AssertionError(f"pos_ratio {pos} on the card, {pos_cpu} on the CPU: too few positives")
-    if not (np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 2e-3 * abs(loss_cpu)):
-        raise AssertionError(f"step loss {loss_gpu} on the card, {loss_cpu} on the CPU")
-    if not (cos > 0.999 and rel_l2 < 0.05):
-        raise AssertionError(f"step gradient: cosine {cos}, relative L2 {rel_l2}")
+    train_check(cfg, dev, make_train_batch(20, 2, cfg, vote_anchors(make_scenes(20, 2, N), dev)))
 
     model, _ = build_votenet("scannet", device=dev)
     state = create_train_state(model)
@@ -1688,13 +1788,13 @@ def make_ssl_batch(seed: int, nl: int, nu: int, cfg, anchors=None) -> dict:
     return batch
 
 
-def teacher_thresholds(pc: np.ndarray, noise, dev, nl: int) -> dict:
+def teacher_thresholds(pc: np.ndarray, noise, dev, nl: int, dataset: str = "scannet") -> dict:
     """Pseudo-label thresholds at the 0.3, 0.3 and 0.2 quantiles of the
     random teacher's own train-mode objectness, class and IoU scores on the
     unlabeled scenes of ``pc``, the step's teacher forward on a model of
     its own: the released 0.9 / 0.9 / 0.25 pass none of a random model's
     boxes, these pass a share."""
-    model, _ = build_votenet("scannet", device=dev)
+    model, _ = build_votenet(dataset, device=dev)
     model.train()
     set_bn_momentum(model, get_bn_momentum(0))
     with torch.no_grad():
@@ -1711,22 +1811,24 @@ def teacher_thresholds(pc: np.ndarray, noise, dev, nl: int) -> dict:
                 iou_threshold=quantile(iou, 0.2))
 
 
-def ssl_check(cfg, dev):
+def ssl_check(cfg, dev, dataset: str = "scannet", batch=None, what: str = "ssl_vs_cpu") -> dict:
     """One SSL step of 1 labeled + 1 unlabeled scene on the card and on the
     CPU, ``reference_exact`` with view-stats, from the same weights, batch
-    and jitter draws, with thresholds low enough for pseudo labels
-    (``teacher_thresholds``) and LHS IoU ``SSL_CHECK_NMS_IOU``: the gates
-    of the pretrain check, FPS indices equal, pseudo labels on both sides,
-    LHS dropping boxes, its keep masks equal between the card and the CPU,
-    and the card's LHS equal to its plain version on the card's inputs."""
+    (``batch``, or rooms of ``make_ssl_batch``) and jitter draws, with
+    thresholds low enough for pseudo labels (``teacher_thresholds``) and
+    LHS IoU ``SSL_CHECK_NMS_IOU``: the gates of the pretrain check, FPS
+    indices equal, pseudo labels on both sides, LHS dropping boxes, its
+    keep masks equal between the card and the CPU, and the card's LHS equal
+    to its plain version on the card's inputs. Returns the losses."""
     momentum = get_bn_momentum(0)
-    student_pc, _ = augment_view(make_scenes(50, 2, N), 51)
-    batch = make_ssl_batch(50, 1, 1, cfg, vote_anchors(student_pc, dev))
+    if batch is None:
+        student_pc, _ = augment_view(make_scenes(50, 2, N), 51)
+        batch = make_ssl_batch(50, 1, 1, cfg, vote_anchors(student_pc, dev))
     noise = torch.randn((4, 2, K, 3), generator=torch.Generator().manual_seed(52))
-    thr = teacher_thresholds(batch["ema_point_clouds"], (noise[0], noise[1]), dev, 1)
+    thr = teacher_thresholds(batch["ema_point_clouds"], (noise[0], noise[1]), dev, 1, dataset)
     runs = []
     for where in (dev, torch.device("cpu")):
-        model, _ = build_votenet("scannet", device=where)  # seed 0: the same weights
+        model, _ = build_votenet(dataset, device=where)  # seed 0: the same weights
         state = create_train_state(model, with_ema=True)
         seen, lhs_calls = {}, []
         hooks = [m.backbone_net.register_forward_hook(
@@ -1741,7 +1843,7 @@ def ssl_check(cfg, dev):
         try:
             t = time.perf_counter()
             metrics = make_ssl_step(cfg, 1, reference_exact=True, view_stats=True,
-                                    nms_iou=SSL_CHECK_NMS_IOU, **thr)(
+                                    nms_iou=SSL_CHECK_NMS_IOU, dataset=dataset, **thr)(
                 state, {k: torch.from_numpy(np.asarray(v)).to(where) for k, v in batch.items()},
                 SSL_LR, momentum, noise=((noise[0].to(where), noise[1].to(where)),
                                          (noise[2].to(where), noise[3].to(where))))
@@ -1760,7 +1862,7 @@ def ssl_check(cfg, dev):
     cos = float(g_gpu @ g_cpu / (g_gpu.norm() * g_cpu.norm()))
     rel_l2 = float((g_gpu - g_cpu).norm() / g_cpu.norm())
     lhs_plain = lhs_3d_samecls_plain(*gpu["lhs_args"]).cpu()
-    say(phase="ssl_vs_cpu", scenes="1 + 1", points=N, thresholds=thr, nms_iou=SSL_CHECK_NMS_IOU,
+    say(phase=what, scenes="1 + 1", points=N, thresholds=thr, nms_iou=SSL_CHECK_NMS_IOU,
         loss_gpu=gpu["loss"], loss_cpu=cpu["loss"], grad_cosine=cos, grad_rel_l2=rel_l2,
         pseudo_gt_ratio=gpu["pseudo_gt_ratio"], pseudo_gt_ratio_cpu=cpu["pseudo_gt_ratio"],
         pos_ratio=gpu["pos_ratio"], pos_ratio_cpu=cpu["pos_ratio"],
@@ -1784,6 +1886,8 @@ def ssl_check(cfg, dev):
         raise AssertionError(f"SSL step loss {gpu['loss']} on the card, {cpu['loss']} on the CPU")
     if not (cos > 0.999 and rel_l2 < 0.05):
         raise AssertionError(f"SSL step gradient: cosine {cos}, relative L2 {rel_l2}")
+    return {"loss_gpu": gpu["loss"], "loss_cpu": cpu["loss"], "grad_cosine": cos,
+            "grad_rel_l2": rel_l2}
 
 
 def phase_ssl(cfg, dev) -> tuple:
@@ -2323,6 +2427,67 @@ def driver_trace(name: str, path: Path) -> dict:
     return out
 
 
+def eval_subprocess(root: Path, ckpt: Path, data: list, cfg, dev, dataset: str,
+                    what: str) -> dict:
+    """The eval entry point as run_eval_opt_torch.sh runs it, ``python3 -m
+    iou3dmatch_tpu_torch.cli.train --eval --use_iou_for_nms --opt_step 10
+    --opt_rate 5e-4 --dump_results`` on ``ckpt`` with the dataset flags
+    ``data``, in a subprocess with no device flag: it must log the card as
+    its device, and its mAP and AR lines and its first batch's dumps must
+    equal those of ``evaluate`` in this process on the same checkpoint and
+    batches. Returns the AP and the kernels' launches of the in-process
+    ``evaluate`` (counted around it)."""
+    ev, inproc = root / f"{what}_eval", root / f"{what}_inproc_dump"
+    cmd = [sys.executable, "-m", "iou3dmatch_tpu_torch.cli.train", "--log_dir", str(ev),
+           "--detector_checkpoint", str(ckpt), "--eval", "--use_iou_for_nms",
+           "--opt_step", str(OPT_STEP), "--opt_rate", str(OPT_RATE), "--dump_results"] + data
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=600)
+    sub_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"the eval subprocess exited {proc.returncode}: {proc.stderr[-3000:]}")
+    device_line = [x for x in proc.stdout.splitlines() if x.startswith("device: ")]
+    if device_line != [f"device: cuda:0 ({torch.cuda.get_device_name(0)})"]:
+        raise AssertionError(f"the eval subprocess did not run on the card: {device_line}")
+    args = cli_train.parse_args(cmd[3:])
+    _, _, eval_ds, _ = cli_common.build_ssl_datasets(args)
+    model, _ = build_votenet(dataset, device=dev)
+    state = create_train_state(model, with_ema=True)
+    checkpoint.load(str(ckpt), state)
+    eval_loader = DataLoader(eval_ds, SSL_NL + SSL_NU, shuffle=False, drop_last=False,
+                             num_workers=LOADER_WORKERS)
+    lines = []
+    torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    try:
+        _, ap, _ = cli_common.evaluate(
+            model, cfg, cli_common.staged(eval_loader, dev),
+            cli_common.make_config_dict(cfg, args), lines.append,
+            make_eval_loss(model, cfg, generator=torch.Generator(device=dev).manual_seed(2)),
+            opt_rate=OPT_RATE, opt_step=OPT_STEP, dump_dir=str(inproc))
+        torch.cuda.synchronize()
+    finally:
+        eval_loader.close()
+    launches = {k: f.launches for k, f in KERNELS.items()}
+    want = [x for x in lines if x.startswith("eval mAP@")]
+    got = [x for x in proc.stdout.splitlines() if x.startswith("eval mAP@")]
+    dumps = sorted(os.listdir(inproc))
+    same_dumps = dumps == sorted(os.listdir(ev / "dump")) and all(
+        (inproc / f).read_bytes() == (ev / "dump" / f).read_bytes() for f in dumps)
+    ap = {t: {"mAP": float(m["mAP"]), "AR": float(m["AR"])} for t, m in ap.items()}
+    say(phase=f"{what}_eval_subprocess", cmd=" ".join(cmd[1:]), seconds=sub_s,
+        device=device_line[0], ap_lines=got, in_process_ap_lines=want, ap=ap,
+        dump_files=len(dumps), dumps_equal=same_dumps, in_process_launches=launches)
+    if got != want or len(got) != 2 or not same_dumps:
+        raise AssertionError(f"the subprocess eval {got} differs from evaluate's {want}, "
+                             f"or its dumps do (equal: {same_dumps})")
+    if launches["fps"] == 0 or launches["nms"] == 0:
+        raise AssertionError(f"the in-process evaluate launched {launches}")
+    return {"ap": ap, "launches": launches}
+
+
 def phase_drivers(cfg, dev, eval_request: dict) -> dict:
     """Phase 9, the drivers at full width on ScanNet-format dumps (written
     again as phase 8 writes them): (a) ``cli/pretrain.main`` of 3 epochs of
@@ -2383,51 +2548,8 @@ def phase_drivers(cfg, dev, eval_request: dict) -> dict:
             raise AssertionError(f"the resumed run did not continue at epoch 2: checkpoint epoch "
                                  f"{saved['epoch']}, step {saved['step']}")
 
-        # (d) the eval entry point as run_eval_opt_torch.sh runs it, in a
-        # subprocess with no device flag, beside evaluate in this process
-        ev = root / "eval"
-        cmd = [sys.executable, "-m", "iou3dmatch_tpu_torch.cli.train", "--log_dir", str(ev),
-               "--detector_checkpoint", str(ssl / "checkpoint.tar"), "--eval",
-               "--use_iou_for_nms", "--opt_step", str(OPT_STEP), "--opt_rate", str(OPT_RATE),
-               "--dump_results"] + data
-        t = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
-                              text=True, timeout=600)
-        sub_s = time.perf_counter() - t
-        if proc.returncode != 0:
-            raise AssertionError(f"the eval subprocess exited {proc.returncode}: {proc.stderr[-3000:]}")
-        device_line = [x for x in proc.stdout.splitlines() if x.startswith("device: ")]
-        if device_line != [f"device: cuda:0 ({torch.cuda.get_device_name(0)})"]:
-            raise AssertionError(f"the eval subprocess did not run on the card: {device_line}")
-        args = cli_train.parse_args(cmd[3:])
-        _, _, eval_ds, _ = cli_common.build_ssl_datasets(args)
-        model, _ = build_votenet("scannet", device=dev)
-        state = create_train_state(model, with_ema=True)
-        checkpoint.load(str(ssl / "checkpoint.tar"), state)
-        eval_loader = DataLoader(eval_ds, SSL_NL + SSL_NU, shuffle=False, drop_last=False,
-                                 num_workers=LOADER_WORKERS)
-        lines = []
-        try:
-            _, ap, _ = cli_common.evaluate(
-                model, cfg, cli_common.staged(eval_loader, dev),
-                cli_common.make_config_dict(cfg, args), lines.append,
-                make_eval_loss(model, cfg, generator=torch.Generator(device=dev).manual_seed(2)),
-                opt_rate=OPT_RATE, opt_step=OPT_STEP, dump_dir=str(root / "inproc_dump"))
-        finally:
-            eval_loader.close()
-        want = [x for x in lines if x.startswith("eval mAP@")]
-        got = [x for x in proc.stdout.splitlines() if x.startswith("eval mAP@")]
-        dumps = sorted(os.listdir(root / "inproc_dump"))
-        same_dumps = dumps == sorted(os.listdir(ev / "dump")) and all(
-            (root / "inproc_dump" / f).read_bytes() == (ev / "dump" / f).read_bytes()
-            for f in dumps)
-        say(phase="driver_eval_subprocess", cmd=" ".join(cmd[1:]), seconds=sub_s,
-            device=device_line[0], ap_lines=got, in_process_ap_lines=want,
-            ap={t: {"mAP": float(m["mAP"]), "AR": float(m["AR"])} for t, m in ap.items()},
-            dump_files=len(dumps), dumps_equal=same_dumps)
-        if got != want or len(got) != 2 or not same_dumps:
-            raise AssertionError(f"the subprocess eval {got} differs from evaluate's {want}, "
-                                 f"or its dumps do (equal: {same_dumps})")
+        # (d) the eval entry point as run_eval_opt_torch.sh runs it
+        eval_subprocess(root, ssl / "checkpoint.tar", data, cfg, dev, "scannet", "driver")
 
         # (f) epochs of several steps, no eval: the steady cost of a step
         # through the driver beside phase 8's loader-fed step
@@ -2458,6 +2580,415 @@ def phase_drivers(cfg, dev, eval_request: dict) -> dict:
              "--eval_interval", "0", "--cluster_sampling", "vote_fps"] + data, vote, 1, B,
             {**TRAIN_LAUNCHES, "fps": 2})
         return {k: v["row"]["launches"] for k, v in out.items()}
+    finally:
+        shutil.rmtree(root)
+
+
+def sunrgbd_frame(rng, n: int, cfg) -> tuple:
+    """One synthetic SUN RGB-D frame in upright depth coordinates (z up, y
+    away from the camera): 3-8 boxes of distinct classes of the 10, sizes
+    the class mean x U(0.8, 1.2), headings uniform in [-pi, pi), standing on
+    the floor of a room 4-6 m wide and deep; 40 % of the points inside the
+    boxes (within 0.95 of their half extents), the rest on the floor and 3
+    or 4 walls; rgb in [0, 1]. Returns (points (n, 6) float32, label lines
+    ``class x y w h cx cy cz l w h ox oy`` with HALF extents, as the label
+    files hold them, and the heading -atan2(oy, ox))."""
+    k = rng.randint(3, 9)
+    cls = rng.choice(cfg.num_class, k, replace=False)
+    size = cfg.mean_size_arr[cls] * rng.uniform(0.8, 1.2, (k, 3))
+    heading = rng.uniform(-np.pi, np.pi, k)
+    width, depth = rng.uniform(4.0, 6.0, 2)
+    ctr = np.c_[rng.uniform(-width / 2 + 0.8, width / 2 - 0.8, k), rng.uniform(1.5, depth, k),
+                size[:, 2] / 2]
+    owner = np.repeat(np.arange(k), rng.multinomial(n * 2 // 5, np.full(k, 1 / k)))
+    local = rng.uniform(-0.95, 0.95, (len(owner), 3)) * size[owner] / 2
+    c, s = np.cos(-heading[owner]), np.sin(-heading[owner])  # rotz(-heading), box -> frame
+    box_xyz = np.c_[c * local[:, 0] - s * local[:, 1], s * local[:, 0] + c * local[:, 1],
+                    local[:, 2]] + ctr[owner]
+    m, walls = n - len(owner), rng.randint(3, 5)
+    face = rng.choice(1 + walls, m, p=[0.4] + [0.6 / walls] * walls)  # floor, back, left, right, front
+    x, y = rng.uniform(-width / 2, width / 2, m), rng.uniform(0.5, 0.5 + depth, m)
+    z = rng.uniform(0.0, 2.6, m)
+    room = np.c_[np.select([face == 2, face == 3], [-width / 2, width / 2], x),
+                 np.select([face == 1, face == 4], [0.5 + depth, 0.5], y), np.where(face == 0, 0.0, z)]
+    xyz = np.concatenate([box_xyz, room])[rng.permutation(n)]
+    pc = np.c_[xyz, rng.uniform(0, 1, (n, 3))].astype(np.float32)
+    lines = [f"{cfg.class2type[c_]} 0 0 1 1 {x_:f} {y_:f} {z_:f} {l / 2:f} {w / 2:f} {h / 2:f} "
+             f"{np.cos(t):f} {-np.sin(t):f}"
+             for c_, (x_, y_, z_), (l, w, h), t in zip(cls, ctr, size, heading)]
+    return pc, lines
+
+
+def write_sunrgbd_trainval(root: Path, cfg, seed: int, n_train: int, n_val: int, n: int) -> dict:
+    """``n_train + n_val`` frames of ``sunrgbd_frame`` under ``root`` in the
+    ``sunrgbd_trainval`` layout (``depth/%06d.mat`` with ``instance`` by
+    ``scipy.io.savemat``, ``label_v1/``, ``calib/`` of an upright camera,
+    ``train_data_idx.txt`` 1..n_train, ``val_data_idx.txt`` the rest).
+    Returns the frames, boxes, bytes and seconds."""
+    import scipy.io as sio
+
+    t = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    for sub in ("depth", "label_v1", "calib"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    calib = "1 0 0 0 1 0 0 0 1\n529.5 0 0 0 525.0 0 365.0 265.0 1\n"  # Rtilt, K column-major
+    boxes = 0
+    for idx in range(1, n_train + n_val + 1):
+        pc, lines = sunrgbd_frame(rng, n, cfg)
+        sio.savemat(root / "depth" / f"{idx:06d}.mat", {"instance": pc})
+        (root / "label_v1" / f"{idx:06d}.txt").write_text("\n".join(lines) + "\n")
+        (root / "calib" / f"{idx:06d}.txt").write_text(calib)
+        boxes += len(lines)
+    (root / "train_data_idx.txt").write_text("".join(f"{i}\n" for i in range(1, n_train + 1)))
+    (root / "val_data_idx.txt").write_text(
+        "".join(f"{i}\n" for i in range(n_train + 1, n_train + n_val + 1)))
+    return {"frames": n_train + n_val, "points": n, "boxes": boxes, "bytes": dir_bytes(root),
+            "seconds": time.perf_counter() - t}
+
+
+def dir_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def prep_sunrgbd_dumps(trainval: Path, data: Path, processes: int) -> dict:
+    """``python -m iou3dmatch_tpu_torch.data.prep_sunrgbd --use_v1`` over the
+    train and the val index files into the 50k v1 dumps, each file's indices
+    cut into ``processes`` shares run at once (a share a seed), then
+    ``gen_split sunrgbd 0.05`` into ``trainval``. Returns the frames, boxes
+    and voting points written and the seconds of each step."""
+    t = time.perf_counter()
+    procs = []
+    for split in ("train", "val"):
+        out = data / f"sunrgbd_pc_bbox_votes_50k_v1_{split}"
+        idx = (trainval / f"{split}_data_idx.txt").read_text().split()
+        for part in range(processes):
+            share = idx[part::processes]
+            if not share:
+                continue
+            f = trainval / f"{split}_idx_{part}.txt"
+            f.write_text("\n".join(share) + "\n")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "iou3dmatch_tpu_torch.data.prep_sunrgbd", "--root",
+                 str(trainval), "--idx_file", str(f), "--output_dir", str(out), "--use_v1",
+                 "--seed", str(part)], cwd=Path(__file__).resolve().parent,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (so, se) in zip(procs, outs):
+        if p.returncode != 0 or "FAILED" in so:
+            raise AssertionError(f"prep_sunrgbd exited {p.returncode}: {so[-2000:]} {se[-2000:]}")
+    prep_s = time.perf_counter() - t
+    t = time.perf_counter()
+    split = gen_split.main(["sunrgbd", str(SUN_RATIO), "0", "--data_path",
+                            str(data / "sunrgbd_pc_bbox_votes_50k_v1_train"), "--out_dir",
+                            str(trainval), "--seed", "0"])
+    split_s = time.perf_counter() - t
+    counts = {}
+    for s in ("train", "val"):
+        d = data / f"sunrgbd_pc_bbox_votes_50k_v1_{s}"
+        bboxes = [np.load(f) for f in sorted(d.glob("*_bbox.npy"))]
+        votes = 0
+        for f in sorted(d.glob("*_votes.npz")):
+            with np.load(f) as z:
+                votes += int(z["point_votes"][:, 0].sum())
+        counts[s] = {"frames": len(bboxes), "boxes": int(sum(len(b) for b in bboxes)),
+                     "voting_points": votes}
+    labeled = Path(split).read_text().split()
+    return {"counts": counts, "labeled": len(labeled), "split": Path(split).name,
+            "prep_s": prep_s, "split_s": split_s, "processes": len(procs)}
+
+
+def write_scannet_raw(root: Path, cfg, seed: int, names, n: int) -> tuple:
+    """Raw ScanNet scans as data/prep_scannet.py reads them (a binary PLY of
+    ``n`` vertices, the aggregation and segmentation JSON, the meta txt):
+    ``scannet_scan``'s rooms turned about z and moved, the meta's
+    ``axisAlignment`` the move back; a segment an instance. Returns the
+    label map's path and each scan's boxes in the aligned frame."""
+    rng = np.random.RandomState(seed)
+    label_names = {1: "wall", 2: "floor", **{int(i): f"nyu40_{int(i)}" for i in cfg.nyu40ids}}
+    tsv = root / "labels.tsv"
+    root.mkdir(parents=True, exist_ok=True)
+    tsv.write_text("raw_category\tnyu40id\n"
+                   + "".join(f"{v}\t{k}\n" for k, v in label_names.items()))
+    vertex = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"), ("green", "u1"),
+                       ("blue", "u1"), ("alpha", "u1")])
+    boxes_of = {}
+    for name in names:
+        verts, ins, sem, boxes = scannet_scan(rng, n, cfg)
+        align = np.eye(4)
+        align[:3, :3], align[:3, 3] = rotz(rng.uniform(-np.pi, np.pi)), rng.uniform(-1, 1, 3)
+        ply = np.zeros(n, vertex)
+        raw = (verts[:, :3] - align[:3, 3]) @ align[:3, :3]  # the inverse move
+        for j, c in enumerate(("x", "y", "z")):
+            ply[c] = raw[:, j]
+        for j, c in enumerate(("red", "green", "blue")):
+            ply[c] = verts[:, 3 + j]
+        ply["alpha"] = 255
+        d = root / name
+        d.mkdir()
+        header = ("ply\nformat binary_little_endian 1.0\n"
+                  f"element vertex {n}\n"
+                  "property float x\nproperty float y\nproperty float z\n"
+                  "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+                  "property uchar alpha\nend_header\n")
+        (d / f"{name}_vh_clean_2.ply").write_bytes(header.encode() + ply.tobytes())
+        (d / f"{name}_vh_clean_2.0.010000.segs.json").write_text(
+            json.dumps({"segIndices": ins.tolist()}))
+        groups = [{"objectId": int(j) - 1, "label": label_names[int(sem[ins == j][0])],
+                   "segments": [int(j)]} for j in np.unique(ins)]
+        (d / f"{name}.aggregation.json").write_text(json.dumps({"segGroups": groups}))
+        (d / f"{name}.txt").write_text(
+            f"axisAlignment = {' '.join(str(float(v)) for v in align.ravel())}\n")
+        boxes_of[name] = boxes
+    return tsv, boxes_of
+
+
+def scannet_raw_check(root: Path, cfg) -> dict:
+    """``prep_scannet`` on RAW_SCANS raw scans of RAW_VERTICES vertices, its
+    boxes against the scans' own (atol 1e-3: a float32 round trip of the
+    alignment), its 50,000-vertex cap, and the dumps read back through
+    ``ScannetDetectionDataset`` (train split, height on, 40,000 points)."""
+    names = [f"scene{i:04d}_00" for i in range(RAW_SCANS)]
+    tsv, want = write_scannet_raw(root / "scans", cfg, 110, names, RAW_VERTICES)
+    out, meta = root / "scannet_train_detection_data", root / "meta_data"
+    meta.mkdir()
+    (meta / "scannetv2_train.txt").write_text("\n".join(names) + "\n")
+    t = time.perf_counter()
+    prep_scannet.main(["--scannet_dir", str(root / "scans"), "--label_map", str(tsv),
+                       "--scan_list", str(meta / "scannetv2_train.txt"), "--output_dir", str(out),
+                       "--seed", "0"])
+    prep_s = time.perf_counter() - t
+    diffs = []
+    for name in names:
+        got, verts = np.load(out / f"{name}_bbox.npy"), np.load(out / f"{name}_vert.npy")
+        if got.shape != want[name].shape or \
+                len(verts) != min(RAW_VERTICES, prep_scannet.MAX_NUM_POINT):
+            raise AssertionError(f"prep_scannet wrote {got.shape} boxes for {want[name].shape} "
+                                 f"and {len(verts)} vertices")
+        diffs.append(max_err(torch.from_numpy(got), torch.from_numpy(want[name])))
+    ds = ScannetDetectionDataset(str(out), str(meta), "train", num_points=N, use_height=True)
+    for i, name in enumerate(ds.scan_names):
+        sample = ds[i]
+        if sample["point_clouds"].shape != (N, 4) or not np.isfinite(sample["point_clouds"]).all() \
+                or int(sample["box_label_mask"].sum()) != len(want[name]):
+            raise AssertionError(f"the ScanNet dataset read {name} wrongly")
+    out = {"scans": len(names), "vertices": RAW_VERTICES, "prep_s": prep_s,
+           "boxes": int(sum(len(b) for b in want.values())), "box_max_diff": max(diffs),
+           "dataset_scenes": len(ds)}
+    if out["box_max_diff"] > 1e-3:
+        raise AssertionError(f"prep_scannet's boxes are off by {out['box_max_diff']}")
+    return out
+
+
+def boxes_at_anchors(batch: dict, i: int, anchor: np.ndarray, rng) -> None:
+    """Scene ``i``'s GT as ANCHORED_BOXES boxes within 0.05 of distinct
+    proposals of the random model's (``anchor``, (K, 3), ``vote_anchors``),
+    each taking the heading, size and class of one of the frame's own boxes
+    in turn: a SUN RGB-D frame's 3-8 boxes alone leave too few positives
+    for the gates (a step's ``pos_ratio`` read 0.016), and the rotated GT
+    stays the data's."""
+    m = int(batch["box_label_mask"][i].sum())
+    src = np.arange(ANCHORED_BOXES) % m
+    for k in BOX_KEYS:
+        batch[k][i, :ANCHORED_BOXES] = batch[k][i, src]
+    batch["box_label_mask"][i, :ANCHORED_BOXES] = 1
+    batch["center_label"][i, :ANCHORED_BOXES] = anchor[rng.choice(K, ANCHORED_BOXES,
+                                                                  replace=False)] + \
+        rng.uniform(-0.05, 0.05, (ANCHORED_BOXES, 3))
+
+
+def sunrgbd_train_batch(ds, rows, dev, anchors: bool) -> dict:
+    """The scenes ``rows`` of ``ds`` collated; with ``anchors`` each scene's
+    GT goes to the random model's proposals (``boxes_at_anchors``), so that
+    the step has positives and IoU labels above 0."""
+    np.random.seed(5)
+    batch = collate([ds[i] for i in rows])
+    if anchors:
+        anchor = vote_anchors(batch["point_clouds"], dev, "sunrgbd")
+        rng = np.random.RandomState(6)
+        for i in range(len(rows)):
+            boxes_at_anchors(batch, i, anchor[i], rng)
+    return batch
+
+
+def sunrgbd_ssl_batch(labeled, unlabeled, dev) -> dict:
+    """One labeled and one unlabeled scene as ``SSLBatcher`` merges them
+    (the unlabeled one with its raw-frame GT, flipped in x only, turned by
+    up to 30 degrees, scaled), the labeled scene's GT at the random model's
+    proposals (``boxes_at_anchors``)."""
+    np.random.seed(8)
+    loaders = [DataLoader(ds, 1, shuffle=False, num_workers=0) for ds in (labeled, unlabeled)]
+    try:
+        batch = next(iter(SSLBatcher(*loaders)))
+    finally:
+        for ld in loaders:
+            ld.close()
+    # both scenes: train-mode BatchNorm moves the votes with the batch
+    anchor = vote_anchors(batch["point_clouds"], dev, "sunrgbd")
+    boxes_at_anchors(batch, 0, anchor[0], np.random.RandomState(7))
+    return batch
+
+
+def recorded(module, name: str, calls: list):
+    """``module.name`` replaced by a wrapper that appends (args, result) of
+    each call to ``calls``; returns the function to restore."""
+    real = getattr(module, name)
+
+    def wrapper(*args):
+        calls.append((args, real(*args)))
+        return calls[-1][1]
+
+    setattr(module, name, wrapper)
+    return real
+
+
+def sunrgbd_kernel_rows(cfg, dev, ops_per_s, rows, train_ds, eval_ds) -> None:
+    """Three kernels at SUN RGB-D's shapes, appended to ``rows``: the rotated
+    IoU of a pretrain step of 8 frames at its (8, 128, 7) x (8, 64, 7),
+    proposals against the frames' rotated GT, on the step's own inputs;
+    class-aware NMS at the eval forward's (8, 128) boxes of 10 classes on
+    its own inputs; LHS at (8, 64) clustered boxes of the 10 classes."""
+    floor = launch_floor_ms()
+    model, _ = build_votenet("sunrgbd", device=dev)
+    state = create_train_state(model)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in sunrgbd_train_batch(train_ds, range(B), dev, False).items()}
+    calls = []
+    real = recorded(iou_labels_mod, "boxes_iou3d_paired_rows", calls)
+    try:
+        make_pretrain_step(cfg)(state, batch, LR, get_bn_momentum(0))
+    finally:
+        iou_labels_mod.boxes_iou3d_paired_rows = real
+    a, b = (x.float().contiguous() for x in calls[0][0])
+    ops, scan_ops, need = iou_ops(a, b)
+    nbytes = (a.numel() + b.numel() + B * K * G) * 4
+    _, r = check_kernel(
+        "iou3d", f"sunrgbd pretrain, rotated GT ({B},{K},7)x({B},{G},7)", box_pairs,
+        box_pairs_plain, None, (a, b, "iou3d"), nbytes, lambda _: ops, ops_per_s, 10, main=False,
+        agree=lambda got, want: bool(torch.allclose(got, want, rtol=0, atol=1e-5)))
+    r.update(dataset="sunrgbd", pairs_needing_overlap=need, gt_boxes=int((b[..., 0] > -999).sum()),
+             scan_bound_ms=max(nbytes / HBM_BYTES_PER_S, scan_ops / ops_per_s) * 1e3)
+    rows["iou3d"].append(r)
+
+    model.eval()
+    eval_batch = collate([eval_ds[i] for i in range(B)])
+    with torch.no_grad():
+        ep = model(torch.from_numpy(eval_batch["point_clouds"]).to(dev))
+    calls = []
+    real = recorded(ap_helper, "nms_boxes", calls)
+    try:
+        pack_predictions(ep, eval_config_dict(cfg, use_iou_for_nms=True))
+    finally:
+        ap_helper.nms_boxes = real
+    (mins, maxs, scores, cls, valid, mode, _, thresh), _ = calls[0]
+    if mode != "3d_cls" or valid is not None:
+        raise AssertionError(f"the eval's NMS ran {mode} with a valid mask {valid is not None}")
+    nms_row(dev, ops_per_s, rows, floor, f"sunrgbd eval ({B},{K}) 3d_cls float64, 10 classes, "
+            f"IoU > {thresh}", mode, (mins, maxs, scores, cls), thresh, False)
+    rows["nms"][-1]["dataset"] = "sunrgbd"
+    lhs_rows(dev, ops_per_s, rows, cfg=cfg, seed=41, what="sunrgbd 10 classes ", main=False)
+    rows["lhs"][-1]["dataset"] = "sunrgbd"
+
+
+def phase_sunrgbd(dev, card: str, ops_per_s: float, rows: dict, eval_request: dict) -> dict:
+    """Phase 10, SUN RGB-D end to end through the port at full width (10
+    classes, 12 heading bins, 10 size clusters; SA 2048/1024/512/256, 128
+    proposals, 40,000 points): (a) SUN_TRAIN + SUN_VAL synthetic frames
+    written in the ``sunrgbd_trainval`` layout, ``prep_sunrgbd`` to the 50k
+    v1 dumps, ``gen_split sunrgbd 0.05``; ``prep_scannet`` on raw ScanNet
+    scans read back by its dataset; (b) the forward on one frame on the card
+    against the CPU; the pretrain step's IoU labels on rotated GT and the
+    first SSL step (``trans_angle`` on) on the card against the CPU; the IoU,
+    NMS and LHS at SUN RGB-D's shapes; (c) ``cli/pretrain.main`` (3 one-step
+    epochs and one eval), ``cli/train.main`` with run_train.sh's flags from
+    its checkpoint (2 epochs of 2 steps and one eval) and the eval entry
+    point with IoU optimisation as a subprocess, its AP lines equal to an
+    in-process ``evaluate``'s; (d) each run's ms and scenes/s a step and
+    launches a step, beside the card's name and power limit. Returns each
+    run's launches."""
+    cfg = get_config("sunrgbd")
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sunrgbd_"))
+    try:
+        data, trainval = root / "data", root / "data" / "sunrgbd_trainval"
+        frames = write_sunrgbd_trainval(trainval, cfg, 100, SUN_TRAIN, SUN_VAL, SUN_POINTS)
+        prep = prep_sunrgbd_dumps(trainval, data, SUN_PREP_PROCESSES)
+        say(phase="sunrgbd_prep", frames=frames, **prep,
+            dumps_bytes=dir_bytes(data) - frames["bytes"])
+        if (prep["counts"]["train"]["frames"], prep["counts"]["val"]["frames"],
+                prep["labeled"]) != (SUN_TRAIN, SUN_VAL, int(SUN_RATIO * SUN_TRAIN)):
+            raise AssertionError(f"the SUN RGB-D prep wrote {prep}")
+        say(phase="sunrgbd_scannet_raw_prep",
+            **scannet_raw_check(root / "scannet", get_config("scannet")))
+
+        args = types.SimpleNamespace(dataset="sunrgbd", data_path=str(data),
+                                     labeled_sample_list=prep["split"], num_point=N, no_height=False,
+                                     use_color=False, use_sunrgbd_v2=False, synthetic=False,
+                                     view_stats=True)
+        train_ds, eval_ds, _ = cli_common.build_supervised_datasets(args)
+        labeled_ds, unlabeled_ds, _, _ = cli_common.build_ssl_datasets(args)
+        # the datasets double the half extents on disk: the GT sizes of an
+        # unaugmented frame lie within 20 % of their class means, not at half
+        sample = eval_ds[0]
+        m = int(sample["box_label_mask"].sum())
+        rel = np.abs(sample["size_residual_label"][:m]) / \
+            cfg.mean_size_arr[sample["size_class_label"][:m]]
+        if not (m > 0 and rel.max() < 0.3):
+            raise AssertionError(f"{m} GT boxes, sizes off their class means by up to {rel.max()}")
+
+        model, _ = build_votenet("sunrgbd", device=dev)
+        phase_forward(model, dev, {}, "sunrgbd", eval_ds[0]["point_clouds"][None])
+        train_check(cfg, dev, sunrgbd_train_batch(train_ds, (0, 1), dev, True), "sunrgbd",
+                    "sunrgbd_train_vs_cpu", iou_labels=True)
+        ssl = ssl_check(cfg, dev, "sunrgbd", sunrgbd_ssl_batch(labeled_ds, unlabeled_ds, dev),
+                        "sunrgbd_ssl_vs_cpu")
+        sunrgbd_kernel_rows(cfg, dev, ops_per_s, rows, train_ds, eval_ds)
+
+        flags = ["--dataset", "sunrgbd", "--data_path", str(data), "--labeled_sample_list",
+                 prep["split"]]
+
+        def plus(*parts) -> dict:
+            return {k: sum(p[k] for p in parts) for k in KERNELS}
+
+        def times(launches: dict, n: int) -> dict:
+            return {k: v * n for k, v in launches.items()}
+
+        out = {}
+        pre = root / "pretrain"
+        out["pretrain"] = driver_run(
+            "sunrgbd_pretrain", cli_pretrain.main,
+            ["--log_dir", str(pre), "--batch_size", str(B), "--max_epoch", "3",
+             "--eval_interval", "3", "--print_interval", "1"] + flags, pre, 3, B,
+            plus(times(TRAIN_LAUNCHES, 3), eval_request))
+        ssl_dir = root / "ssl"
+        out["ssl"] = driver_run(
+            "sunrgbd_ssl", cli_train.main,
+            ["--log_dir", str(ssl_dir), "--batch_size", f"{SSL_NL},{SSL_NU}",
+             "--detector_checkpoint", str(pre / "checkpoint.tar"), "--view_stats",
+             "--reference_exact_step", "--max_epoch", "2", "--eval_interval", "2",
+             "--print_interval", "1"] + flags, ssl_dir, 4, SSL_NL + SSL_NU,
+            plus(times(SSL_LAUNCHES, 4), eval_request))
+        for run in ("pretrain", "ssl"):
+            if not re.search(r"^eval mAP@0\.5: ", out[run]["log"], re.M):
+                raise AssertionError(f"the SUN RGB-D {run} driver logged no eval")
+        ev = eval_subprocess(root, ssl_dir / "checkpoint.tar", flags, cfg, dev, "sunrgbd",
+                             "sunrgbd")
+        size = dir_bytes(root)
+        steps = {"pretrain": (3, TRAIN_LAUNCHES), "ssl": (4, SSL_LAUNCHES)}
+        per_step = {run: {"ms_per_step": out[run]["row"].get("ms_per_step"),
+                          "scenes_per_s": out[run]["row"].get("scenes_per_s"),
+                          "launches_per_step": {k: (out[run]["row"]["launches"][k]
+                                                    - eval_request[k]) / n for k in KERNELS}}
+                    for run, (n, _) in steps.items()}
+        say(phase="sunrgbd", card=card, seconds=time.perf_counter() - t0, runs=per_step,
+            first_ssl_step=ssl, eval_ap=ev["ap"], temp_dir_bytes=size, reduced=SUN_REDUCED)
+        for run, (n, want) in steps.items():
+            if per_step[run]["launches_per_step"] != {k: float(v) for k, v in want.items()}:
+                raise AssertionError(f"SUN RGB-D {run}: launches a step {per_step[run]}")
+        if size >= SUN_DIR_LIMIT:
+            raise AssertionError(f"phase 10's temporary directory holds {size} bytes")
+        launches = {k: v["row"]["launches"] for k, v in out.items()}
+        launches["eval"] = ev["launches"]
+        return launches
     finally:
         shutil.rmtree(root)
 
@@ -2568,7 +3099,9 @@ def main() -> int:
     train, train_stats = phase_train(cfg, dev)
     ssl, ssl_stats = phase_ssl(cfg, dev)
     data = phase_data(cfg, dev, train_stats, ssl_stats)
-    drivers = phase_drivers(cfg, dev, {k: v // 3 for k, v in evals[0].items()})
+    eval_request = {k: v // 3 for k, v in evals[0].items()}
+    drivers = phase_drivers(cfg, dev, eval_request)
+    sunrgbd = phase_sunrgbd(dev, card, ops_per_s, rows, eval_request)
 
     kernels = []
     for name, checks in rows.items():
@@ -2587,6 +3120,7 @@ def main() -> int:
             "launches_3_eval_requests": evals[0][name],
             "launches_3_eval_opt_requests": evals[OPT_STEP][name],
             **{f"launches_driver_{run}": counts[name] for run, counts in drivers.items()},
+            **{f"launches_sunrgbd_{run}": counts[name] for run, counts in sunrgbd.items()},
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],

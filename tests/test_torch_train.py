@@ -1,7 +1,9 @@
 """The port's pretrain step against the JAX package's, on the CPU.
 
 A tiny JAX VoteNet (ScanNet config, ``tiny=True``, 16 proposals) and 2
-scenes of 2,048 points made from NumPy seeds; its weights, with BN running
+scenes of 2,048 points made from NumPy seeds (and the same on the SUN RGB-D
+config, 10 classes and 12 heading bins with rotated GT boxes, for the IoU
+labels, the labeled loss, the step-0 gradient and the trajectory); its weights, with BN running
 statistics perturbed away from (0, 1), go into the port by
 ``state_dict_from_jax``. The GT boxes sit near the proposals' vote
 centers, so objectness has positives and the box losses are not all
@@ -79,14 +81,17 @@ def scenes(seed, b=B, n=N):
 
 def labels_near(seed, anchors, cfg):
     """GT dict whose first G - 2 boxes sit within 0.1 of ``anchors``
-    (b, >= G, 3), the vote centers of the proposals."""
+    (b, >= G, 3), the vote centers of the proposals. With more than one
+    heading bin (SUN RGB-D's 12) the boxes turn: heading classes and
+    residuals are drawn after every other draw, so ScanNet's labels are
+    those of a config without headings."""
     rng = np.random.RandomState(seed)
     b = anchors.shape[0]
     mask = np.ones((b, G), np.float32)
     mask[:, -2:] = 0
     center = np.asarray(anchors)[:, :G] + rng.uniform(-0.05, 0.05, (b, G, 3))
     center[:, -2:] = 0.0  # empty slots hold zeros, as the datasets write them
-    return {
+    labels = {
         "center_label": center.astype(np.float32),
         "box_label_mask": mask,
         "heading_class_label": np.zeros((b, G), np.int64),
@@ -97,6 +102,11 @@ def labels_near(seed, anchors, cfg):
         "vote_label": (rng.randn(b, N, 9) * 0.1).astype(np.float32),
         "vote_label_mask": rng.randint(0, 2, (b, N)).astype(np.int64),
     }
+    if cfg.num_heading_bin > 1:
+        half_bin = np.pi / cfg.num_heading_bin
+        labels["heading_class_label"] = rng.randint(0, cfg.num_heading_bin, (b, G)).astype(np.int64)
+        labels["heading_residual_label"] = rng.uniform(-half_bin, half_bin, (b, G)).astype(np.float32)
+    return labels
 
 
 def jitter_noise(key, b, k):
@@ -120,11 +130,21 @@ def perturb_batch_stats(variables, seed=5):
     return jtu.tree_map_with_path(perturb, variables)
 
 
-@pytest.fixture(scope="module")
-def setup():
+_SETUPS = {}
+
+
+def make_setup(dataset):
+    """The tiny model of ``dataset``, its perturbed weights, the scenes, the
+    JAX forward's end points and GT near them; one a dataset a module."""
+    if dataset not in _SETUPS:
+        _SETUPS[dataset] = _build_setup(dataset)
+    return _SETUPS[dataset]
+
+
+def _build_setup(dataset):
     from iou3dmatch_tpu.models.factory import build_votenet as build_jax
 
-    jm, cfg = build_jax("scannet", tiny=True)
+    jm, cfg = build_jax(dataset, tiny=True)
     pc = scenes(11)
     variables = jax.jit(lambda x: jm.init({"params": jax.random.PRNGKey(4)}, x, train=False))(
         jnp.asarray(pc))
@@ -137,12 +157,25 @@ def setup():
     ep, stats = _np_tree(ep), _np_tree(mut["batch_stats"])
     batch = labels_near(12, ep["aggregated_vote_xyz"], cfg)
     batch["point_clouds"] = pc
-    return SimpleNamespace(jm=jm, cfg=cfg, pcfg=get_config("scannet"), variables=variables,
-                           pc=pc, key=key, ep=ep, stats=stats, batch=batch, forward=forward)
+    return SimpleNamespace(jm=jm, cfg=cfg, pcfg=get_config(dataset), variables=variables,
+                           pc=pc, key=key, ep=ep, stats=stats, batch=batch, forward=forward,
+                           dataset=dataset)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return make_setup("scannet")
+
+
+@pytest.fixture(scope="module", params=["scannet", "sunrgbd"])
+def dataset_setup(request):
+    """ScanNet's setup, then SUN RGB-D's: 10 classes, 12 heading bins and
+    rotated GT boxes."""
+    return make_setup(request.param)
 
 
 def port_model(setup):
-    pm, _ = build_votenet("scannet", tiny=True, device="cpu")
+    pm, _ = build_votenet(setup.dataset, tiny=True, device="cpu")
     pm.load_state_dict(state_dict_from_jax(setup.variables), strict=True)
     return pm.train()
 
@@ -445,12 +478,16 @@ def test_config_tensor_helpers_match_jax(dataset):
 
 # -------------------------------------------------------------------- losses
 
-@pytest.fixture(scope="module")
-def loss_inputs(setup):
+def _loss_inputs(setup):
     """The JAX end points and GT of ``setup`` on both sides."""
     jep = {k: jnp.asarray(v) for k, v in setup.ep.items()}
     jbatch = {k: jnp.asarray(v) for k, v in setup.batch.items()}
     return jep, jbatch, {k: _t(v) for k, v in setup.ep.items()}, torch_batch(setup.batch)
+
+
+@pytest.fixture(scope="module")
+def loss_inputs(setup):
+    return _loss_inputs(setup)
 
 
 def test_vote_and_objectness_losses_match_jax(setup, loss_inputs):
@@ -480,10 +517,13 @@ def test_box_and_sem_cls_losses_match_jax(setup, loss_inputs):
     _close(got[7]["cls_acc"], want[7]["cls_acc"])
 
 
-def test_iou_labels_match_jax(setup, loss_inputs):
+def test_iou_labels_match_jax(dataset_setup):
+    """On SUN RGB-D the GT boxes are rotated: the clipping and the
+    ``pairs_apart`` rejection see turned extents."""
     from iou3dmatch_tpu.losses import iou_labels as jil
 
-    jep, jb, pep, pb = loss_inputs
+    setup = dataset_setup
+    jep, jb, pep, pb = _loss_inputs(setup)
     keys = ("aggregated_vote_xyz", "center", "heading_scores", "heading_residuals",
             "size_scores", "size_residuals")
     want = jil.compute_iou_labels(jb, *(jep[k] for k in keys), setup.cfg)
@@ -503,10 +543,11 @@ def test_iou_labels_match_jax(setup, loss_inputs):
         _close(g, w, atol=1e-5)
 
 
-def test_labeled_loss_and_metrics_match_jax(setup, loss_inputs):
+def test_labeled_loss_and_metrics_match_jax(dataset_setup):
     from iou3dmatch_tpu.losses import get_labeled_loss as jax_labeled_loss
 
-    jep, jb, pep, pb = loss_inputs
+    setup = dataset_setup
+    jep, jb, pep, pb = _loss_inputs(setup)
     want_loss, want = jax_labeled_loss(jep, jb, setup.cfg, B)
     got_loss, got = plabeled.get_labeled_loss(pep, pb, setup.pcfg, B)
     assert set(got) == set(want)
@@ -650,7 +691,7 @@ def test_adam_matches_optax():
         assert not np.allclose(np.asarray(jp), p0)
 
 
-def test_step0_gradient_matches_jax(setup):
+def test_step0_gradient_matches_jax(dataset_setup):
     """The whole step-0 gradient in float32 against JAX's: cosine > 0.999
     and relative L2 < 0.05, the JAX package's own step-0 bounds against the
     reference. Two float32 hazards stand behind it: PyTorch's CPU
@@ -663,6 +704,7 @@ def test_step0_gradient_matches_jax(setup):
     (tests/torch_grad_precision.py; ROADMAP.md, Queue 3)."""
     from iou3dmatch_tpu.losses import get_labeled_loss as jax_labeled_loss
 
+    setup = dataset_setup
     jm, cfg = setup.jm, setup.cfg
     key = jax.random.fold_in(jax.random.PRNGKey(42), 0)
     jb = {k: jnp.asarray(v) for k, v in setup.batch.items()}
@@ -690,7 +732,7 @@ def test_step0_gradient_matches_jax(setup):
     assert rel_l2 < 0.05, f"step-0 gradient relative L2 {rel_l2}"
 
 
-def test_pretrain_trajectory_matches_jax(setup):
+def test_pretrain_trajectory_matches_jax(dataset_setup):
     """3 steps of the port's make_pretrain_step against 3 of the JAX one,
     in float32, from the same weights, batches and jitter draws: the
     step-0 loss, the BN running statistics after step 0, later losses and
@@ -700,6 +742,7 @@ def test_pretrain_trajectory_matches_jax(setup):
     from iou3dmatch_tpu.train.state import make_optimizer as jax_optimizer
     from jax.flatten_util import ravel_pytree
 
+    setup = dataset_setup
     jm, cfg = setup.jm, setup.cfg
     keys = [jax.random.fold_in(jax.random.PRNGKey(42), i) for i in range(3)]
     batches = [setup.batch]

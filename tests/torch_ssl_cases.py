@@ -1,6 +1,8 @@
 """Inputs shared by the SSL tests of the port (tests/test_torch_ssl*.py).
 
-A tiny JAX VoteNet (ScanNet config, ``tiny=True``, 16 proposals) with BN
+A tiny JAX VoteNet (ScanNet config, or SUN RGB-D's with ``make_setup("sunrgbd")``:
+10 classes, 12 heading bins, rotated GT, the SSL step's ``trans_angle``;
+``tiny=True``, 16 proposals) with BN
 running statistics perturbed away from (0, 1), and a teacher whose
 parameters are the student's times (1 + 0.01 N(0, 1)) and whose running
 statistics are perturbed on their own, so that the EMA's mix and the
@@ -56,13 +58,19 @@ def close(got, want, atol=0.0, rtol=0.0, what=""):
                                rtol=rtol, atol=atol, err_msg=what)
 
 
-def augment(pc, seed):
+def augment(pc, seed, dataset="scannet"):
     """The student's view of ``pc`` (b, n, 4): flips, rotation about z,
-    scale, as the SSL datasets make it; returns (clouds, batch keys)."""
+    scale, as the SSL datasets make it; returns (clouds, batch keys). SUN
+    RGB-D's datasets never flip y and turn by up to 30 degrees: the same
+    draws, flip_y set to 0 and the angles scaled by (pi / 6) / 0.1."""
     rng = np.random.RandomState(seed)
     b = pc.shape[0]
     flip_x, flip_y = rng.randint(0, 2, b), rng.randint(0, 2, b)
-    angles = rng.uniform(-0.1, 0.1, b).astype(np.float32)
+    angles = rng.uniform(-0.1, 0.1, b)
+    if dataset == "sunrgbd":
+        flip_y[:] = 0
+        angles = angles * (np.pi / 6) / 0.1
+    angles = angles.astype(np.float32)
     c, s = np.cos(angles), np.sin(angles)
     zero, one = np.zeros(b), np.ones(b)
     rot_mat = np.stack([np.stack([c, -s, zero], -1), np.stack([s, c, zero], -1),
@@ -78,26 +86,38 @@ def augment(pc, seed):
                                      "rot_mat": rot_mat, "rot_angle": angles, "scale": scale}
 
 
-def thresholds(ep, rows):
+def thresholds(ep, rows, between=False):
     """Pseudo-label thresholds at quantiles of the teacher outputs ``ep``
-    on scenes ``rows``: a share of the boxes passes each."""
+    on scenes ``rows``: a share of the boxes passes each. The 0.2 quantile
+    of 16 scores is one box's own score, which each package computes to its
+    own last bits, so that box may pass in one and not in the other. With
+    ``between`` each threshold lies halfway between the two scores around
+    its quantile instead (SUN RGB-D's setup, whose box at the IoU quantile
+    passed in JAX only)."""
     import scipy.special as sp
 
     pos_obj = sp.softmax(ep["objectness_scores"][rows], -1)[..., 1]
     cls_probs = sp.softmax(ep["sem_cls_scores"][rows], -1)
     iou = sp.expit(np.take_along_axis(ep["iou_scores"][rows], cls_probs.argmax(-1)[..., None],
                                       axis=2)[..., 0])
-    return dict(obj_threshold=float(np.quantile(pos_obj, 0.3)),
-                cls_threshold=float(np.quantile(cls_probs.max(-1), 0.3)),
-                iou_threshold=float(np.quantile(iou, 0.2)))
+
+    def at(x, q):
+        if not between:
+            return float(np.quantile(x, q))
+        v = np.sort(x.ravel())
+        i = int(q * (v.size - 1))
+        return float((v[i] + v[i + 1]) / 2)
+
+    return dict(obj_threshold=at(pos_obj, 0.3), cls_threshold=at(cls_probs.max(-1), 0.3),
+                iou_threshold=at(iou, 0.2))
 
 
-def make_setup():
+def make_setup(dataset="scannet"):
     from iou3dmatch_tpu.models.factory import build_votenet as build_jax
 
-    jm, cfg = build_jax("scannet", tiny=True)
+    jm, cfg = build_jax(dataset, tiny=True)
     ema_pc = scenes(31)
-    pc, aug = augment(ema_pc, 32)
+    pc, aug = augment(ema_pc, 32, dataset)
     variables = jax.jit(lambda x: jm.init({"params": jax.random.PRNGKey(4)}, x, train=False))(
         jnp.asarray(pc))
     variables = perturb_batch_stats(np_tree(dict(variables)))
@@ -117,9 +137,10 @@ def make_setup():
     unlabeled = labels_near(36, teacher["aggregated_vote_xyz"][1:], cfg)
     batch = {k: np.concatenate([labeled[k], unlabeled[k]]) for k in labeled}
     batch.update(aug, point_clouds=pc, ema_point_clouds=ema_pc)
-    return SimpleNamespace(jm=jm, cfg=cfg, pcfg=get_config("scannet"), variables=variables,
+    return SimpleNamespace(jm=jm, cfg=cfg, pcfg=get_config(dataset), variables=variables,
                            ema=ema, batch=batch, key=key, forward=forward, teacher=teacher,
-                           thr=thresholds(teacher, slice(1, None)))
+                           thr=thresholds(teacher, slice(1, None), dataset == "sunrgbd"),
+                           dataset=dataset)
 
 
 def knobs(name):
@@ -143,7 +164,8 @@ def jax_state(setup):
 def jax_ssl_step(setup, name):
     from iou3dmatch_tpu.train import make_ssl_step as jax_make_ssl_step
 
-    return jax_make_ssl_step(setup.jm, setup.cfg, 1, adam_eps=ADAM_EPS, **setup.thr, **knobs(name))
+    return jax_make_ssl_step(setup.jm, setup.cfg, 1, adam_eps=ADAM_EPS, dataset=setup.dataset,
+                             **setup.thr, **knobs(name))
 
 
 def jax_gradient(params, new_state):
@@ -154,7 +176,7 @@ def jax_gradient(params, new_state):
 
 
 def port_state(setup):
-    pm, _ = build_votenet("scannet", tiny=True, device="cpu")
+    pm, _ = build_votenet(setup.dataset, tiny=True, device="cpu")
     pm.load_state_dict(state_dict_from_jax(setup.variables), strict=True)
     state = create_train_state(pm, adam_eps=ADAM_EPS, with_ema=True)
     state.ema_model.load_state_dict(state_dict_from_jax(setup.ema), strict=True)
@@ -162,7 +184,7 @@ def port_state(setup):
 
 
 def port_ssl_step(setup, name):
-    return make_ssl_step(setup.pcfg, 1, **setup.thr, **knobs(name))
+    return make_ssl_step(setup.pcfg, 1, dataset=setup.dataset, **setup.thr, **knobs(name))
 
 
 def port_noise(key, name, b=2):
