@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's detection forward, eval, pretrain step, SSL step, training input path, drivers and SUN RGB-D end to end on one NVIDIA GPU.
+"""Drives the PyTorch port's detection forward, eval, pretrain step, SSL step, training input path, drivers, SUN RGB-D end to end and the library modules on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (``nvcc``); it builds the kernels from
@@ -23,7 +23,13 @@ reported on its own line; a failed check raises and the exit code is not 0:
    step for the leader block and the others, and the overlaps computed and
    skipped; the ball query on surface scenes, the rotated IoU on rotated
    boxes), FPS also at ``--cluster_sampling vote_fps``'s shapes (over
-   1,024 and 2,048 votes),
+   1,024 and 2,048 votes) and at ``fps_prefix=False``'s (SA2-SA4 and
+   ``seed_fps`` over FPS-ordered sets, which must give back their
+   prefixes), and the shapes of phase 11 and of ``query_feats="vote"``
+   (the ball query at r 0.4 ns 128 over SA1 and the LFP's r 0.4 ns 16, the
+   gather and its backward there, the gather's backward at ns 64 with
+   C = 4, GridConv's gather and three_nn over the votes), rows marked off
+   the main path,
    with CUDA-event timings of kernel, plain version and library call, the
    launch floor (a one-element ``zero_()`` timed the same way), and the
    launch plans of FPS, the ball query, the gather's backward and
@@ -33,10 +39,13 @@ reported on its own line; a failed check raises and the exit code is not 0:
    element of an f64 sum, the IoU within atol 1e-5; it fails if a planned
    FPS variant spills, or three_nn, LHS or NMS spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene,
-   for the default model and two built with the samplings the drivers'
+   for the default model, two built with the samplings the drivers'
    ``--cluster_sampling`` reaches (FORWARD_KNOBS: vote_fps; random at given
-   indices), every index equal, FPS launched once for each layer that runs
-   it;
+   indices) and, after phase 5b, three with the knobs no driver sets
+   (MODEL_KNOBS: ``fps_prefix=False``; ``query_feats`` "vote" and
+   "seed+vote"), every index equal, FPS launched once for each layer that
+   runs it (5 without the prefix path, whose every output must equal the
+   default model's bit for bit);
 5. serving: 3 requests of 8 scenes x 40,000 points through the eval forward
    and ``parse_predictions``' two halves with IoU-guided class-aware NMS on
    the card, each request's picks equal to the host NumPy parse of the same
@@ -61,7 +70,10 @@ reported on its own line; a failed check raises and the exit code is not 0:
    timed steps of 8 scenes x 40,000 points (ms a step, scenes/s, peak
    memory, launches a step), one step's forward, backward and optimizer
    spans and its profile, and train-mode BatchNorm at that step's inputs
-   in the card's form and in the CPU's;
+   in the card's form and in the CPU's; then for each of TRAIN_KNOBS
+   (``fps_prefix=False`` with ``query_feats="seed+vote"``; "vote") the
+   same card-against-CPU step and 5 timed steps beside the default's
+   (launches a step as the default's, FPS 5 without the prefix path);
 7. SSL: one mean-teacher step of 1 labeled + 1 unlabeled scene on the card
    against the CPU, ``reference_exact`` with view-stats and thresholds low
    enough for pseudo labels (the gates of phase 6, pseudo labels on both
@@ -140,7 +152,22 @@ reported on its own line; a failed check raises and the exit code is not 0:
    subprocess, its AP lines and dumps equal to an in-process ``evaluate``'s;
    (d) each run's ms and scenes/s a step and launches a step beside the
    card's name and power limit, and the cuts of the recipe under ``reduced``.
-   Its temporary directory stays under 1 GB and is removed.
+   Its temporary directory stays under 1 GB and is removed;
+11. the PointNet++ modules VoteNet leaves unused (``phase_library``), on
+   rooms of 40,000 points: ``PointnetSAModuleMSGVotes`` at SA1 (npoint
+   2,048, height channel, r 0.2 ns 64 and r 0.4 ns 128, mlps (1, 64, 64,
+   128)), ``PointnetSAModuleVotes`` at SA1 with avg and rbf pooling,
+   ``QueryAndGroup`` at SA1's radius, ``PointnetLFPModuleMSG`` from SA2's
+   1,024 points (256 channels) to SA1's 2,048 (128 channels) and
+   ``PointnetSAModule(npoint=None)`` (GroupAll) over SA4's 256 points x 256
+   channels, each in train mode on one scene card against the CPU (indices
+   equal, outputs within atol and rtol 1e-3, gradients of the inputs and
+   the parameters with cosine > 0.999), then forward and backward at 8
+   scenes timed and its launches counted; the MSG module with
+   ``sample_uniformly`` (the card's resampling equal to the CPU core on the
+   card's indices and draws), and ``RandomDropout(0.5)`` on (8, 2,048,
+   128), whole channels zeroed, kept values unscaled, equal to the CPU core
+   on the card's draws.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
 lines. It also runs from the root of another checkout that has the SSL
@@ -211,7 +238,7 @@ from iou3dmatch_tpu_torch.losses import labeled as labeled_loss
 from iou3dmatch_tpu_torch.losses import unlabeled
 from iou3dmatch_tpu_torch.models.factory import build_votenet
 from iou3dmatch_tpu_torch.models import grid_conv, pointnet2
-from iou3dmatch_tpu_torch.models.mlp import BatchNorm, set_bn_momentum
+from iou3dmatch_tpu_torch.models.mlp import BatchNorm, RandomDropout, set_bn_momentum
 from iou3dmatch_tpu_torch.ops import _build
 from iou3dmatch_tpu_torch.ops.ball_query import (BallQueryLaunch, GatherBwdLaunch, ball_query,
                                                  ball_query_plain, ball_query_plan,
@@ -338,6 +365,8 @@ SERVE_CHECK_NMS_IOU = 0.02  # serving's outputs parsed again where the NMS drops
 # the kernels' launches a pretrain step and an SSL step
 TRAIN_LAUNCHES = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2, "lhs": 0,
                   "three_nn": 3, "nms": 0}
+# the knobs no driver sets, whose pretrain steps phase 6 runs beside the default's
+TRAIN_KNOBS = ({"fps_prefix": False, "query_feats": "seed+vote"}, {"query_feats": "vote"})
 SSL_LAUNCHES = {"fps": 1, "ball_query": 10, "gather": 12, "gather_bwd": 4, "iou3d": 3, "lhs": 1,
                 "three_nn": 6, "nms": 0}
 # Phase 8's dumps: ScanNet scans as data/prep_scannet.py writes them, at
@@ -652,7 +681,7 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
         if gbwd_sweep_on:
             gbwd_sweep(label, args, holds, r["plan"][1])
 
-    def gather(label, table, idx):
+    def gather(label, table, idx, main=True):
         b, n, c = table.shape
         q = idx.shape[1] * idx.shape[2]
         flat = idx.long().clamp(0, n - 1)
@@ -661,7 +690,7 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
         nbytes = rows_read * c * 4 + b * q * 4 + b * q * c * 4
         library = lambda t, i: t[rows_idx[:, :, None], flat]  # noqa: E731
         _, r = check_kernel("gather", label, group_points, group_points_plain, library,
-                            (table, idx), nbytes, lambda _: 0, ops_per_s, 10)
+                            (table, idx), nbytes, lambda _: 0, ops_per_s, 10, main=main)
         rows.setdefault("gather", []).append(r)
 
     # the forward's five ball queries and six gathers, at its shapes: SA2-SA4
@@ -701,6 +730,38 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     _, idx = three_nn(grid_queries(sa2_xyz, False, 5), sa2_xyz)
     gather(f"grid_conv ({B},1024,259)x({B},{K * 64},3)", torch.cat([sa2_xyz, f256], -1), idx)
 
+    # Off the default path, the knobs and library modules of phases 4, 6 and
+    # 11. fps_prefix=False: FPS over SA1's, SA2's and SA3's FPS-ordered
+    # centres and over the seeds must give back their prefixes.
+    sa3_xyz = sa2_xyz[:, :512].contiguous()
+    for what, pts, npoint in (("sa2 fps_prefix=False ", sa1_xyz.contiguous(), 1024),
+                              ("sa3 fps_prefix=False ", sa2_xyz, 512),
+                              ("sa4 fps_prefix=False ", sa3_xyz, 256),
+                              ("seed_fps fps_prefix=False ", sa2_xyz, K)):
+        _, got, r = fps_rows(dev, ops_per_s, B, False, pts, npoint, what)
+        rows["fps"].append(r)
+        prefix = torch.arange(npoint, dtype=torch.int32, device=dev).expand(B, -1)
+        if not torch.equal(got, prefix):
+            raise AssertionError(f"FPS over an FPS-ordered set at {r['shape']} is not its prefix")
+    # PointnetSAModuleMSGVotes at SA1: scale 0 is SA1's ball query and gather
+    # (rows above), scale 1 r 0.4 ns 128; the backward of both into the
+    # packed [xyz | height] table when the input takes a gradient
+    gather_bwd(f"msg sa1 ns64 ({B},{NPOINT * 64},4)->({B},{N},4)", pc,
+               ball_query(0.2, 64, xyz, sa1_xyz), main=False)
+    idx = bq(f"msg sa1 r0.4 ns128 ({B},{N})x{NPOINT}", 0.4, 128, xyz, sa1_xyz, main=False)
+    gather(f"msg sa1 ({B},{N},4)x({B},{NPOINT},128)", pc, idx, main=False)
+    gather_bwd(f"msg sa1 ns128 ({B},{NPOINT * 128},4)->({B},{N},4)", pc, idx, main=False)
+    # PointnetLFPModuleMSG from SA2 (1,024 points, 256 channels) to SA1's 2,048
+    idx = bq(f"lfp r0.4 ns16 ({B},1024)x{NPOINT}", 0.4, 16, sa2_xyz, sa1_xyz, main=False)
+    gather(f"lfp ({B},1024,259)x({B},{NPOINT},16)", torch.cat([sa2_xyz, f256], -1), idx,
+           main=False)
+    gather_bwd(f"lfp ({B},{NPOINT * 16},259)->({B},1024,259)", torch.cat([sa2_xyz, f256], -1),
+               idx, main=False)
+    # GridConv over the votes (query_feats="vote")
+    _, idx = three_nn(grid_queries(votes, False, 5), votes.contiguous())
+    gather(f"grid_conv query_feats=vote ({B},1024,259)x({B},{K * 64},3)",
+           torch.cat([votes, f256], -1), idx, main=False)
+
     # the SSL step's shapes: SA2's backward at the student's 12 scenes, and
     # SA1 at a forward's 12 clouds; off every path: SA1 on surface scenes,
     # where most balls fill and the early exit acts. Centers by FPS
@@ -719,7 +780,8 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     lhs_rows(dev, ops_per_s, rows)
     nms_rows(dev, ops_per_s, rows, floor, nms_sweep_on)
     # ctr: SA1's centers of the SSL step's 12 clouds
-    three_nn_rows(ops_per_s, rows, sa1_xyz, ctr, floor, nn_sweep_on, nn_counts_on)
+    three_nn_rows(ops_per_s, rows, sa1_xyz, ctr, floor, nn_sweep_on, nn_counts_on,
+                  votes.contiguous())
     return rows
 
 
@@ -791,7 +853,7 @@ def nn_counts(label, args, want, plan) -> dict:
 
 
 def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12, floor: float, sweep_on: bool = False,
-                  counts_on: bool = False):
+                  counts_on: bool = False, votes=None):
     """three_nn at every shape the paths launch it at: GridConv's queries
     among the 1,024 seeds of B scenes (serving, K boxes) and of B and SSL_B
     scenes (the pretrain and SSL steps, 2K boxes with the jittered copies),
@@ -802,14 +864,17 @@ def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12, floor: float, sweep_on: bool =
     the queries, the seeds and the outputs once, and (m + 3) PAIR_OPS a
     query; library_ms is None, as no one PyTorch call computes the function
     exactly, and the yardstick NN_YARDSTICK is timed beside it. Each row
-    names its plan (S, Q) and carries the launch floor ``floor``."""
+    names its plan (S, Q) and carries the launch floor ``floor``. With
+    ``votes`` (B, 1,024, 3), also GridConv's serving queries among them
+    (``query_feats="vote"``, off the default path)."""
     n_sm = torch.cuda.get_device_properties(sa1_8.device).multi_processor_count
 
-    def one(label, unknown, known):
+    def one(label, unknown, known, main=True):
         b, n, m = unknown.shape[0], unknown.shape[1], known.shape[1]
         nbytes = (b * n * 3 + b * m * 3) * 4 + b * n * 3 * (4 + 4)
         got, r = check_kernel("three_nn", label, three_nn, three_nn_plain, None, (unknown, known),
-                              nbytes, lambda _: b * n * (m + 3) * PAIR_OPS, ops_per_s, 5)
+                              nbytes, lambda _: b * n * (m + 3) * PAIR_OPS, ops_per_s, 5,
+                              main=main)
         plan = three_nn_plan(b, n, m, n_sm)
         r["plan"], r["blocks"], r["launch_floor_ms"] = list(plan), plan.blocks(b, n), floor
         r["pairs"] = b * n * m
@@ -836,6 +901,10 @@ def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12, floor: float, sweep_on: bool =
         b = pts.shape[0]
         one(f"fp1 ({b},512)x256", pts[:, :512].contiguous(), pts[:, :256].contiguous())
         one(f"fp2 ({b},1024)x512", pts[:, :1024].contiguous(), pts[:, :512].contiguous())
+    if votes is not None:
+        grid = grid_queries(votes, False, 60 + len("serving"))
+        one(f"grid_conv query_feats=vote ({votes.shape[0]},{grid.shape[1]})x1024 votes", grid,
+            votes, main=False)
 
 
 def make_boxes(rng, b: int, n: int, rotated: bool, cfg=None) -> np.ndarray:
@@ -1220,6 +1289,9 @@ def fps_ptxas(log: str) -> dict:
 
 # phase 4's models beside the default: the samplings --cluster_sampling reaches
 FORWARD_KNOBS = ({}, {"sampling": "vote_fps"}, {"sampling": "random"})
+# the knobs no driver sets; their forwards run after serving and eval, whose
+# first request's host time stalled 136-168 ms when they ran before (PERF.md)
+MODEL_KNOBS = ({"fps_prefix": False}, {"query_feats": "vote"}, {"query_feats": "seed+vote"})
 
 
 def phase_forward(model_gpu, dev, knobs: dict, dataset: str = "scannet", pc=None):
@@ -1227,7 +1299,10 @@ def phase_forward(model_gpu, dev, knobs: dict, dataset: str = "scannet", pc=None
     ``knobs`` on the card against the CPU on one scene (``pc``, or a room of
     ``make_scenes``): every index equal, outputs within atol and rtol 1e-3.
     ``random`` sampling takes the same given indices on both sides, drawn
-    on the CPU."""
+    on the CPU. With ``fps_prefix=False`` FPS runs 5 times (SA1, SA2-SA4,
+    ``seed_fps``) and every output equals the default model's
+    (``model_gpu``) on the card bit for bit."""
+    default_gpu = model_gpu
     if knobs:
         model_gpu, _ = build_votenet(dataset, device=dev, **knobs)
     model_cpu, _ = build_votenet(dataset, device="cpu", **knobs)  # same seed, same weights
@@ -1256,13 +1331,21 @@ def phase_forward(model_gpu, dev, knobs: dict, dataset: str = "scannet", pc=None
         diffs[k] = max_err(a, b)
         if not torch.isfinite(a).all() or not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
             raise AssertionError(f"{k} differs between the card and the CPU ({knobs}): max {diffs[k]}")
-    # FPS: SA1, then vote_fps
-    fps = 1 + (knobs.get("sampling") == "vote_fps")
+    # FPS: SA1, then vote_fps, or SA2-SA4 and seed_fps without the prefix path
+    fps = 1 + (knobs.get("sampling") == "vote_fps") + 4 * (knobs.get("fps_prefix") is False)
     if launches["fps"] != fps:
         raise AssertionError(f"the forward with {knobs} launched FPS {launches['fps']}, not {fps}")
+    extra = {}
+    if knobs.get("fps_prefix") is False:
+        with torch.inference_mode():
+            ep_default = default_gpu(pc.to(dev))
+        differ = [k for k, v in ep_default.items() if not torch.equal(ep_gpu[k], v)]
+        if differ or set(ep_default) != set(ep_gpu):
+            raise AssertionError(f"fps_prefix=False differs from the prefix path on the card: {differ}")
+        extra["equal_to_default_model"] = f"all {len(ep_default)} outputs bit for bit"
     say(phase="forward_vs_cpu", dataset=dataset, knobs=knobs, scenes=1, points=N, indices_equal=True,
         tol="atol 1e-3 rtol 1e-3", max_abs_diff=diffs, launches=launches, gpu_s=gpu_s,
-        cpu_s=cpu_s)
+        cpu_s=cpu_s, **extra)
 
 
 def same_picks(got, want, what: str) -> float:
@@ -1574,7 +1657,7 @@ def vote_anchors(pc: np.ndarray, dev, dataset: str = "scannet") -> np.ndarray:
 
 
 def train_check(cfg, dev, batch: dict, dataset: str = "scannet", what: str = "train_vs_cpu",
-                iou_labels: bool = False) -> dict:
+                iou_labels: bool = False, knobs: dict = None) -> dict:
     """One pretrain step of ``batch`` (2 scenes) on the card and on the CPU
     from the same weights and jitter draws: the loss within rtol 2e-3, the
     gradient with cosine > 0.999 and relative L2 < 0.05, FPS indices equal,
@@ -1582,13 +1665,13 @@ def train_check(cfg, dev, batch: dict, dataset: str = "scannet", what: str = "tr
     IoU labels (``compute_iou_labels``, the rotated IoU of its proposals and
     GT) within atol IOU_LABEL_ATOL of the CPU's, some above 0.25, and the
     card's IoU kernel on the card's own inputs within atol 1e-5 of its
-    plain version. Returns the losses and, with ``iou_labels``, the IoU
-    labels' largest difference."""
+    plain version. ``knobs`` go to ``build_votenet``. Returns the losses
+    and, with ``iou_labels``, the IoU labels' largest difference."""
     momentum = get_bn_momentum(0)
     noise = torch.randn((2, 2, K, 3), generator=torch.Generator().manual_seed(21))
     runs = []
     for where in (dev, torch.device("cpu")):
-        model, _ = build_votenet(dataset, device=where)  # seed 0: the same weights
+        model, _ = build_votenet(dataset, device=where, **(knobs or {}))  # seed 0: the same weights
         state = create_train_state(model)
         seen, iou_calls, pair_calls = {}, [], []
         hook = model.backbone_net.register_forward_hook(
@@ -1626,8 +1709,8 @@ def train_check(cfg, dev, batch: dict, dataset: str = "scannet", what: str = "tr
                    iou_kernel_vs_plain=max_err(got, box_pairs_plain(*args)),
                    gt_headings_nonzero=int((args[1][..., 6] != 0).sum()))
         tol += f", IoU labels atol {IOU_LABEL_ATOL}, the card's IoU atol 1e-5 of its plain version"
-    say(phase=what, dataset=dataset, scenes=len(batch["point_clouds"]), points=N, **row,
-        pos_ratio=pos, pos_ratio_cpu=pos_cpu, gpu_s=gpu_s, cpu_s=cpu_s, tol=tol)
+    say(phase=what, dataset=dataset, knobs=knobs or {}, scenes=len(batch["point_clouds"]),
+        points=N, **row, pos_ratio=pos, pos_ratio_cpu=pos_cpu, gpu_s=gpu_s, cpu_s=cpu_s, tol=tol)
     if not torch.equal(inds_gpu, inds_cpu):
         raise AssertionError("the step's FPS indices differ between the card and the CPU")
     if min(pos, pos_cpu) < MIN_POS_RATIO:
@@ -1655,12 +1738,29 @@ def phase_train(cfg, dev) -> tuple:
     loss carries gradient. Returns the kernels' launches over the 5 timed
     steps and the timed steps' ms, wall ms and scenes/s."""
     momentum = get_bn_momentum(0)
-    train_check(cfg, dev, make_train_batch(20, 2, cfg, vote_anchors(make_scenes(20, 2, N), dev)))
+    check_batch = make_train_batch(20, 2, cfg, vote_anchors(make_scenes(20, 2, N), dev))
+    train_check(cfg, dev, check_batch)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_train_batch(22, B, cfg).items()}
+    model, state, step, counts, stats = timed_train_steps(cfg, dev, batch, {})
+    phase_train_profile(model, state, step, batch, momentum)
+    # the knobs no driver sets: the same gates, and their steps' time beside
+    # the default one's (the anchors hold: neither knob moves the votes)
+    for knobs in TRAIN_KNOBS:
+        train_check(cfg, dev, check_batch, knobs=knobs)
+        timed_train_steps(cfg, dev, batch, knobs)
+    return counts, stats
 
-    model, _ = build_votenet("scannet", device=dev)
+
+
+def timed_train_steps(cfg, dev, batch: dict, knobs: dict) -> tuple:
+    """2 warm-up and 5 timed pretrain steps of ``batch`` on the model built
+    with ``knobs``; launches a step must be TRAIN_LAUNCHES (FPS 5 without
+    the prefix path). Returns the model, its state, the step, the launches
+    over the 5 steps and their ms, wall ms and scenes/s."""
+    momentum = get_bn_momentum(0)
+    model, _ = build_votenet("scannet", device=dev, **knobs)
     state = create_train_state(model)
     step = make_pretrain_step(cfg)
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_train_batch(22, B, cfg).items()}
     for _ in range(2):
         step(state, batch, LR, momentum)
     torch.cuda.synchronize()
@@ -1682,17 +1782,17 @@ def phase_train(cfg, dev) -> tuple:
     launches = {k: v / 5 for k, v in counts.items()}
     losses = torch.stack(losses).cpu()
     step_ms = [a.elapsed_time(e) for a, e in events]
-    say(phase="train", scenes=B, points=N, steps=5, step_ms=step_ms, wall_ms_per_step=wall_s * 200,
-        scenes_per_s=5 * B / wall_s, max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-        losses=losses.tolist(), launches_per_step=launches,
-        adam="torch.optim.Adam, foreach", lr=LR, bn_momentum=momentum)
+    say(phase="train", knobs=knobs, scenes=B, points=N, steps=5, step_ms=step_ms,
+        wall_ms_per_step=wall_s * 200, scenes_per_s=5 * B / wall_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev), losses=losses.tolist(),
+        launches_per_step=launches, adam="torch.optim.Adam, foreach", lr=LR, bn_momentum=momentum)
     if not torch.isfinite(losses).all():
-        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
-    if launches != TRAIN_LAUNCHES:
-        raise AssertionError(f"launches a step {launches}, expected {TRAIN_LAUNCHES}")
-    phase_train_profile(model, state, step, batch, momentum)
-    return counts, {"step_ms": step_ms, "wall_ms_per_step": wall_s * 200,
-                    "scenes_per_s": 5 * B / wall_s}
+        raise AssertionError(f"non-finite training loss ({knobs}): {losses.tolist()}")
+    expect = dict(TRAIN_LAUNCHES, fps=1 + 4 * (knobs.get("fps_prefix") is False))
+    if launches != expect:
+        raise AssertionError(f"launches a step {launches} ({knobs}), expected {expect}")
+    return model, state, step, counts, {"step_ms": step_ms, "wall_ms_per_step": wall_s * 200,
+                                        "scenes_per_s": 5 * B / wall_s}
 
 
 def phase_train_profile(model, state, step, batch, momentum):
@@ -2993,6 +3093,198 @@ def phase_sunrgbd(dev, card: str, ops_per_s: float, rows: dict, eval_request: di
         shutil.rmtree(root)
 
 
+# Phase 11's modules at SA1: PointnetSAModuleMSGVotes' two scales, as the
+# reference's MSG backbones group a room (pointnet2_modules.py:506-525)
+MSG_SA1 = dict(npoint=NPOINT, radii=(0.2, 0.4), nsamples=(64, 128),
+               mlps=((1, 64, 64, 128), (1, 64, 64, 128)))
+LIB_REPS = 5
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().ravel(), b.double().ravel()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def library_check(name: str, make, inputs, dev, n_grad: int, expect: dict, call=None) -> dict:
+    """Module ``make()`` (weights from a fixed seed, built on the CPU and
+    copied to the card), in train mode at BN momentum 0.1: on the first
+    scene of ``inputs(b)`` (a tuple of CPU tensors for b scenes, the first
+    ``n_grad`` taking a gradient) card against CPU, the first output (the
+    indices, where a module returns them last, equal) within atol and rtol
+    1e-3, the gradients of a random projection of the first float output
+    with respect to the inputs and to the parameters with cosine > 0.999;
+    then forward and backward at B scenes timed by CUDA events, and their
+    launches, which must equal ``expect``. ``call(module, *args)`` runs it
+    (the module itself by default) and returns its outputs as a tuple."""
+    call = call or (lambda m, *a: m(*a))
+    mod_cpu = make()
+    mod_gpu = make().to(dev)
+    for m in (mod_cpu, mod_gpu):
+        m.train()
+        set_bn_momentum(m, 0.1)
+
+    def run(m, args, where):
+        args = [a.to(where).clone(memory_format=torch.contiguous_format).requires_grad_(i < n_grad)
+                for i, a in enumerate(args)]
+        outs = call(m, *args)
+        out = next(o for o in outs if o is not None and o.is_floating_point() and o.requires_grad)
+        w = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(where)
+        (out * w).sum().backward()
+        grads = [a.grad for a in args[:n_grad]]
+        params = [p.grad for p in m.parameters()]
+        return outs, grads, params
+
+    one = tuple(t[:1] for t in inputs(1))
+    (outs_g, grads_g, params_g), (outs_c, grads_c, params_c) = (
+        run(mod_gpu, one, dev), run(mod_cpu, one, torch.device("cpu")))
+    row = {"module": name, "diffs": [], "grad_cosines": []}
+    for a, b in zip(outs_g, outs_c):
+        if a is None:
+            continue
+        a = a.detach().cpu()
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: indices differ between the card and the CPU")
+            continue
+        row["diffs"].append(max_err(a, b.detach()))
+        if not (torch.isfinite(a).all() and torch.allclose(a, b.detach(), rtol=1e-3, atol=1e-3)):
+            raise AssertionError(f"{name}: outputs differ between the card and the CPU: {row}")
+    pairs = list(zip(grads_g, grads_c))
+    if params_c:
+        pairs.append((torch.cat([g.cpu().ravel() for g in params_g]),
+                      torch.cat([g.ravel() for g in params_c])))
+    for a, b in pairs:
+        row["grad_cosines"].append(_cosine(a.cpu(), b))
+    if not all(c > 0.999 for c in row["grad_cosines"]):
+        raise AssertionError(f"{name}: gradient cosines {row['grad_cosines']}")
+
+    full = [a.to(dev).clone(memory_format=torch.contiguous_format).requires_grad_(i < n_grad)
+            for i, a in enumerate(inputs(B))]
+
+    def step():
+        mod_gpu.zero_grad(set_to_none=True)
+        outs = call(mod_gpu, *full)
+        out = next(o for o in outs if o is not None and o.is_floating_point() and o.requires_grad)
+        out.sum().backward()
+
+    for fn in KERNELS.values():
+        fn.launches = 0
+    step()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    row.update(scenes=B, launches=launches, fwd_bwd_ms=cuda_ms(step, 1, LIB_REPS))
+    say(phase="library", **row, tol="atol 1e-3 rtol 1e-3, gradient cosine > 0.999")
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches}, expected {expect}")
+    return row
+
+
+def phase_library(dev) -> dict:
+    """Phase 11: the PointNet++ modules VoteNet leaves unused, at full width
+    on rooms of N points (``make_scenes``): each held card against CPU on
+    one scene and timed at B scenes (``library_check``), the resampling and
+    RandomDropout on the card against their CPU cores."""
+    t0 = time.perf_counter()
+    pc = torch.from_numpy(make_scenes(30, B, N))
+    xyz, height = pc[..., :3].contiguous(), pc[..., 3:].contiguous()
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    rng = np.random.RandomState(31)
+    sa1 = furthest_point_sample(xyz.to(dev), NPOINT).long().cpu()
+    centers = xyz[torch.arange(B)[:, None], sa1].contiguous()  # FPS-ordered, as SA1 gives SA2
+    f128 = torch.from_numpy(rng.randn(B, NPOINT, 128).astype(np.float32))
+    f256 = torch.from_numpy(rng.randn(B, 1024, 256).astype(np.float32))
+    out = {}
+
+    def clouds(b):
+        return height[:b], xyz[:b]
+
+    def by_features(m, feats, pts, *rest):
+        return m(pts, feats, *rest)
+
+    out["msg_votes"] = library_check(
+        "PointnetSAModuleMSGVotes SA1 r0.2 ns64 + r0.4 ns128",
+        lambda: pointnet2.PointnetSAModuleMSGVotes(generator=gen(), **MSG_SA1), clouds, dev, 1,
+        {"fps": 1, "ball_query": 2, "gather": 2, "gather_bwd": 2}, by_features)
+
+    # sample_uniformly: the card draws its own u; its resampling is held to
+    # the CPU core on the card's indices and draws, then the module runs
+    g = torch.Generator(device=dev)
+    ctr = centers.to(dev)
+    for radius, ns in zip(MSG_SA1["radii"], MSG_SA1["nsamples"]):
+        idx = ball_query(radius, ns, xyz.to(dev), ctr)
+        new, cnt = pointnet2.uniform_resample_idx(idx, g.manual_seed(ns))
+        u = torch.rand(idx.shape, generator=g.manual_seed(ns), device=dev)
+        want = pointnet2.uniform_resample_from(idx.cpu(), u.cpu())
+        if not (torch.equal(new.cpu(), want[0]) and torch.equal(cnt.cpu(), want[1])
+                and bool((cnt >= 1).all()) and torch.equal(new[..., 0], idx[..., 0])):
+            raise AssertionError(f"uniform resampling at ns {ns} differs from the CPU core")
+        say(phase="library_resample", shape=f"({B},{NPOINT},{ns})", equal_to_cpu_core=True,
+            unique_cnt_min=float(cnt.min()), unique_cnt_mean=float(cnt.mean()))
+    msg_u = pointnet2.PointnetSAModuleMSGVotes(generator=gen(), sample_uniformly=True,
+                                               **MSG_SA1).to(dev).train()
+    set_bn_momentum(msg_u, 0.1)
+    feats_u = height.to(dev, copy=True).requires_grad_(True)
+
+    def uniform_step():
+        msg_u.zero_grad(set_to_none=True)
+        new_xyz, f, inds = msg_u(xyz.to(dev), feats_u, None, g)
+        f.sum().backward()
+        return new_xyz, f, inds
+
+    new_xyz, f, inds = uniform_step()
+    if not (f.shape == (B, NPOINT, 256) and inds.shape == (B, NPOINT) and new_xyz.shape ==
+            (B, NPOINT, 3) and torch.isfinite(f).all() and torch.isfinite(feats_u.grad).all()):
+        raise AssertionError(f"sample_uniformly: shapes {f.shape} {inds.shape}")
+    out["msg_votes_uniform"] = {"fwd_bwd_ms": cuda_ms(uniform_step, 1, LIB_REPS)}
+    say(phase="library", module="PointnetSAModuleMSGVotes sample_uniformly", scenes=B,
+        **out["msg_votes_uniform"])
+
+    for pooling in ("avg", "rbf"):
+        out[f"sa_{pooling}"] = library_check(
+            f"PointnetSAModuleVotes SA1 pooling={pooling}",
+            lambda: pointnet2.PointnetSAModuleVotes(mlp=(1, 64, 64, 128), npoint=NPOINT,
+                                                    radius=0.2, nsample=64, generator=gen(),
+                                                    pooling=pooling),
+            clouds, dev, 1, {"fps": 1, "ball_query": 1, "gather": 1, "gather_bwd": 1},
+            by_features)
+    out["query_and_group"] = library_check(
+        "QueryAndGroup r0.2 ns64 normalize_xyz ret_grouped_xyz",
+        lambda: pointnet2.QueryAndGroup(0.2, 64, normalize_xyz=True, ret_grouped_xyz=True),
+        lambda b: (height[:b], xyz[:b], centers[:b]), dev, 1,
+        {"ball_query": 1, "gather": 1, "gather_bwd": 1},
+        lambda m, feats, pts, ctr: m(pts, ctr, feats))
+    out["lfp"] = library_check(
+        "PointnetLFPModuleMSG SA2 (1024, 256) -> SA1 (2048, 128) r0.4 ns16",
+        lambda: pointnet2.PointnetLFPModuleMSG(radii=(0.4,), nsamples=(16,), mlps=((256, 256),),
+                                               post_mlp=(384, 256), generator=gen()),
+        lambda b: (f128[:b], f256[:b], centers[:b], centers[:b, :1024].contiguous()), dev, 2,
+        {"ball_query": 1, "gather": 1, "gather_bwd": 1},
+        lambda m, f2, f1, xyz2, xyz1: (m(xyz2, xyz1, f2, f1),))
+    out["group_all"] = library_check(
+        "PointnetSAModule npoint=None (GroupAll) over SA4 (256, 256)",
+        lambda: pointnet2.PointnetSAModule(mlp=(256, 256, 512), generator=gen()),
+        lambda b: (f256[:b, :256], centers[:b, :256].contiguous()), dev, 1, {}, by_features)
+
+    # RandomDropout: the card's draws, then the CPU core on them
+    x = torch.from_numpy(rng.randn(B, NPOINT, 128).astype(np.float32)).to(dev)
+    drop = RandomDropout(0.5).train()
+    got = drop(x, generator=g.manual_seed(7))
+    theta = torch.rand((), generator=g.manual_seed(7), device=dev) * 0.5
+    u = torch.rand(128, generator=g, device=dev)
+    keep = u >= theta
+    whole = bool(((got == 0) | (got == x)).all() and (got[..., ~keep] == 0).all()
+                 and torch.equal(got[..., keep], x[..., keep]))
+    cpu_equal = torch.equal(drop(x.cpu(), draws=(theta.cpu(), u.cpu())), got.cpu())
+    out["dropout"] = {"kept_channels": int(keep.sum()), "theta": float(theta),
+                      "fwd_ms": cuda_ms(lambda: drop(x, generator=g), 1, LIB_REPS)}
+    say(phase="library", module="RandomDropout p=0.5", shape=f"({B},{NPOINT},128)",
+        whole_channels_unscaled=whole, equal_to_cpu_core=cpu_equal, **out["dropout"])
+    if not (whole and cpu_equal and 0 < int(keep.sum()) < 128):
+        raise AssertionError(f"RandomDropout on the card: {out['dropout']}")
+    say(phase="library_done", seconds=time.perf_counter() - t0)
+    return out
+
+
 def phase_profile(model, forward, pc):
     """Where one request's forward spends its time: CUDA-event spans per
     layer (host launch time included, as the request sees it), then the
@@ -3096,12 +3388,15 @@ def main() -> int:
         phase_forward(model, dev, knobs)
     serve = phase_serve(model, cfg, dev)
     evals = phase_eval(model, cfg, dev)
+    for knobs in MODEL_KNOBS:
+        phase_forward(model, dev, knobs)
     train, train_stats = phase_train(cfg, dev)
     ssl, ssl_stats = phase_ssl(cfg, dev)
     data = phase_data(cfg, dev, train_stats, ssl_stats)
     eval_request = {k: v // 3 for k, v in evals[0].items()}
     drivers = phase_drivers(cfg, dev, eval_request)
     sunrgbd = phase_sunrgbd(dev, card, ops_per_s, rows, eval_request)
+    phase_library(dev)
 
     kernels = []
     for name, checks in rows.items():

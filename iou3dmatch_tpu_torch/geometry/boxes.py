@@ -4,10 +4,24 @@ Counterpart of ``iou3dmatch_tpu/geometry/boxes.py`` (reference
 ``utils/box_util.py`` and ``models/ap_helper.py:28-41``): ``rot_gpu`` and
 ``corners_aabb`` on tensors for the model and the pseudo labels,
 ``get_3d_box_batch_tensor`` for the eval decode on the card, and the NumPy
-helpers for the host-side eval path.
+helpers for the host-side eval path and the library surface (the 2D IoU of
+``get_iou`` and ``box2d_iou``, the paired axis-aligned IoU of corners,
+``corners3d_to_parameter``, ``check_valid_corners3d``).
 """
 import numpy as np
 import torch
+
+
+def rotz(t):
+    """NumPy z-rotation matrix (utils/box_util.py:256-263)."""
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+
+
+def roty_np(t):
+    """NumPy y-rotation matrix (utils/box_util.py:266-272)."""
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
 
 
 def rot_gpu(t: torch.Tensor) -> torch.Tensor:
@@ -59,6 +73,17 @@ def get_3d_box_np(box_size, heading_angle, center):
     z = np.array([w, -w, -w, w, w, -w, -w, w]) / 2.0
     corners = np.stack([x, y, z], axis=-1) @ R.T
     return corners + np.asarray(center)
+
+
+def get_3d_box_depth_np(box_size, heading_angle, center):
+    """One box's corners in the depth frame (z up, heading about z), (8, 3)
+    (utils/box_util.py:309-332)."""
+    R = rotz(heading_angle)
+    l, w, h = box_size[0], box_size[1], box_size[2]
+    x = np.array([l, l, -l, -l, l, l, -l, -l]) / 2.0
+    y = np.array([w, -w, -w, w, w, -w, -w, w]) / 2.0
+    z = np.array([h, h, h, h, -h, -h, -h, -h]) / 2.0
+    return (R @ np.vstack([x, y, z])).T + np.asarray(center)
 
 
 def get_3d_box_batch_np(box_size, heading_angle, center):
@@ -114,6 +139,83 @@ def box3d_vol_batch_np(corners):
     w = np.sqrt(np.linalg.norm(corners[:, 0, :] - corners[:, 1, :], axis=1))
     h = np.sqrt(np.linalg.norm(corners[:, 0, :] - corners[:, 4, :], axis=1))
     return l * w * h
+
+
+def get_iou(bb1, bb2):
+    """Axis-aligned 2D IoU of dict boxes {'x1', 'y1', 'x2', 'y2'}
+    (utils/box_util.py:189-237); raises on a box with x1 >= x2 or
+    y1 >= y2. Not ``eval/eval_det.py::get_iou``, the 3D IoU of
+    (center, lengths) boxes."""
+    for bb in (bb1, bb2):
+        if not (bb["x1"] < bb["x2"] and bb["y1"] < bb["y2"]):
+            raise ValueError(f"get_iou needs x1 < x2 and y1 < y2, got {bb}")
+    x_left = max(bb1["x1"], bb2["x1"])
+    y_top = max(bb1["y1"], bb2["y1"])
+    x_right = min(bb1["x2"], bb2["x2"])
+    y_bottom = min(bb1["y2"], bb2["y2"])
+    if x_right < x_left or y_bottom < y_top:
+        return 0.0
+    inter = (x_right - x_left) * (y_bottom - y_top)
+    area1 = (bb1["x2"] - bb1["x1"]) * (bb1["y2"] - bb1["y1"])
+    area2 = (bb2["x2"] - bb2["x1"]) * (bb2["y2"] - bb2["y1"])
+    return inter / float(area1 + area2 - inter)
+
+
+def box2d_iou(box1, box2):
+    """(xmin, ymin, xmax, ymax) tuples -> IoU (utils/box_util.py:240-250)."""
+    return get_iou({"x1": box1[0], "y1": box1[1], "x2": box1[2], "y2": box1[3]},
+                   {"x1": box2[0], "y1": box2[1], "x2": box2[2], "y2": box2[3]})
+
+
+def box3d_iou_batch_np(corners1, corners2):
+    """Paired axis-aligned IoU of (..., 8, 3) corner arrays -> (...,)
+    (utils/box_util.py:384-411); the tensor form is
+    ``geometry/iou3d.py::box3d_iou_axis_aligned``."""
+    max_a, max_b = np.max(corners1, axis=-2), np.max(corners2, axis=-2)
+    min_a, min_b = np.min(corners1, axis=-2), np.min(corners2, axis=-2)
+    vol_a = (max_a - min_a).prod(axis=-1)
+    vol_b = (max_b - min_b).prod(axis=-1)
+    inter = np.clip(np.minimum(max_a, max_b) - np.maximum(min_a, min_b), 0, None).prod(axis=-1)
+    return inter / (vol_a + vol_b - inter + 1e-8)
+
+
+def corners3d_to_parameter(corners_3d):
+    """(8, 3) upright-camera corners -> (7,) depth-frame box
+    [cx, cy, cz, l, w, h, heading] (utils/box_util.py:442-469)."""
+    center = 0.5 * (corners_3d.max(0) + corners_3d.min(0))
+    x_side = corners_3d[0] - corners_3d[3]
+    y_side = corners_3d[0] - corners_3d[4]
+    z_side = corners_3d[0] - corners_3d[1]
+    l = np.linalg.norm(x_side)
+    w = np.linalg.norm(z_side)
+    h = np.linalg.norm(y_side)
+    heading_angle = np.arccos(x_side[0] / l)
+    return np.concatenate([[center[0], center[2], -center[1]], [l, w, h], [heading_angle]])
+
+
+def check_valid_corners3d(corners_3d):
+    """True iff the (8, 3) corners form a rectangular cuboid within the
+    reference's tolerances (utils/box_util.py:472-521): parallel edges
+    equal to 2 decimals, the edges at corner 0 perpendicular to 1 decimal,
+    and not all near zero. ``npt.assert_almost_equal(decimal=d)`` passes
+    below 1.5 * 10 ** -d."""
+    c = np.asarray(corners_3d, dtype=float)
+    x_lines = np.stack([c[0] - c[3], c[1] - c[2], c[4] - c[7], c[5] - c[6]])
+    y_lines = np.stack([c[0] - c[4], c[1] - c[5], c[3] - c[7], c[2] - c[6]])
+    z_lines = np.stack([c[0] - c[1], c[4] - c[5], c[3] - c[2], c[7] - c[6]])
+    lengths = np.stack([np.linalg.norm(x_lines, axis=1), np.linalg.norm(y_lines, axis=1),
+                        np.linalg.norm(z_lines, axis=1)], axis=1)  # (4, 3)
+    if np.all(np.abs(lengths[0]) < 1.5e-1):
+        return False  # a degenerate, near-zero box
+    for i in range(4):
+        for j in range(i + 1, 4):
+            if not np.all(np.abs(lengths[i] - lengths[j]) < 1.5e-2):
+                return False
+    e_y, e_z, e_x = c[0] - c[4], c[0] - c[1], c[0] - c[3]
+    for a, b in ((e_y, e_z), (e_y, e_x), (e_z, e_x)):
+        if not abs(a @ b) < 1.5e-1:
+            return False
+    return True
 
 
 # the unit corners of get_3d_box_batch_np: signs of l, h and w for x, y, z

@@ -228,3 +228,16 @@ def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
 def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     """(N, 7) x (M, 7) -> (N, M) rotated BEV IoU."""
     return _all_pairs(boxes_a, boxes_b, "iou_bev")
+
+
+def box3d_iou_axis_aligned(corners1: torch.Tensor, corners2: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned IoU of boxes given by corners, (..., P, 3) each ->
+    (...,): the bounds are the corners' max and min, as
+    ``box3d_iou_gpu_axis_aligned`` (utils/box_util.py:413-439) reads its
+    [max corner; min corner] pairs. Differentiable; on any device."""
+    max_a, min_a = corners1.amax(-2), corners1.amin(-2)
+    max_b, min_b = corners2.amax(-2), corners2.amin(-2)
+    vol_a = (max_a - min_a).prod(-1)
+    vol_b = (max_b - min_b).prod(-1)
+    inter = (torch.minimum(max_a, max_b) - torch.maximum(min_a, min_b)).clamp(min=0.0).prod(-1)
+    return inter / (vol_a + vol_b - inter + 1e-8)

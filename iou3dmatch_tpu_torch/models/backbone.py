@@ -5,8 +5,11 @@ Counterpart of ``iou3dmatch_tpu/models/backbone.py`` (reference
 (2048/1024/512/256 points, radii 0.2/0.4/0.8/1.2, nsample 64/32/16/16) and
 two FP layers; the seeds are fp2 (1024 points, 256-d features).
 
-SA2-SA4 take the "prefix" path: their input is FPS-ordered, so FPS over it
-picks its first npoint points in order and the kernel is skipped.
+With ``fps_prefix`` (the default) SA2-SA4 take the "prefix" path: their
+input is FPS-ordered, so FPS over it picks its first npoint points in order
+and the kernel is skipped. ``fps_prefix=False`` runs FPS in each of them,
+as the reference does (JAX ``models/backbone.py:76-84``); the outputs are
+the same.
 """
 from typing import Optional, Sequence
 
@@ -20,8 +23,9 @@ class Pointnet2Backbone(nn.Module):
     def __init__(self, input_feature_dim: int, generator: torch.Generator,
                  sa_npoints: Sequence[int] = (2048, 1024, 512, 256),
                  sa_radii: Sequence[float] = (0.2, 0.4, 0.8, 1.2),
-                 sa_nsamples: Sequence[int] = (64, 32, 16, 16)):
+                 sa_nsamples: Sequence[int] = (64, 32, 16, 16), fps_prefix: bool = True):
         super().__init__()
+        self.fps_prefix = fps_prefix
         mlps = ((input_feature_dim, 64, 64, 128), (128, 128, 128, 256),
                 (256, 128, 128, 256), (256, 128, 128, 256))
         for i, (npoint, radius, nsample, mlp) in enumerate(
@@ -42,11 +46,12 @@ class Pointnet2Backbone(nn.Module):
         ep = {}
         xyz, features, inds = self.sa1(xyz, features, inds=sa1_inds)
         ep["sa1_inds"], ep["sa1_xyz"], ep["sa1_features"] = inds, xyz, features
-        xyz, features, inds = self.sa2(xyz, features, inds="prefix")
+        prefix = "prefix" if self.fps_prefix else None
+        xyz, features, inds = self.sa2(xyz, features, inds=prefix)
         ep["sa2_inds"], ep["sa2_xyz"], ep["sa2_features"] = inds, xyz, features
-        xyz, features, _ = self.sa3(xyz, features, inds="prefix")
+        xyz, features, _ = self.sa3(xyz, features, inds=prefix)
         ep["sa3_xyz"], ep["sa3_features"] = xyz, features
-        xyz, features, _ = self.sa4(xyz, features, inds="prefix")
+        xyz, features, _ = self.sa4(xyz, features, inds=prefix)
         ep["sa4_xyz"], ep["sa4_features"] = xyz, features
 
         features = self.fp1(ep["sa3_xyz"], ep["sa4_xyz"], ep["sa3_features"],

@@ -1,16 +1,25 @@
 """GridConv IoU-prediction branch.
 
 Counterpart of ``iou3dmatch_tpu/models/grid_conv.py`` (reference
-``models/grid_conv_module.py:22-116``) with ``query_feats="seed"``: a 4x4x4
-grid spanning +-the half-extent of each predicted box (rotated by heading,
-offset by center), 3-NN inverse-distance interpolation of the seed features
-onto the grid points, [box-relative grid xyz | interpolated features], a
-SharedMLP, a max over the 64 grid points and a conv head whose last
-``num_class`` channels are the per-class IoU logits.
+``models/grid_conv_module.py:22-116``): a 4x4x4 grid spanning +-the
+half-extent of each predicted box (rotated by heading, offset by center),
+3-NN inverse-distance interpolation of origin features onto the grid
+points, [box-relative grid xyz | interpolated features], a SharedMLP, a max
+over the 64 grid points and a conv head whose last ``num_class`` channels
+are the per-class IoU logits.
+
+``query_feats`` picks the origins (JAX ``grid_conv.py:116-123``), both
+detached: ``"seed"`` (the default) ``seed_xyz`` with ``seed_features``,
+``"vote"`` ``vote_xyz`` with ``vote_features``, ``"seed+vote"``
+``seed_xyz`` with ``vote_features``. ``"seed+vote"`` pairs S seeds with
+S * vote_factor vote rows, which line up only at vote_factor 1: the JAX
+module raises on the shapes past that (its one-hot product contracts S
+against S * vote_factor), and ``VoteNet`` refuses the pair when it is
+built.
 
 The interpolation takes the reference's gather form (the JAX package's
 ``IOU3DMATCH_GRIDCONV_GATHER`` branch, ``grid_conv.py:158-169``): three_nn
-indices, one ``group_points`` gather of the packed seed [xyz | features],
+indices, one ``group_points`` gather of the packed origin [xyz | features],
 distances recomputed from the gathered xyz, a weighted sum.
 """
 import numpy as np
@@ -23,6 +32,7 @@ from ..ops import group_points, three_nn
 from .mlp import BatchNorm, SharedMLP, head_conv
 
 GRID_SIZE = 4
+QUERY_FEATS = ("seed", "vote", "seed+vote")
 
 
 def _grid_offsets() -> np.ndarray:
@@ -35,9 +45,13 @@ def _grid_offsets() -> np.ndarray:
 
 class GridConv(nn.Module):
     def __init__(self, num_class: int, num_heading_bin: int, num_size_cluster: int,
-                 generator: torch.Generator, seed_feat_dim: int = 256):
+                 generator: torch.Generator, seed_feat_dim: int = 256,
+                 query_feats: str = "seed"):
         super().__init__()
+        if query_feats not in QUERY_FEATS:
+            raise ValueError(f"query_feats is one of {QUERY_FEATS}, not {query_feats!r}")
         self.num_class = num_class
+        self.query_feats = query_feats
         self.register_buffer(
             "offsets", torch.as_tensor(_grid_offsets(), dtype=torch.float32), persistent=False)
         self.mlp_before_iou = SharedMLP((3 + seed_feat_dim, 128, 128, 128), generator)
@@ -51,9 +65,11 @@ class GridConv(nn.Module):
     def forward(self, center: torch.Tensor, size: torch.Tensor, heading: torch.Tensor,
                 ep: dict) -> dict:
         """center (B, K, 3), size (B, K, 3) half extents, heading (B, K).
-        The seeds are detached, as the JAX branch stops their gradient
+        The origins are detached, as the JAX branch stops their gradient
         (``grid_conv.py:124-125``): the IoU loss trains this branch only."""
-        seed_xyz, seed_features = ep["seed_xyz"].detach(), ep["seed_features"].detach()
+        xyz_key = "vote_xyz" if self.query_feats == "vote" else "seed_xyz"
+        feat_key = "seed_features" if self.query_feats == "seed" else "vote_features"
+        origin_xyz, origin_features = ep[xyz_key].detach(), ep[feat_key].detach()
         b, k = size.shape[:2]
         g = GRID_SIZE ** 3
         rel = self.offsets[None, None] * size[:, :, None, :]  # (B, K, 64, 3)
@@ -62,8 +78,8 @@ class GridConv(nn.Module):
         grid = grid + center[:, :, None, :]
         flat_grid = grid.reshape(b, k * g, 3)
 
-        _, idx = three_nn(flat_grid, seed_xyz)  # (B, K*64, 3)
-        packed = torch.cat([seed_xyz, seed_features], dim=-1)
+        _, idx = three_nn(flat_grid, origin_xyz)  # (B, K*64, 3)
+        packed = torch.cat([origin_xyz, origin_features], dim=-1)
         grouped = group_points(packed, idx)  # (B, K*64, 3, 3+C)
         diff = grouped[..., :3] - flat_grid[:, :, None, :]
         dist = torch.sqrt((diff * diff).sum(dim=-1))

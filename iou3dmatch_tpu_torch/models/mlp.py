@@ -85,6 +85,35 @@ def set_bn_momentum(model: nn.Module, momentum: float) -> None:
             mod.momentum = float(momentum)
 
 
+class RandomDropout(nn.Module):
+    """Whole-channel dropout at a rate drawn afresh each call, without the
+    1 / (1 - theta) rescale (JAX ``models/mlp.py:66-87``, reference
+    ``pointnet2_utils.py:41-49``): in train mode theta ~ U(0, p), then one
+    keep mask of shape (C,), channel c kept where its draw u_c >= theta,
+    shared by the whole channels-last tensor. Eval mode, or p = 0, returns
+    the input.
+
+    The draws come from ``generator`` (on the input's device), theta first,
+    then the C mask draws; ``draws=(theta, u)`` gives them instead."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator=None, draws=None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if draws is None:
+            if generator is None:
+                raise ValueError("RandomDropout draws from an explicit generator: "
+                                 "pass generator= or draws=")
+            theta = torch.rand((), generator=generator, device=x.device) * self.p
+            u = torch.rand(x.shape[-1], generator=generator, device=x.device)
+        else:
+            theta, u = draws
+        return x * (u >= theta).to(x.dtype)
+
+
 class PointwiseConv(nn.Module):
     """A 1x1 convolution applied to channels-last input. ``weight`` keeps the
     convolution's shape: (out, in, 1, 1) in a SharedMLP, (out, in, 1) in a

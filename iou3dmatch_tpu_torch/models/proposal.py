@@ -5,8 +5,9 @@ Counterpart of ``iou3dmatch_tpu/models/proposal.py`` (reference
 num_proposal groups, by ``sampling``:
 
 - ``seed_fps`` (the default): at FPS over the seeds. The seeds (SA2's xyz)
-  are FPS-ordered, so FPS picks the first num_proposal in order: the
-  "prefix" path, no kernel.
+  are FPS-ordered, so FPS picks the first num_proposal in order: with
+  ``fps_prefix`` (the default) the "prefix" path, no kernel; without it,
+  FPS over ``seed_xyz`` (JAX ``models/proposal.py:72-79``).
 - ``vote_fps``: at FPS over the votes.
 - ``random``: at indices drawn uniformly from [0, num_seed) by
   ``torch.randint`` from the ``generator`` the caller passes (the
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import furthest_point_sample
 from .mlp import BatchNorm, head_conv
 from .pointnet2 import PointnetSAModuleVotes
 
@@ -35,12 +37,13 @@ class ProposalModule(nn.Module):
     def __init__(self, num_class: int, num_heading_bin: int, num_size_cluster: int,
                  mean_size_arr, generator: torch.Generator, num_proposal: int = 128,
                  seed_feat_dim: int = 256, agg_radius: float = 0.3, agg_nsample: int = 16,
-                 sampling: str = "seed_fps"):
+                 sampling: str = "seed_fps", fps_prefix: bool = True):
         super().__init__()
         if sampling not in SAMPLINGS:
             raise ValueError(f"sampling is one of {SAMPLINGS}, not {sampling!r}")
         self.num_proposal = num_proposal
         self.sampling = sampling
+        self.fps_prefix = fps_prefix
         self.num_class = num_class
         self.num_heading_bin = num_heading_bin
         self.num_size_cluster = num_size_cluster
@@ -67,7 +70,8 @@ class ProposalModule(nn.Module):
         if self.sampling == "vote_fps":
             inds = None
         elif self.sampling == "seed_fps":
-            inds = "prefix"
+            inds = "prefix" if self.fps_prefix else furthest_point_sample(
+                ep["seed_xyz"], self.num_proposal)
         else:
             inds = sample_inds
             if inds is None:

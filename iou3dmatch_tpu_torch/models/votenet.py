@@ -8,7 +8,9 @@ class, HALF sizes) -> GridConv IoU branch, and the training forward
 copies of the boxes, and ``forward_onlyiou`` (``votenet.py:205-209``), the
 IoU branch alone on given boxes, for test-time IoU optimisation.
 
-``sampling`` goes to the proposal module. With ``random`` sampling every
+``sampling`` goes to the proposal module, ``query_feats`` to GridConv and
+``fps_prefix`` to the backbone and the proposal module (JAX
+``votenet.py:41-65``). With ``random`` sampling every
 forward takes a ``generator`` (or given ``sample_inds``);
 ``forward_with_pred_jitter`` draws the proposal indices first and the
 jitter after them, from the same generator.
@@ -30,19 +32,25 @@ class VoteNet(nn.Module):
     def __init__(self, num_class: int, num_heading_bin: int, num_size_cluster: int,
                  mean_size_arr, generator: torch.Generator, input_feature_dim: int = 0,
                  num_proposal: int = 128, vote_factor: int = 1,
-                 sa_npoints=(2048, 1024, 512, 256), sampling: str = "seed_fps"):
+                 sa_npoints=(2048, 1024, 512, 256), sampling: str = "seed_fps",
+                 query_feats: str = "seed", fps_prefix: bool = True):
         super().__init__()
+        if query_feats == "seed+vote" and vote_factor != 1:
+            raise ValueError("query_feats='seed+vote' pairs each seed with one vote: it needs "
+                             f"vote_factor 1, not {vote_factor} (the JAX GridConv fails on "
+                             "the shapes)")
         self.num_heading_bin = num_heading_bin
         self.register_buffer(
             "mean_size", torch.as_tensor(np.asarray(mean_size_arr), dtype=torch.float32),
             persistent=False)
         self.backbone_net = Pointnet2Backbone(input_feature_dim, generator,
-                                              sa_npoints=sa_npoints)
+                                              sa_npoints=sa_npoints, fps_prefix=fps_prefix)
         self.vgen = VotingModule(vote_factor, 256, generator)
         self.pnet = ProposalModule(num_class, num_heading_bin, num_size_cluster,
                                    mean_size_arr, generator, num_proposal=num_proposal,
-                                   sampling=sampling)
-        self.grid_conv = GridConv(num_class, num_heading_bin, num_size_cluster, generator)
+                                   sampling=sampling, fps_prefix=fps_prefix)
+        self.grid_conv = GridConv(num_class, num_heading_bin, num_size_cluster, generator,
+                                  query_feats=query_feats)
 
     def class2angle(self, cls: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         """Heading decode; ScanNet (1 bin) is always 0."""

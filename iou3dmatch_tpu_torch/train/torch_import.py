@@ -22,7 +22,11 @@ def flax_path_to_torch_key(path_names) -> str:
     ``batch_stats/vgen/bn1/mean`` -> ``vgen.bn1.running_mean``.
 
     A SharedMLP is ``mlp_module`` in SA and vote-aggregation modules and
-    keeps its own name in FP (``mlp``) and GridConv (``mlp_before_iou``)."""
+    keeps its own name in FP (``mlp``), GridConv (``mlp_before_iou``) and
+    the MSG and LFP modules (``mlp{i}``). LFP's ``post_mlp{i}`` does not
+    start with ``mlp``, so its layers keep their flax names (``dense{j}``,
+    ``bn{j}``), as the JAX package's ``export_state_dict`` writes them;
+    ``models/pointnet2.py::PostMLP`` holds those keys."""
     _, *mods, leaf = path_names
     if leaf not in _LEAF:
         raise KeyError(f"no destination for leaf {'/'.join(path_names)}")

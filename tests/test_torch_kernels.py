@@ -13,6 +13,9 @@ tile, and pairs across the reach of the containment margin; lower-half
 suppression on clustered boxes, duplicates, ties, IoUs at the threshold,
 -inf and NaN scores, K either side of the switch from a warp a scene to a
 block a scene, ragged and largest K, and the wrapper's refusals;
+FPS over FPS-ordered clouds at the shapes of ``fps_prefix=False``, which
+must give back their prefixes under every launch the plan weighs; the ball
+query and the gather's backward at nsample 128 over 2,048 centres;
 three_nn bit for bit on ties, fewer than 3 seeds, overflow, NaN queries
 and seeds, ties across the lanes that split a query's seeds, seeds beyond
 one shared-memory tile, under every (S, Q) the source instantiates, at
@@ -54,8 +57,9 @@ from iou3dmatch_tpu_torch.ops.nms import NMS_CLUSTERS, nms_boxes, nms_masked
 from iou3dmatch_tpu_torch.ops.nms import max_active_clusters as nms_max_active_clusters
 from iou3dmatch_tpu_torch.ops.nms import planned_cluster as nms_planned_cluster
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
-                                          fps_plan, fps_variant, furthest_point_sample,
-                                          furthest_point_sample_plain, max_active_clusters)
+                                          fps_candidates, fps_plan, fps_variant,
+                                          furthest_point_sample, furthest_point_sample_plain,
+                                          max_active_clusters)
 
 pytestmark = pytest.mark.gpu
 
@@ -137,6 +141,38 @@ def test_fps_kernel_instantiates_every_variant_the_rule_can_plan(cuda):
     for t, p in planned:
         for s in (1, 16):
             assert max_active_clusters(FpsLaunch(s, t, p, max(p, 1) * t // 2 + 1), cuda) >= 1, (t, p, s)
+
+
+# fps_prefix=False: (points, npoint) of SA2, SA3, SA4 and seed_fps, each over
+# the FPS-ordered prefix SA1 gives them
+FPS_PREFIX_SHAPES = [(2048, 1024), (1024, 512), (512, 256), (1024, 128)]
+
+
+@pytest.fixture(scope="module")
+def fps_ordered():
+    """SA1's 2,048 FPS picks of 8 rooms of 40,000 points, in pick order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(40)
+    pts = np.concatenate([rng.uniform(-3, 3, (8, 40000, 2)), rng.uniform(0, 2.5, (8, 40000, 1))],
+                         -1).astype(np.float32)
+    t = torch.from_numpy(pts).cuda()
+    inds = furthest_point_sample_plain(t, 2048).long()
+    return t[torch.arange(8, device=t.device)[:, None], inds].contiguous()
+
+
+@pytest.mark.parametrize("n,npoint", FPS_PREFIX_SHAPES)
+def test_fps_over_an_fps_ordered_cloud_gives_back_its_prefix(cuda, fps_ordered, n, npoint):
+    """FPS re-run on an FPS-ordered set picks its first npoint points in
+    order (the JAX package's prefix theorem), under the planned launch and
+    every candidate the rule weighs at that N, each equal to the plain
+    version."""
+    t = fps_ordered[:, :n].contiguous()
+    want = furthest_point_sample_plain(t, npoint)
+    prefix = torch.arange(npoint, dtype=torch.int32, device=cuda).expand(8, -1)
+    assert torch.equal(want, prefix)
+    for launch in (None,) + fps_candidates(n):
+        assert torch.equal(furthest_point_sample(t, npoint, launch), prefix), launch
 
 
 def test_fps_kernel_all_points_invalid(cuda):
@@ -355,6 +391,24 @@ def test_gather_bwd_kernel_runs_and_channel_passes(cuda, b, n, u, c, launch):
     idx = torch.from_numpy(rng.randint(-3, n + 3, (b, u, 1)).astype(np.int32)).to(cuda)
     g = torch.from_numpy(rng.randn(b, u, 1, c).astype(np.float32)).to(cuda)
     _check_gather_bwd(g, idx, n, launch)
+
+
+@pytest.mark.parametrize("launch", [None, BallQueryLaunch(1, 2048), BallQueryLaunch(8, 1024)])
+def test_ball_query_and_gather_bwd_kernels_at_nsample_128(cuda, launch):
+    """PointnetSAModuleMSGVotes' second SA1 scale: r 0.4, nsample 128, 2,048
+    centres over 2 rooms of 40,000 points (balls that fill and balls that
+    do not), then the backward of the packed [xyz | height] gather at those
+    262,144 slots a scene, each against its plain version."""
+    rng = np.random.RandomState(41)
+    pts = np.concatenate([rng.uniform(-3, 3, (2, 40000, 2)), rng.uniform(0, 2.5, (2, 40000, 1))],
+                         -1).astype(np.float32)
+    pts[:, :5000, 2] = 0.0  # a dense floor: balls there fill their 128 slots
+    ctr = pts[:, rng.choice(40000, 2048, replace=False)]
+    idx = _bq_check(cuda, 0.4, 128, pts, ctr, launch)
+    full = idx[..., -1] > idx[..., -2]
+    assert full.any() and (~full).any()
+    g = torch.from_numpy(rng.randn(2, 2048, 128, 4).astype(np.float32)).to(cuda)
+    _check_gather_bwd(g, idx, 40000)
 
 
 def test_gather_bwd_kernel_first_hits_on_low_rows(cuda):

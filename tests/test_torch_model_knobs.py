@@ -8,19 +8,24 @@ the same knobs by ``state_dict_from_jax``:
 - ``sampling="vote_fps"`` with ``vote_factor`` 1 and 2 (FPS over 64 and 128
   votes);
 - ``sampling="random"``: the port is fed the indices JAX's
-  ``jax.random.randint`` draws from the key the JAX forward is given.
+  ``jax.random.randint`` draws from the key the JAX forward is given;
+- ``fps_prefix=False``: FPS in SA2-SA4 and ``seed_fps``;
+- ``query_feats`` ``"vote"`` and ``"seed+vote"``: GridConv on the votes'
+  xyz and features, or the seeds' xyz with the votes' features.
 
-JAX's ``query_feats`` and ``fps_prefix`` have no flag in its drivers; the
-port keeps them at their defaults.
+JAX's drivers set neither ``query_feats`` nor ``fps_prefix``; both reach
+``build_votenet``.
 
 Checked: the eval forward (indices exactly; floats within atol 1e-4, the
 tolerance of ``tests/test_torch_models.py``: the same f32 math summed in
-another order), and for the ``vote_fps`` settings ``forward_onlyiou``'s IoU
-logits (atol 1e-4) and the gradient of their sum at the argmax classes
+another order), and for every setting but ``random`` ``forward_onlyiou``'s
+IoU logits (atol 1e-4) and the gradient of their sum at the argmax classes
 with respect to center and size, within 2e-3 of the largest gradient entry
 (``tests/test_torch_iou_opt.py``'s tolerance: JAX interpolates by one-hot
 matmuls, the port by a gather). ``random`` without a generator or indices
-raises, and draws from the generator it is given.
+raises, and draws from the generator it is given. ``fps_prefix`` False and
+True give equal outputs in the port, as in JAX. The pretrain step of each
+new setting is held to JAX's in ``tests/test_torch_knob_steps.py``.
 """
 import functools
 
@@ -43,6 +48,9 @@ KNOBS = {
     "vote_fps": dict(sampling="vote_fps"),
     "vote_fps_vf2": dict(sampling="vote_fps", vote_factor=2),
     "random": dict(sampling="random"),
+    "no_fps_prefix": dict(fps_prefix=False),
+    "query_vote": dict(query_feats="vote"),
+    "query_seed_vote": dict(query_feats="seed+vote"),
 }
 
 
@@ -114,7 +122,8 @@ def test_forward_matches_flax(name):
         assert (inds[:, 0] == 0).all() and len(np.unique(inds[0])) == 16 and inds.max() < n_vote
 
 
-@pytest.mark.parametrize("name", ["vote_fps", "vote_fps_vf2"])
+@pytest.mark.parametrize("name", ["vote_fps", "vote_fps_vf2", "no_fps_prefix", "query_vote",
+                                  "query_seed_vote"])
 def test_forward_onlyiou_gradient_matches_flax(name):
     _, jm, variables, pm, _, ep, _ = _case(name)
     sem = np.argmax(ep["sem_cls_scores"], -1)
@@ -215,3 +224,55 @@ def test_random_sampling_trains_where_the_jax_drivers_cannot():
 def test_unknown_sampling_raises(sampling):
     with pytest.raises(ValueError):
         build_votenet("scannet", tiny=True, device="cpu", sampling=sampling)
+
+
+def test_fps_prefix_shortcut_is_exact_in_the_port():
+    """fps_prefix False (FPS in SA2-SA4 and seed_fps) and True (their
+    prefixes) give equal end points on the CPU: JAX's
+    test_fps_prefix_shortcut_is_exact on the port."""
+    pc = torch.from_numpy(_scenes(14))
+    out = {}
+    for prefix in (True, False):
+        pm, _ = build_votenet("scannet", tiny=True, device="cpu", fps_prefix=prefix)
+        with torch.no_grad():
+            out[prefix] = pm(pc)
+    for k, v in out[False].items():
+        assert torch.equal(v, out[True][k]), k
+    assert not torch.equal(out[False]["sa2_inds"][:, 1:],
+                           torch.zeros_like(out[False]["sa2_inds"][:, 1:]))
+
+
+def test_query_feats_reads_the_origins_it_names():
+    """GridConv's IoU logits move with the features it reads: "vote" and
+    "seed+vote" differ from "seed" and from each other, on one model's
+    weights."""
+    pc = torch.from_numpy(_scenes(15))
+    pm, _ = build_votenet("scannet", tiny=True, device="cpu")
+    state = pm.state_dict()
+    iou = {}
+    for q in ("seed", "vote", "seed+vote"):
+        m, _ = build_votenet("scannet", tiny=True, device="cpu", query_feats=q)
+        m.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            iou[q] = m(pc)["iou_scores"]
+    assert not torch.equal(iou["seed"], iou["vote"])
+    assert not torch.equal(iou["vote"], iou["seed+vote"])
+    assert not torch.equal(iou["seed"], iou["seed+vote"])
+
+
+def test_seed_plus_vote_with_more_than_one_vote_a_seed_raises_in_both():
+    from iou3dmatch_tpu.models.factory import build_votenet as build_jax
+
+    jm, _ = build_jax("scannet", tiny=True, query_feats="seed+vote", vote_factor=2)
+    pc = jnp.asarray(_scenes(16, b=1, n=512))
+    with pytest.raises(TypeError, match="contracting dimensions"):
+        jm.init({"params": jax.random.PRNGKey(0)}, pc, train=False)
+    with pytest.raises(ValueError, match="vote_factor 1"):
+        build_votenet("scannet", tiny=True, device="cpu", query_feats="seed+vote", vote_factor=2)
+
+
+@pytest.mark.parametrize("kw", [dict(query_feats="votes"), dict(query_feats=None),
+                                dict(fps_prefix="prefix"), dict(fps_prefix=None)])
+def test_build_votenet_refuses_values_jax_does_not_take(kw):
+    with pytest.raises(ValueError):
+        build_votenet("scannet", tiny=True, device="cpu", **kw)
