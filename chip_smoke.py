@@ -167,7 +167,33 @@ reported on its own line; a failed check raises and the exit code is not 0:
    ``sample_uniformly`` (the card's resampling equal to the CPU core on the
    card's indices and draws), and ``RandomDropout(0.5)`` on (8, 2,048,
    128), whole channels zeroed, kept values unscaled, equal to the CPU core
-   on the card's draws.
+   on the card's draws;
+12. data parallelism (``phase_parallel``), run after phase 9 on its dumps,
+   every rank a subprocess with torchrun's environment (``run_ranks``: a
+   time limit, each rank's exit code and ``done`` line checked, so no
+   process group outlives it here): (a) a 1-rank NCCL group, the SSL step
+   of phase 7 (4 + 8 rooms, run_train.sh's settings) through
+   ``shard_train_step`` against the plain step from the same weights,
+   batch and generator (loss rtol 2e-3, gradient cosine > 0.999, FPS
+   indices equal, the ball query's equal wherever its inputs are: SA1-SA4
+   always), 5 turns of a timed step of each (ms, collectives and launches
+   a step, the launches phase 7's), one step of each profiled (wall and
+   device ms, the host's top ops), an all-reduce's host and wall time, and
+   train-mode BN at the student's 28 BN
+   inputs in the native, written-out, group-native and group-written-out
+   forms; (b) two ranks sharing the card over gloo, each on 2 + 4 rooms of
+   phase 7's batch and on 4 of 8 pretrain rooms, 3 steps of each through
+   ``shard_train_step``, the first held to one process on the whole batch
+   (``PAR_GATES``), the ranks' parameters equal after the last, and each
+   rank's ms, collectives and launches a step (phases 6's and 7's) and an
+   all-reduce's time over gloo; (c)
+   ``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+   iou3dmatch_tpu_torch.cli.train`` with phase 9 (b)'s flags at
+   ``--batch_size 2,4`` from phase 9 (a)'s checkpoint: its log's
+   data-parallel and group lines, its first step's logged metrics equal to
+   9 (b)'s to the log's 4 decimals, the step, epoch and generator state
+   equal to (b)'s, the checkpoint finite, its change against (b)'s
+   reported, and the epochs' ms.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
 lines. It also runs from the root of another checkout that has the SSL
@@ -202,6 +228,7 @@ import os
 import pickle
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -211,6 +238,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from iou3dmatch_tpu_torch.cli import common as cli_common
 from iou3dmatch_tpu_torch.cli import pretrain as cli_pretrain
@@ -254,6 +282,7 @@ from iou3dmatch_tpu_torch.ops.lhs import SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.ops.nms import MODE_IDS as NMS_MODE_IDS
 from iou3dmatch_tpu_torch.ops.nms import NMS_CLUSTERS, nms_boxes, nms_masked, planned_cluster
 from iou3dmatch_tpu_torch.ops.nms import max_active_clusters as nms_max_active
+from iou3dmatch_tpu_torch.parallel import collectives, distributed, shard_batch, shard_train_step
 from iou3dmatch_tpu_torch.train import checkpoint
 from iou3dmatch_tpu_torch.train.schedules import get_bn_momentum
 from iou3dmatch_tpu_torch.train.state import create_train_state
@@ -1839,20 +1868,29 @@ def phase_train_profile(model, state, step, batch, momentum):
     bn_forms(bn_shapes, next(model.parameters()).device)
 
 
-def bn_forms(shapes, dev):
+def bn_forms(shapes, dev, group: bool = False):
     """Train-mode BatchNorm forward and backward at each of one step's BN
     inputs (rows, C), in the card's form (PyTorch's native kernels) and in
-    the CPU's (``BatchNorm.two_pass``, written out); ms a step, summed."""
+    the CPU's (``BatchNorm.two_pass``, written out), and with ``group`` (in a
+    process group's active block) in the group's two forms (the card's
+    ``global_native``, one all-reduce each way, and the CPU's
+    ``global_two_pass``, two); ms a step, summed, and returned."""
     gen = torch.Generator(device=dev).manual_seed(9)
-    total = {"native": 0.0, "two_pass": 0.0}
+    forms = ("native", "two_pass") + (("global_native", "global_two_pass") if group else ())
+    total = dict.fromkeys(forms, 0.0)
     for rows, c in shapes:
         bn = BatchNorm(c).to(dev)
         bn.momentum = get_bn_momentum(0)
         x = torch.randn(rows, c, generator=gen, device=dev, requires_grad=True)
         g = torch.randn(rows, c, generator=gen, device=dev)
-        for form, fn in (("native", bn), ("two_pass", bn.two_pass)):
+        for form in forms:
+            fn = {"native": lambda t: F.batch_norm(t, bn.running_mean, bn.running_var, bn.weight,
+                                                   bn.bias, True, bn.momentum, bn.eps),
+                  "two_pass": bn.two_pass, "global_native": bn.global_native,
+                  "global_two_pass": bn.global_two_pass}[form]
             total[form] += cuda_ms(lambda: torch.autograd.grad(fn(x), (x, bn.weight, bn.bias), g), 1, 5)
     say(phase="bn_forms", layers_a_step=len(shapes), forward_backward_ms_a_step=total)
+    return total
 
 
 def augment_view(pc: np.ndarray, seed: int) -> tuple:
@@ -2588,7 +2626,7 @@ def eval_subprocess(root: Path, ckpt: Path, data: list, cfg, dev, dataset: str,
     return {"ap": ap, "launches": launches}
 
 
-def phase_drivers(cfg, dev, eval_request: dict) -> dict:
+def phase_drivers(cfg, dev, eval_request: dict, root: Path) -> dict:
     """Phase 9, the drivers at full width on ScanNet-format dumps (written
     again as phase 8 writes them): (a) ``cli/pretrain.main`` of 3 epochs of
     one step on the 8-scan labeled list and one eval, (b) ``cli/train.main``
@@ -2604,84 +2642,84 @@ def phase_drivers(cfg, dev, eval_request: dict) -> dict:
     a driver's step, three steps of each traced and the traces read by
     ``driver_trace``. Launches: (a) 3 pretrain steps and one eval request of
     phase 5b's, (b) 4 SSL steps and one eval request, (c) 2 SSL steps, (e)
-    a pretrain step with FPS 2, (f) their steps. Returns each run's
-    launches."""
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_"))
-    try:
-        say(phase="driver_dumps", **write_dumps(root / "data", cfg, 90))
-        data = ["--dataset", "scannet", "--data_path", str(root / "data"),
-                "--labeled_sample_list", "labeled.txt"]
+    a pretrain step with FPS 2, (f) their steps. Everything goes under
+    ``root``, which phase 12 reads after it: the dumps, (a)'s checkpoint and
+    a copy of (b)'s. Returns each run's launches."""
+    say(phase="driver_dumps", **write_dumps(root / "data", cfg, 90))
+    data = ["--dataset", "scannet", "--data_path", str(root / "data"),
+            "--labeled_sample_list", "labeled.txt"]
 
-        def times(launches: dict, n: int) -> dict:
-            return {k: v * n for k, v in launches.items()}
+    def times(launches: dict, n: int) -> dict:
+        return {k: v * n for k, v in launches.items()}
 
-        def plus(*parts) -> dict:
-            return {k: sum(p[k] for p in parts) for k in KERNELS}
+    def plus(*parts) -> dict:
+        return {k: sum(p[k] for p in parts) for k in KERNELS}
 
-        out = {}
-        pre = root / "pretrain"
-        out["pretrain"] = driver_run(
-            "pretrain", cli_pretrain.main,
-            ["--log_dir", str(pre), "--batch_size", str(B), "--max_epoch", "3",
-             "--eval_interval", "3", "--print_interval", "1"] + data, pre, 3, B,
-            plus(times(TRAIN_LAUNCHES, 3), eval_request))
-        if not re.search(r"^eval mAP@0\.5: ", out["pretrain"]["log"], re.M):
-            raise AssertionError("the pretrain driver logged no eval")
+    out = {}
+    pre = root / "pretrain"
+    out["pretrain"] = driver_run(
+        "pretrain", cli_pretrain.main,
+        ["--log_dir", str(pre), "--batch_size", str(B), "--max_epoch", "3",
+         "--eval_interval", "3", "--print_interval", "1"] + data, pre, 3, B,
+        plus(times(TRAIN_LAUNCHES, 3), eval_request))
+    if not re.search(r"^eval mAP@0\.5: ", out["pretrain"]["log"], re.M):
+        raise AssertionError("the pretrain driver logged no eval")
 
-        ssl = root / "ssl"
-        ssl_flags = ["--log_dir", str(ssl), "--batch_size", f"{SSL_NL},{SSL_NU}"] + data
-        out["ssl"] = driver_run(
-            "ssl", cli_train.main,
-            ssl_flags + ["--detector_checkpoint", str(pre / "checkpoint.tar"), "--view_stats",
-                         "--reference_exact_step", "--max_epoch", "2", "--eval_interval", "2",
-                         "--print_interval", "1"], ssl, 4, SSL_NL + SSL_NU,
-            plus(times(SSL_LAUNCHES, 4), eval_request))
-        out["resume"] = driver_run(
-            "resume", cli_train.main,
-            ssl_flags + ["--resume", "--view_stats", "--reference_exact_step", "--max_epoch", "3",
-                         "--eval_interval", "2", "--print_interval", "1"], ssl, 2,
-            SSL_NL + SSL_NU, times(SSL_LAUNCHES, 2))
-        resumed = out["resume"]["log"].split("resumed from")[-1]
-        saved = checkpoint.read(str(ssl / "checkpoint.tar"))
-        if ("at epoch 2" not in resumed.splitlines()[0] or "**** EPOCH 002 ****" not in resumed
-                or "**** EPOCH 000 ****" in resumed or saved["epoch"] != 3 or saved["step"] != 6):
-            raise AssertionError(f"the resumed run did not continue at epoch 2: checkpoint epoch "
-                                 f"{saved['epoch']}, step {saved['step']}")
+    ssl = root / "ssl"
+    ssl_flags = ["--log_dir", str(ssl), "--batch_size", f"{SSL_NL},{SSL_NU}"] + data
+    out["ssl"] = driver_run(
+        "ssl", cli_train.main,
+        ssl_flags + ["--detector_checkpoint", str(pre / "checkpoint.tar"), "--view_stats",
+                     "--reference_exact_step", "--max_epoch", "2", "--eval_interval", "2",
+                     "--print_interval", "1"], ssl, 4, SSL_NL + SSL_NU,
+        plus(times(SSL_LAUNCHES, 4), eval_request))
+    # phase 12 holds its driver run to (b): (c) overwrites the checkpoint and appends to the log
+    shutil.copy(ssl / "checkpoint.tar", root / "ssl_b_checkpoint.tar")
+    shutil.copy(ssl / "log_train.txt", root / "ssl_b_log.txt")
+    out["resume"] = driver_run(
+        "resume", cli_train.main,
+        ssl_flags + ["--resume", "--view_stats", "--reference_exact_step", "--max_epoch", "3",
+                     "--eval_interval", "2", "--print_interval", "1"], ssl, 2,
+        SSL_NL + SSL_NU, times(SSL_LAUNCHES, 2))
+    resumed = out["resume"]["log"].split("resumed from")[-1]
+    saved = checkpoint.read(str(ssl / "checkpoint.tar"))
+    if ("at epoch 2" not in resumed.splitlines()[0] or "**** EPOCH 002 ****" not in resumed
+            or "**** EPOCH 000 ****" in resumed or saved["epoch"] != 3 or saved["step"] != 6):
+        raise AssertionError(f"the resumed run did not continue at epoch 2: checkpoint epoch "
+                             f"{saved['epoch']}, step {saved['step']}")
 
-        # (d) the eval entry point as run_eval_opt_torch.sh runs it
-        eval_subprocess(root, ssl / "checkpoint.tar", data, cfg, dev, "scannet", "driver")
+    # (d) the eval entry point as run_eval_opt_torch.sh runs it
+    eval_subprocess(root, ssl / "checkpoint.tar", data, cfg, dev, "scannet", "driver")
 
-        # (f) epochs of several steps, no eval: the steady cost of a step
-        # through the driver beside phase 8's loader-fed step
-        (root / "data" / "meta_data" / "labeled_24.txt").write_text(
-            "\n".join(f"scene{i:04d}_00" for i in range(24)) + "\n")
-        steady = root / "steady_pretrain"
-        out["steady_pretrain"] = driver_run(
-            "steady_pretrain", cli_pretrain.main,
-            ["--log_dir", str(steady), "--batch_size", str(B), "--max_epoch", "2",
-             "--eval_interval", "0", "--print_interval", "5", "--profile_steps", "3",
-             "--dataset", "scannet", "--data_path", str(root / "data")], steady,
-            2 * (DUMP_TRAIN // B), B, times(TRAIN_LAUNCHES, 2 * (DUMP_TRAIN // B)))
-        driver_trace("steady_pretrain", steady / "profile" / "trace.json")
-        steady = root / "steady_ssl"
-        out["steady_ssl"] = driver_run(
-            "steady_ssl", cli_train.main,
-            ["--log_dir", str(steady), "--batch_size", f"{SSL_NL},{SSL_NU}", "--max_epoch", "2",
-             "--eval_interval", "0", "--print_interval", "6", "--view_stats",
-             "--reference_exact_step", "--profile_steps", "3", "--dataset", "scannet",
-             "--data_path", str(root / "data"), "--labeled_sample_list", "labeled_24.txt"],
-            steady, 2 * (24 // SSL_NL), SSL_NL + SSL_NU, times(SSL_LAUNCHES, 2 * (24 // SSL_NL)))
-        driver_trace("steady_ssl", steady / "profile" / "trace.json")
+    # (f) epochs of several steps, no eval: the steady cost of a step
+    # through the driver beside phase 8's loader-fed step
+    (root / "data" / "meta_data" / "labeled_24.txt").write_text(
+        "\n".join(f"scene{i:04d}_00" for i in range(24)) + "\n")
+    steady = root / "steady_pretrain"
+    out["steady_pretrain"] = driver_run(
+        "steady_pretrain", cli_pretrain.main,
+        ["--log_dir", str(steady), "--batch_size", str(B), "--max_epoch", "2",
+         "--eval_interval", "0", "--print_interval", "5", "--profile_steps", "3",
+         "--dataset", "scannet", "--data_path", str(root / "data")], steady,
+        2 * (DUMP_TRAIN // B), B, times(TRAIN_LAUNCHES, 2 * (DUMP_TRAIN // B)))
+    driver_trace("steady_pretrain", steady / "profile" / "trace.json")
+    steady = root / "steady_ssl"
+    out["steady_ssl"] = driver_run(
+        "steady_ssl", cli_train.main,
+        ["--log_dir", str(steady), "--batch_size", f"{SSL_NL},{SSL_NU}", "--max_epoch", "2",
+         "--eval_interval", "0", "--print_interval", "6", "--view_stats",
+         "--reference_exact_step", "--profile_steps", "3", "--dataset", "scannet",
+         "--data_path", str(root / "data"), "--labeled_sample_list", "labeled_24.txt"],
+        steady, 2 * (24 // SSL_NL), SSL_NL + SSL_NU, times(SSL_LAUNCHES, 2 * (24 // SSL_NL)))
+    driver_trace("steady_ssl", steady / "profile" / "trace.json")
 
-        vote = root / "vote_fps"
-        out["vote_fps"] = driver_run(
-            "vote_fps", cli_pretrain.main,
-            ["--log_dir", str(vote), "--batch_size", str(B), "--max_epoch", "1",
-             "--eval_interval", "0", "--cluster_sampling", "vote_fps"] + data, vote, 1, B,
-            {**TRAIN_LAUNCHES, "fps": 2})
-        return {k: v["row"]["launches"] for k, v in out.items()}
-    finally:
-        shutil.rmtree(root)
+    vote = root / "vote_fps"
+    out["vote_fps"] = driver_run(
+        "vote_fps", cli_pretrain.main,
+        ["--log_dir", str(vote), "--batch_size", str(B), "--max_epoch", "1",
+         "--eval_interval", "0", "--cluster_sampling", "vote_fps"] + data, vote, 1, B,
+        {**TRAIN_LAUNCHES, "fps": 2})
+    return {k: v["row"]["launches"] for k, v in out.items()}
 
 
 def sunrgbd_frame(rng, n: int, cfg) -> tuple:
@@ -3285,6 +3323,450 @@ def phase_library(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------- phase 12: data parallelism
+PAR_INIT_S = 120  # a rank's wait for the others at the rendezvous and in a collective
+PAR_RANK_S = 300  # a rank subprocess's time limit
+PAR_STEPS = 3
+PAR_TURNS = 5  # (a)'s timed turns of a group step and a plain one
+# Phase 12 (b)'s gates. In float32 a metric over a discrete selection moves
+# by more than the loss: an objectness label, an argmax class or a rotated
+# IoU label of an argmax-decoded box flips where a box sits within ~1e-6 of
+# its threshold (on an H100, IoU-label metrics off by up to 2.6e-3 while
+# the loss agreed within 3e-6). Likewise GridConv's grid points
+# take their 3 nearest seeds, so a GridConv BN statistic can move by ~1e-4.
+PAR_GATES = "loss rtol 1e-4, every metric rtol 1e-2 (atol 1e-6), gradient cosine > 0.9999, BN " \
+            "running statistics of student and teacher within relative L2 1e-4, ranks' " \
+            "parameters equal after 3 steps"
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(which: str, world: int, out: Path) -> list:
+    """``world`` ranks of ``python3 chip_smoke.py --parallel-rank which``, each
+    a subprocess with torchrun's environment, so that no process group
+    outlives them in this process. Each must exit 0 within PAR_RANK_S and
+    print its ``done`` line; every rank still running at the limit is
+    killed. Returns each rank's results."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--parallel-rank", which,
+           "--parallel-dir", str(out)]
+    logs = [out / f"{which}_rank{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                                          env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                                          stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + PAR_RANK_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = [log.read_text() for log in logs]
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0 or f"rank {r} of {world} done" not in text:
+            raise AssertionError(f"phase 12 ({which}): rank {r} exited {p.returncode}:\n"
+                                 + "\n".join(f"--- rank {i} ---\n{t[-3000:]}"
+                                             for i, t in enumerate(texts)))
+    return [torch.load(out / f"{which}_rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def parallel_rank(which: str, out: Path) -> int:
+    """A rank of phase 12, started by ``run_ranks``: joins the group from
+    torchrun's environment, runs its part and writes its results."""
+    lines = []
+    group = distributed.initialize_distributed(device_type="cuda", timeout_s=PAR_INIT_S,
+                                               logger=lines.append)
+    try:
+        result = {"a": rank_nccl, "b": rank_gloo}[which](group)
+        result["group_line"] = lines[0]
+        torch.save(result, out / f"{which}_rank{group.rank}.pt")
+    finally:
+        distributed.shutdown()
+    print(f"rank {group.rank} of {group.world} done", flush=True)
+    return 0
+
+
+def ssl_batch_on(dev, group=None) -> dict:
+    """Phase 7's timed batch (4 + 8 rooms), whole or this rank's rows."""
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in
+             make_ssl_batch(53, SSL_NL, SSL_NU, get_config("scannet")).items()}
+    if group is not None:
+        batch = shard_batch(batch, group, SSL_NL)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def train_batch_on(dev, group=None) -> dict:
+    """A pretrain batch of B rooms, whole or this rank's rows."""
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in
+             make_train_batch(60, B, get_config("scannet")).items()}
+    if group is not None:
+        batch = shard_batch(batch, group)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def bn_stats(model) -> torch.Tensor:
+    return torch.cat([b.detach().double().cpu().ravel() for n, b in model.named_buffers()
+                      if "running" in n])
+
+
+def step_record(state, metrics) -> dict:
+    """What phase 12 compares of a step: its metrics, the gradient and both
+    models' BN running statistics."""
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": _grads(state.model),
+            "bn": bn_stats(state.model),
+            "ema_bn": bn_stats(state.ema_model) if state.ema_model is not None else None}
+
+
+def all_reduce_cost(group, n: int) -> dict:
+    """One all-reduce's time on the host clock: ``n`` back to back of a
+    257-float tensor on the rank's device (a BN's stack at C = 128), after
+    20 to warm up; the host's queuing, and the wall time once the card is
+    done."""
+    x = torch.zeros(257, device=group.device)
+    for _ in range(20):
+        collectives.all_reduce_(x, group)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        collectives.all_reduce_(x, group)
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return {"calls": n, "host_us": host / n * 1e6, "wall_us": (time.perf_counter() - t) / n * 1e6}
+
+
+def timed_steps(step, state, batch, n: int, lr: float) -> dict:
+    """``n`` steps, each between CUDA events, with the kernels' launches and
+    the collectives counted over them."""
+    momentum = get_bn_momentum(0)
+    torch.cuda.synchronize()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    before = dict(collectives.COUNTS)
+    events = []
+    for _ in range(n):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        step(state, batch, lr, momentum)
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    return {"step_ms": [a.elapsed_time(b) for a, b in events],
+            "launches_per_step": {k: fn.launches / n for k, fn in KERNELS.items()},
+            "collectives_per_step": {k: (v - before[k]) / n
+                                     for k, v in collectives.COUNTS.items()}}
+
+
+def rank_nccl(group) -> dict:
+    """Phase 12 (a), rank 0 of a 1-rank NCCL group: the SSL step of phase 7
+    (4 + 8 rooms, run_train.sh's settings) through ``shard_train_step`` and
+    plain, from the same weights, batch and generator; each step's FPS and
+    ball-query indices kept; then PAR_TURNS turns of a timed step of each,
+    train-mode BN at the student's BN inputs in the native, written-out and
+    group forms, and one step of each profiled."""
+    dev, cfg, momentum = group.device, get_config("scannet"), get_bn_momentum(0)
+    batch = ssl_batch_on(dev)
+    out, steps = {"all_reduce": all_reduce_cost(group, 500)}, {}
+    for form in ("plain", "group"):
+        model, _ = build_votenet("scannet", device=dev)
+        state = create_train_state(model, with_ema=True)
+        step = make_ssl_step(cfg, SSL_NL, reference_exact=True, view_stats=True)
+        if form == "group":
+            step = shard_train_step(step, group)
+        fps, calls = {}, []
+        hooks = [m.backbone_net.register_forward_hook(
+            lambda mod, a, ep, who=who: fps.__setitem__(who, ep["sa1_inds"].cpu()))
+            for who, m in (("teacher", state.ema_model), ("student", model))]
+
+        def recording(*args):
+            idx = ball_query(*args)
+            calls.append([a.cpu() if torch.is_tensor(a) else a for a in args] + [idx.cpu()])
+            return idx
+
+        pointnet2.ball_query = recording
+        try:
+            rec = step_record(state, step(state, batch, SSL_LR, momentum))
+        finally:
+            pointnet2.ball_query = ball_query
+            for h in hooks:
+                h.remove()
+        rec["fps"] = torch.cat([fps["teacher"], fps["student"]])
+        rec["ball_query"] = calls
+        out[form] = rec
+        steps[form] = (step, state)
+    for form in ("group", "plain"):  # one warm-up each
+        step, state = steps[form]
+        step(state, batch, SSL_LR, momentum)
+    # then group and plain steps in turns, one at a time: the host's pace drifts
+    runs = [{form: timed_steps(*steps[form], batch, 1, SSL_LR) for form in ("group", "plain")}
+            for _ in range(PAR_TURNS)]
+    for form in ("group", "plain"):
+        out[f"{form}_timed"] = {"step_ms": [r[form]["step_ms"][0] for r in runs],
+                                **{k: runs[0][form][k] for k in ("launches_per_step",
+                                                                 "collectives_per_step")}}
+        if any(r[form]["launches_per_step"] != runs[0][form]["launches_per_step"] for r in runs):
+            raise AssertionError(f"phase 12 (a): {form} steps launched unequal kernels")
+    shapes = []
+    hooks = [m.register_forward_pre_hook(lambda mod, a: shapes.append(
+        (int(np.prod(a[0].shape[:-1])), int(a[0].shape[-1]))))
+        for m in steps["group"][1].model.modules() if isinstance(m, BatchNorm)]
+    try:
+        steps["group"][0](steps["group"][1], batch, SSL_LR, momentum)
+    finally:
+        for h in hooks:
+            h.remove()
+    with collectives.active(group):
+        out["bn_forms"] = bn_forms(shapes, dev, group=True)
+    out["profile"] = {form: step_profile(*steps[form], batch, SSL_LR) for form in ("plain", "group")}
+    return out
+
+
+def step_profile(step, state, batch, lr: float) -> dict:
+    """One step under torch.profiler: its wall ms, the device's busy ms, the
+    NCCL kernels' ms and count, and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, batch, lr, get_bn_momentum(0))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    kern = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    nccl = [e for e in kern if "nccl" in e.key.lower()]
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": sum(e.self_device_time_total for e in kern) / 1e3,
+            "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3,
+            "nccl_calls": sum(e.count for e in nccl),
+            "top_kernels": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in kern[:10]],
+            "top_host": [[e.key[:70], e.self_cpu_time_total / 1e3, e.count] for e in host[:12]]}
+
+
+def rank_gloo(group) -> dict:
+    """Phase 12 (b), a rank of 2 sharing the card over gloo: the SSL step on
+    its 2 + 4 rows of phase 7's batch and the pretrain step on its 4 of 8
+    rooms, each through ``shard_train_step`` for PAR_STEPS steps: the first
+    step's metrics, gradient and BN statistics, the steps' ms, launches and
+    collectives, and the parameters after the last."""
+    dev, cfg = group.device, get_config("scannet")
+    out = {"all_reduce": all_reduce_cost(group, 100)}
+    for name in ("ssl", "pretrain"):
+        ssl = name == "ssl"
+        model, _ = build_votenet("scannet", device=dev)
+        state = create_train_state(model, with_ema=ssl)
+        batch = ssl_batch_on(dev, group) if ssl else train_batch_on(dev, group)
+        lr = SSL_LR if ssl else LR
+        step = shard_train_step(make_ssl_step(cfg, SSL_NL // group.world, reference_exact=True,
+                                              view_stats=True) if ssl else make_pretrain_step(cfg),
+                                group)
+        rec = step_record(state, step(state, batch, lr, get_bn_momentum(0)))
+        rec["timed"] = timed_steps(step, state, batch, PAR_STEPS - 1, lr)
+        rec["params"] = torch.cat([p.detach().cpu().ravel() for p in model.parameters()])
+        if ssl:
+            rec["ema_params"] = torch.cat([p.detach().cpu().ravel()
+                                           for p in state.ema_model.parameters()])
+        out[name] = rec
+    return out
+
+
+def one_process_reference(dev) -> dict:
+    """Phase 12 (b)'s reference: one plain SSL step on the whole 4 + 8 and
+    one pretrain step on the whole 8 rooms, from the ranks' weights."""
+    cfg, out = get_config("scannet"), {}
+    for name in ("ssl", "pretrain"):
+        ssl = name == "ssl"
+        model, _ = build_votenet("scannet", device=dev)
+        state = create_train_state(model, with_ema=ssl)
+        step = make_ssl_step(cfg, SSL_NL, reference_exact=True, view_stats=True) if ssl \
+            else make_pretrain_step(cfg)
+        batch = ssl_batch_on(dev) if ssl else train_batch_on(dev)
+        out[name] = step_record(state, step(state, batch, SSL_LR if ssl else LR,
+                                            get_bn_momentum(0)))
+    return out
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def hold(got: dict, want: dict, what: str, failed: list) -> dict:
+    """A sharded step's first-step record against one process's (PAR_GATES);
+    a miss is appended to ``failed``."""
+    rel = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in want["metrics"].items()}
+    bad = [k for k, v in want["metrics"].items()
+           if not abs(got["metrics"][k] - v) <= 1e-6 + (1e-4 if k == "loss" else 1e-2) * abs(v)]
+    cos = cosine(got["grads"], want["grads"])
+    bn_rel = {key: float((got[key] - want[key]).norm() / want[key].norm())
+              for key in ("bn", "ema_bn") if want[key] is not None}
+    worst = sorted(rel, key=rel.get)[-5:]
+    row = {"loss": got["metrics"]["loss"], "loss_one_process": want["metrics"]["loss"],
+           "metrics_outside": {k: (got["metrics"][k], want["metrics"][k]) for k in bad},
+           "metrics_worst_rel": {k: (rel[k], got["metrics"][k], want["metrics"][k]) for k in worst},
+           "metrics_over_rtol_1e-4": sum(r > 1e-4 for r in rel.values()),
+           "grad_cosine": cos, "bn_rel_l2": bn_rel}
+    if set(got["metrics"]) != set(want["metrics"]) or bad or not cos > 0.9999 \
+            or any(v >= 1e-4 for v in bn_rel.values()):
+        failed.append(f"{what}: {row}")
+    return row
+
+
+def checkpoint_change(got: dict, want: dict, start: dict) -> dict:
+    """Cosine and relative L2 of two checkpoints' change from ``start``, over
+    the BN running statistics and over the parameters of each model."""
+    out = {}
+    for key in ("model_state_dict", "ema_model_state_dict"):
+        for part in ("running", "param"):
+            names = sorted(k for k in want[key] if ("running" in k) == (part == "running"))
+            g = torch.cat([(got[key][k] - start[k]).double().ravel() for k in names])
+            w = torch.cat([(want[key][k] - start[k]).double().ravel() for k in names])
+            out[f"{key}:{part}"] = (cosine(g, w), float((g - w).norm() / w.norm()))
+    return out
+
+
+def phase_parallel(cfg, dev, root: Path) -> dict:
+    """Phase 12, data parallelism over ranks, after phase 9 and on its dumps:
+    (a) a 1-rank NCCL group's SSL step against phase 7's plain step, (b) 2
+    ranks sharing the card over gloo against one process on the whole batch,
+    (c) the SSL driver under ``torch.distributed.run`` with 2 ranks against
+    phase 9 (b)."""
+    out = root / "parallel"
+    out.mkdir()
+    failed = []
+    t = time.perf_counter()
+    (a,) = run_ranks("a", 1, out)
+    a_s = time.perf_counter() - t
+    plain, grouped = a["plain"], a["group"]
+    cos = cosine(grouped["grads"], plain["grads"])
+    loss, loss0 = grouped["metrics"]["loss"], plain["metrics"]["loss"]
+    bq = [(len(g[-1]), bool(torch.equal(g[-1], p[-1])),
+           all(torch.equal(x, y) for x, y in zip(g[2:4], p[2:4])))
+          for g, p in zip(grouped["ball_query"], plain["ball_query"])]
+    say(phase="parallel_nccl", group=a["group_line"], scenes=f"{SSL_NL} + {SSL_NU}", points=N,
+        seconds=a_s, loss=loss, loss_plain=loss0, grad_cosine=cos,
+        fps_equal=bool(torch.equal(grouped["fps"], plain["fps"])),
+        ball_query_equal=[e for _, e, _ in bq], ball_query_inputs_equal=[i for _, _, i in bq],
+        all_reduce=a["all_reduce"],
+        step_ms=a["group_timed"]["step_ms"], plain_step_ms=a["plain_timed"]["step_ms"],
+        collectives_per_step=a["group_timed"]["collectives_per_step"],
+        launches_per_step=a["group_timed"]["launches_per_step"], bn_forms=a["bn_forms"],
+        profile=a["profile"],
+        tol="loss rtol 2e-3, gradient cosine > 0.999, FPS equal, ball query equal wherever "
+            "its inputs are (SA1-SA4 always)")
+    if not (abs(loss - loss0) <= 2e-3 * abs(loss0) and cos > 0.999):
+        failed.append(f"(a): loss {loss} against {loss0}, gradient cosine {cos}")
+    if not torch.equal(grouped["fps"], plain["fps"]) or len(bq) != 10 \
+            or not all(e for _, e, i in bq if i) or not all(i for _, _, i in bq[:4] + bq[5:9]):
+        failed.append(f"(a): FPS or ball-query indices differ: {bq}")
+    if a["group_timed"]["launches_per_step"] != SSL_LAUNCHES:
+        failed.append(f"(a): launches {a['group_timed']['launches_per_step']}")
+
+    want = one_process_reference(dev)
+    t = time.perf_counter()
+    ranks = run_ranks("b", 2, out)
+    b_s = time.perf_counter() - t
+    rows = {}
+    for name, launches in (("ssl", SSL_LAUNCHES), ("pretrain", TRAIN_LAUNCHES)):
+        rows[name] = [hold(r[name], want[name], f"(b) {name} rank {i}", failed)
+                      for i, r in enumerate(ranks)]
+        same = all(torch.equal(ranks[0][name][k], ranks[1][name][k])
+                   for k in ("params", "ema_params") if k in ranks[0][name])
+        say(phase=f"parallel_gloo_{name}", group=[r["group_line"] for r in ranks],
+            scenes=f"{SSL_NL // 2} + {SSL_NU // 2} a rank" if name == "ssl" else f"{B // 2} a rank",
+            seconds=b_s, checks=rows[name], ranks_equal_after_steps=same,
+            all_reduce=[r["all_reduce"] for r in ranks],
+            step_ms=[r[name]["timed"]["step_ms"] for r in ranks],
+            collectives_per_step=[r[name]["timed"]["collectives_per_step"] for r in ranks],
+            launches_per_step=[r[name]["timed"]["launches_per_step"] for r in ranks],
+            tol=PAR_GATES)
+        if not same:
+            failed.append(f"(b) {name}: the ranks' parameters differ")
+        for r in ranks:
+            if r[name]["timed"]["launches_per_step"] != launches:
+                failed.append(f"(b) {name}: launches {r[name]['timed']['launches_per_step']}")
+
+    # (c) the SSL driver under torchrun, as phase 9 (b) from (a)'s checkpoint
+    dp = root / "ssl_dp"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "iou3dmatch_tpu_torch.cli.train", "--log_dir", str(dp), "--batch_size",
+           f"{SSL_NL // 2},{SSL_NU // 2}", "--detector_checkpoint",
+           str(root / "pretrain" / "checkpoint.tar"), "--view_stats", "--reference_exact_step",
+           "--max_epoch", "2", "--eval_interval", "2", "--print_interval", "1", "--dataset",
+           "scannet", "--data_path", str(root / "data"), "--labeled_sample_list", "labeled.txt"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+                          text=True, timeout=PAR_RANK_S)
+    c_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 12 (c): torchrun exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}\n" + "\n".join(failed))
+    log = (dp / "log_train.txt").read_text()
+    dp_line = f"data-parallel over 2 devices: per-device batch {SSL_NL // 2}+{SSL_NU // 2}, " \
+              f"global {SSL_NL}+{SSL_NU}"
+    group_line = [x for x in log.splitlines() if x.startswith("distributed: rank 0 of 2")]
+    got = checkpoint.read(str(dp / "checkpoint.tar"))
+    base = checkpoint.read(str(root / "ssl_b_checkpoint.tar"))
+    start = checkpoint.read(str(root / "pretrain" / "checkpoint.tar"))["model_state_dict"]
+    first, first_base = (first_step_metrics(x) for x in (log, (root / "ssl_b_log.txt").read_text()))
+    off = {k: (v, first_base.get(k)) for k, v in first.items()
+           if not (k in first_base and abs(v - first_base[k])
+                   <= 1e-4 + (1e-4 if k == "loss" else 5e-2) * abs(first_base[k]))}
+    over = sum(abs(v - first_base.get(k, np.inf)) > 1e-4 + 1e-4 * abs(first_base.get(k, 0))
+               for k, v in first.items())
+    finite = all(bool(torch.isfinite(v).all()) for key in ("model_state_dict", "ema_model_state_dict")
+                 for v in got[key].values() if v.is_floating_point())
+    epoch_s = [float(x.split(":")[1].rstrip("s")) for x in log.splitlines()
+               if x.startswith("epoch time:")]
+    say(phase="parallel_driver", cmd=" ".join(cmd[1:]), seconds=c_s,
+        epoch_ms=[s * 1e3 for s in epoch_s], data_parallel_line=dp_line in log,
+        group_line=group_line, step=got["step"], epoch=got["epoch"],
+        first_step_metrics=len(first), first_step_outside=off, first_step_over_rounding=over,
+        change_cosine_rel_l2=checkpoint_change(got, base, start),
+        eval_lines=[x for x in log.splitlines() if x.startswith("eval mAP@")],
+        tol="the first step's logged loss (4 decimals) within 1e-4 + 1e-4 x phase 9 (b)'s, every "
+            "other logged metric within 1e-4 + 5e-2 x (b)'s (a teacher objectness label flips "
+            "a view-stats mean over ~40 positives by ~3 %); step, epoch and generator state "
+            "equal to (b)'s; the checkpoint finite. Its change "
+            "from (a)'s checkpoint against (b)'s is reported, not held: in float32, Adam at eps "
+            "1e-8 makes later steps chaotic (PERF.md, Findings)")
+    if dp_line not in log or len(group_line) != 1 or "backend gloo" not in group_line[0]:
+        failed.append("(c): the log lacks the data-parallel or the group line")
+    if not first or set(first) != set(first_base) or off or not finite:
+        failed.append(f"(c): first step's metrics {off} ({len(first)} logged), finite "
+                      f"checkpoint {finite}")
+    if (got["step"], got["epoch"]) != (base["step"], base["epoch"]) \
+            or not torch.equal(got["generator_state"], base["generator_state"]):
+        failed.append(f"(c): step {got['step']} epoch {got['epoch']} against {base['step']} "
+                      f"{base['epoch']}, or the generators differ")
+    say(phase="parallel", seconds={"a": a_s, "b": b_s, "c": c_s}, failed=failed)
+    if failed:
+        raise AssertionError("phase 12: " + "\n".join(failed))
+    return {"a_s": a_s, "b_s": b_s, "c_s": c_s}
+
+
+def first_step_metrics(log: str) -> dict:
+    """The metrics a driver's log prints after its first step (``--print_interval 1``)."""
+    line = next(x for x in log.splitlines() if x.startswith(" batch 0001 "))
+    parts = line.split()[2:]
+    return {k.rstrip(":"): float(v) for k, v in zip(parts[::2], parts[1::2])}
+
 def phase_profile(model, forward, pc):
     """Where one request's forward spends its time: CUDA-event spans per
     layer (host launch time included, as the request sees it), then the
@@ -3342,10 +3824,14 @@ def main() -> int:
                     help="also run three_nn's -DTHREE_NN_COUNTS build at each of its shapes")
     ap.add_argument("--nms-sweep", action="store_true",
                     help="also time NMS at every cluster size of NMS_CLUSTERS at each of its rows")
+    ap.add_argument("--parallel-rank", choices=("a", "b"), help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-dir", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    if args.parallel_rank:  # a rank of phase 12, started by run_ranks
+        return parallel_rank(args.parallel_rank, args.parallel_dir)
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -3394,7 +3880,12 @@ def main() -> int:
     ssl, ssl_stats = phase_ssl(cfg, dev)
     data = phase_data(cfg, dev, train_stats, ssl_stats)
     eval_request = {k: v // 3 for k, v in evals[0].items()}
-    drivers = phase_drivers(cfg, dev, eval_request)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_"))
+    try:
+        drivers = phase_drivers(cfg, dev, eval_request, root)
+        phase_parallel(cfg, dev, root)
+    finally:
+        shutil.rmtree(root)
     sunrgbd = phase_sunrgbd(dev, card, ops_per_s, rows, eval_request)
     phase_library(dev)
 

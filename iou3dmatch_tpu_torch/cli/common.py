@@ -26,6 +26,7 @@ from ..data.synthetic import SyntheticDataset
 from ..eval.ap_helper import APCalculator, parse_groundtruths, parse_predictions
 from ..eval.iou_opt import iou_optimize
 from ..ops.nms import MAX_BOXES
+from ..parallel import distributed
 from ..train import checkpoint
 from ..train.schedules import get_bn_momentum, get_lr
 from ..utils import dump_helper
@@ -224,7 +225,9 @@ def driver_device(args) -> torch.device:
     on the card, for a ``--num_target`` above what its NMS takes
     (``ops/nms.py::MAX_BOXES``); then the device ``--device`` names, the
     card's first by default. Raises when CUDA is asked for and absent:
-    nothing falls back to the CPU."""
+    nothing falls back to the CPU. Under torchrun (``WORLD_SIZE`` > 1) it
+    joins the process group (``parallel/distributed.py``) and returns the
+    rank's device, of ``--device``'s type."""
     if args.bf16 or args.f32_gridconv:
         raise SystemExit("--bf16 and --f32_gridconv are not ported yet (ROADMAP Queue 1 item "
                          "11): the port computes in float32 only")
@@ -238,16 +241,39 @@ def driver_device(args) -> torch.device:
             raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", 0)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        dev = distributed.initialize_distributed(device_type=dev.type, logger=lambda line: None).device
     return dev
 
 
-def log_device(dev: torch.device, logger) -> None:
-    """The device line, and one more when more cards are visible than the
-    one the drivers use."""
+def driver_logger(args, group):
+    """The drivers' log (``utils/logger.py``) on rank 0; on the other ranks
+    a logger that drops every line: only rank 0 logs."""
+    from ..utils.logger import Logger
+
+    return Logger(args.log_dir) if group.rank == 0 else _Silent()
+
+
+class _Silent:
+    def __call__(self, msg: str) -> None:
+        pass
+
+    def log_best(self, msg: str, filename: str = "best.txt") -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def log_device(dev: torch.device, logger, group=None) -> None:
+    """The device line; the process group's line under one; and one more
+    when more cards are visible than one process uses."""
     logger(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+    if group is not None and group.pg is not None:
+        logger(distributed.describe(group))
+    elif dev.type == "cuda" and torch.cuda.device_count() > 1:
         logger(f"{torch.cuda.device_count()} cards visible; this driver uses {dev} only "
-               "(multi-GPU is ROADMAP Queue 1 item 7)")
+               "(start it under torchrun for data parallelism over them)")
 
 
 def staged(loader, dev: torch.device):
@@ -264,7 +290,7 @@ def _write_trace(profiler, log_dir: str, logger) -> None:
 
 
 def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
-                 start_epoch: int, dev: torch.device) -> None:
+                 start_epoch: int, dev: torch.device, group=None) -> None:
     """The drivers' loop (pretrain.py:310-406, train.py:305-371 and
     569-611 of the reference), epochs ``start_epoch`` to ``args.max_epoch``:
     per epoch the lr and BN momentum schedules and their header line; per
@@ -279,11 +305,19 @@ def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
     returns ``evaluate``'s triple), its mAPs to ``<log_dir>/tb/eval`` and,
     on a new best mAP sum, ``best_checkpoint_sum.tar`` and ``best.txt``.
     ``--profile_steps`` steps from the first epoch's second go to a
-    ``torch.profiler`` Chrome trace in ``<log_dir>/profile``."""
+    ``torch.profiler`` Chrome trace in ``<log_dir>/profile``.
+
+    Under a data ``group`` (``parallel/``) every rank runs the loop on its
+    rows, ``step`` returns the global metrics, so every rank takes the
+    same branch at a non-finite loss; rank 0 alone logs, writes TensorBoard
+    and the trace, saves checkpoints and runs the eval, and the others wait
+    for it at a barrier after each write and eval."""
+    group = group or distributed.DataGroup()
+    lead = group.rank == 0
     lr_steps = [int(x) for x in args.lr_decay_steps.split(",")]
     lr_rates = [float(x) for x in args.lr_decay_rates.split(",")]
-    viz_train = Visualizer(args.log_dir, "train")
-    viz_eval = Visualizer(args.log_dir, "eval")
+    viz_train = Visualizer(args.log_dir, "train") if lead else None
+    viz_eval = Visualizer(args.log_dir, "eval") if lead else None
     try:
         best_map_sum = -1.0
         global_step = state.step
@@ -295,7 +329,7 @@ def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
             profiler = None
             t0 = time.time()
             for bi, batch in enumerate(staged(loader, dev)):
-                if args.profile_steps and epoch == start_epoch and bi == 1:
+                if args.profile_steps and epoch == start_epoch and bi == 1 and lead:
                     profiler = torch.profiler.profile(activities=[
                         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
                         if dev.type == "cuda" else [torch.profiler.ProfilerActivity.CPU])
@@ -304,6 +338,7 @@ def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
                 loss_val = metrics["loss"]
                 if not np.isfinite(loss_val):
                     checkpoint.save(os.path.join(args.log_dir, "nan_checkpoint.tar"), state, epoch)
+                    distributed.barrier(group)
                     logger(f"FATAL: non-finite loss {loss_val} at epoch {epoch} "
                            f"batch {bi}; state saved to nan_checkpoint.tar")
                     raise FloatingPointError("non-finite training loss")
@@ -317,7 +352,8 @@ def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
                     logger(f" batch {bi + 1:04d} " + " ".join(
                         f"{k}: {v:.4f}" for k, v in sorted(means.items())
                         if "loss" in k or "acc" in k or "ratio" in k or "value" in k))
-                    viz_train.log_scalars(means, global_step)
+                    if lead:
+                        viz_train.log_scalars(means, global_step)
                     averager.reset()
             if profiler is not None:  # the epoch ended first
                 _write_trace(profiler, args.log_dir, logger)
@@ -325,10 +361,15 @@ def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
 
             if (epoch + 1) % args.ckpt_interval == 0 or epoch + 1 == args.max_epoch:
                 checkpoint.save(ckpt_path, state, epoch + 1)
+                distributed.barrier(group)
             if (epoch + 1) % args.save_interval == 0:
                 checkpoint.save(os.path.join(args.log_dir, f"checkpoint_{epoch + 1}.tar"),
                                 state, epoch + 1)
+                distributed.barrier(group)
             if args.eval_interval > 0 and (epoch + 1) % args.eval_interval == 0:
+                if not lead:
+                    distributed.barrier(group)
+                    continue
                 _, ap_results, map_sum = eval_epoch()
                 viz_eval.log_scalars({f"mAP_{t}": m["mAP"] for t, m in ap_results.items()},
                                      global_step)
@@ -337,6 +378,8 @@ def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
                     checkpoint.save(os.path.join(args.log_dir, "best_checkpoint_sum.tar"),
                                     state, epoch + 1, loss=map_sum)
                     logger.log_best(f"epoch {epoch + 1}: mAP sum {map_sum:.4f}")
+                distributed.barrier(group)
     finally:
-        viz_train.close()
-        viz_eval.close()
+        for viz in (viz_train, viz_eval):
+            if viz is not None:
+                viz.close()

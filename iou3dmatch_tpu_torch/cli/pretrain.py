@@ -15,6 +15,8 @@ Where it differs from the JAX driver (ROADMAP Queue 3):
 - On the card, ``--num_target`` above ``ops/nms.py::MAX_BOXES`` is refused
   at startup.
 - ``--profile_steps`` writes a ``torch.profiler`` Chrome trace.
+- One process, as JAX's pretrain driver has no mesh: under torchrun with
+  ``WORLD_SIZE`` > 1 it refuses to start.
 
 Run:  python -m iou3dmatch_tpu_torch.cli.pretrain --dataset scannet \\
           --labeled_sample_list scannetv2_train_0.1.txt --log_dir log_scannet
@@ -98,6 +100,10 @@ def main(argv=None):
     """Trains, or with ``--eval`` evaluates and returns ``evaluate``'s
     (metric means, {threshold: metrics}, mAP sum)."""
     args = parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise SystemExit(f"cli/pretrain.py runs in one process (WORLD_SIZE is "
+                         f"{os.environ['WORLD_SIZE']}): the JAX pretrain driver has no mesh; "
+                         "data parallelism is cli/train.py's")
     from ..data.loader import DataLoader
     from ..models.factory import build_votenet
     from ..train import checkpoint

@@ -13,8 +13,14 @@ Where it differs from the JAX driver (ROADMAP Queue 3):
 
 - ``--device`` (default ``cuda``, the first card) takes the place of
   ``--platform``. Without CUDA it raises unless ``--device cpu`` is given.
-- One card: ``--batch_size`` is per device, with one device; with more
-  cards visible the driver uses the first and says so once.
+- Data parallelism is a process a rank under ``torchrun`` (``torchrun
+  --standalone --nproc_per_node N -m iou3dmatch_tpu_torch.cli.train ...``),
+  in place of JAX's one process over a mesh: ``--batch_size`` is per
+  device, the global batch ``bl·W + bu·W``; rank r trains on the rows
+  ``[L_r; U_r]`` of the JAX loader's global batch, with the statistics and
+  normalisers of the global batch (``parallel/``). Rank 0 alone logs,
+  saves and evaluates, over the whole eval set at JAX's global eval batch.
+  Run alone, the driver uses one card, the first by default.
 - ``--bf16`` and ``--f32_gridconv`` parse, and are refused at startup.
 - On the card, ``--num_target`` above ``ops/nms.py::MAX_BOXES`` is refused
   at startup.
@@ -49,8 +55,8 @@ def parse_args(argv=None):
     p.add_argument("--cluster_sampling", default="seed_fps")
     p.add_argument("--max_epoch", type=int, default=1001)
     p.add_argument("--batch_size", default="4,8",
-                   help="labeled,unlabeled scenes a step (train.py:47-48); per device, on "
-                        "the one device the driver uses")
+                   help="labeled,unlabeled scenes a step (train.py:47-48); per device: under "
+                        "torchrun with W ranks the global batch is bl*W + bu*W")
     p.add_argument("--learning_rate", type=float, default=2e-3)
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--lr_decay_steps", default="400,600,800,900")
@@ -138,34 +144,43 @@ def main(argv=None):
         raise SystemExit("--fast_step and --reference_exact_step conflict")
     from ..data.loader import DataLoader, SSLBatcher
     from ..models.factory import build_votenet
+    from ..parallel import distributed, make_global_mesh, replicate, shard_train_step
     from ..train import checkpoint
     from ..train.state import create_train_state
     from ..train.steps import make_eval_loss, make_ssl_step
-    from ..utils.logger import Logger
     from . import common
 
     dev = common.driver_device(args)
-    logger = Logger(args.log_dir)
-    logger(str(args))
-    common.log_device(dev, logger)
-    bl, bu = [int(x) for x in args.batch_size.split(",")]
-
-    labeled_ds, unlabeled_ds, eval_ds, cfg = common.build_ssl_datasets(args)
-    logger(f"labeled {len(labeled_ds)} unlabeled {len(unlabeled_ds)} eval {len(eval_ds)}")
-    # the loaders fork their workers before the model touches the card
-    loaders = [DataLoader(labeled_ds, bl, shuffle=True, num_workers=args.num_workers,
-                          seed=args.seed)]
+    group = make_global_mesh()
+    logger = common.driver_logger(args, group)
+    loaders = []
     try:
+        logger(str(args))
+        common.log_device(dev, logger, group)
+        # --batch_size is per device (JAX cli/train.py:157-164)
+        bl, bu = [int(x) for x in args.batch_size.split(",")]
+        w = group.world
+        if w > 1:
+            logger(f"data-parallel over {w} devices: per-device batch {bl}+{bu}, "
+                   f"global {bl * w}+{bu * w}")
+
+        labeled_ds, unlabeled_ds, eval_ds, cfg = common.build_ssl_datasets(args)
+        logger(f"labeled {len(labeled_ds)} unlabeled {len(unlabeled_ds)} eval {len(eval_ds)}")
+        # the loaders fork their workers before the model touches the card
+        loaders.append(DataLoader(labeled_ds, bl, shuffle=True, num_workers=args.num_workers,
+                                  seed=args.seed, rank=group.rank, world_size=w))
         loaders.append(DataLoader(unlabeled_ds, bu, shuffle=True,
-                                  num_workers=args.num_workers, seed=args.seed + 1))
+                                  num_workers=args.num_workers, seed=args.seed + 1,
+                                  rank=group.rank, world_size=w))
         if len(loaders[0]) == 0 or len(loaders[1]) == 0:
             raise SystemExit(
-                f"batch sizes {bl}+{bu} exceed the dataset "
+                f"batch sizes {bl * w}+{bu * w} exceed the dataset "
                 f"({len(labeled_ds)} labeled / {len(unlabeled_ds)} unlabeled "
                 "scenes): zero batches per epoch (drop_last) — shrink --batch_size")
         ssl_loader = SSLBatcher(loaders[0], loaders[1])
-        loaders.append(DataLoader(eval_ds, bl + bu, shuffle=False, drop_last=False,
-                                  num_workers=args.num_workers))
+        if group.rank == 0:  # rank 0 evaluates the whole eval set, JAX's global batch
+            loaders.append(DataLoader(eval_ds, (bl + bu) * w, shuffle=False, drop_last=False,
+                                      num_workers=args.num_workers))
 
         model, _ = build_votenet(
             args.dataset, num_proposal=args.num_target,
@@ -176,6 +191,7 @@ def main(argv=None):
                                    with_ema=True)
 
         start_epoch = 0
+        # every rank reads the file; replicate below makes every rank hold rank 0's
         ckpt_path = os.path.join(args.log_dir, "checkpoint.tar")
         if args.resume and os.path.exists(ckpt_path):
             start_epoch, _ = checkpoint.load(ckpt_path, state)
@@ -192,6 +208,7 @@ def main(argv=None):
                 # (train.py:204-228)
                 checkpoint.load_pretrain_into_ssl(args.detector_checkpoint, state)
             logger(f"loaded weights from {args.detector_checkpoint}")
+        replicate(state, group)
 
         step = make_ssl_step(
             cfg, num_labeled=bl, unlabeled_weight=args.unlabeled_loss_weight,
@@ -200,6 +217,7 @@ def main(argv=None):
             dataset=args.dataset, view_stats=args.view_stats,
             reference_exact=not args.fast_step,
             full_teacher=args.full_teacher, exact_jitter=args.exact_jitter)
+        step = shard_train_step(step, group)
         eval_model = state.ema_model if args.eval_use_ema else state.model
         # random sampling's eval indices: a generator of their own, so that an
         # eval leaves the training draws (state.generator) where they were
@@ -213,15 +231,18 @@ def main(argv=None):
                                    opt_step=opt_step, dump_dir=dump)
 
         if args.eval:
+            if group.rank != 0:
+                return None
             return eval_epoch(args.opt_rate, args.opt_step,
                               os.path.join(args.log_dir, "dump") if args.dump_results else None)
         common.train_epochs(args, state, step, ssl_loader, eval_epoch, logger, ckpt_path,
-                            start_epoch, dev)
+                            start_epoch, dev, group)
         return None
     finally:
         for ld in loaders:
             ld.close()
         logger.close()
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

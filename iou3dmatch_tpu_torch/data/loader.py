@@ -19,6 +19,13 @@ reseeded, the start method does not change a batch.
 
 Unlike the JAX loader, a process pool that cannot start, or that breaks,
 raises: it never turns into threads.
+
+Under data parallelism (``parallel/``) each of ``world_size`` ranks builds
+its own loader with the per-device batch size: rank r yields rows ``[r·b,
+(r+1)·b)`` of each global batch of ``b·world_size``, loading only those
+samples. With process workers its rows are the JAX loader's global batch's
+bit for bit, since every rank shuffles alike and each sample is seeded by
+its index.
 """
 import multiprocessing
 import os
@@ -60,11 +67,20 @@ def _worker_get(task):
 class DataLoader:
     """Epoch-shuffled batch iterator over a process pool (the default on a
     host with more than one core) or a thread pool for ``__getitem__``.
-    ``num_workers=0`` loads in one thread, as the JAX loader does."""
+    ``num_workers=0`` loads in one thread, as the JAX loader does.
+    ``batch_size`` is per rank; with ``world_size`` > 1, rank ``rank`` takes
+    its rows of each global batch of ``batch_size * world_size``, and every
+    rank has the same number of batches an epoch (``drop_last`` only: a
+    short last batch would leave the ranks unequal)."""
 
     def __init__(self, dataset, batch_size, shuffle=True, drop_last=True,
-                 num_workers=4, seed=0, worker_type=None):
+                 num_workers=4, seed=0, worker_type=None, rank=0, world_size=1):
         self._pool = None
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} of {world_size}")
+        if world_size > 1 and not drop_last:
+            raise ValueError("a loader over several ranks drops the last batch: a short one "
+                             "would leave the ranks with unequal rows")
         if worker_type is None:
             worker_type = "process" if (os.cpu_count() or 1) > 1 else "thread"
         if worker_type not in ("process", "thread"):
@@ -73,6 +89,8 @@ class DataLoader:
             worker_type = "thread"
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank = rank
+        self.world_size = world_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = num_workers
@@ -96,10 +114,10 @@ class DataLoader:
             raise
 
     def __len__(self):
-        n = len(self.dataset)
+        n, b = len(self.dataset), self.batch_size * self.world_size
         if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+            return n // b
+        return -(-n // b)
 
     def close(self):
         if self._pool is not None:
@@ -115,8 +133,10 @@ class DataLoader:
             self.rng.shuffle(order)
         epoch = self._epoch
         self._epoch += 1
+        size = self.batch_size * self.world_size
         for b in range(len(self)):
-            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+            idxs = order[b * size:(b + 1) * size][
+                self.rank * self.batch_size:(self.rank + 1) * self.batch_size]
             if self.worker_type == "process":
                 tasks = [(int(i), sample_seed(self.seed, epoch, int(i))) for i in idxs]
                 samples = list(self._pool.map(_worker_get, tasks))

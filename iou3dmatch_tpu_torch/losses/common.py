@@ -2,9 +2,19 @@
 
 Counterpart of ``iou3dmatch_tpu/losses/common.py``: cross-entropy with
 torch's per-element semantics and the reference's masked mean.
+
+The reductions over the batch axis are written for a data group
+(``parallel/``): while a step runs under ``shard_train_step`` each rank's
+loss and metric is its share of the global one, so every denominator is
+global: a data-dependent sum goes through ``all_reduce_sum`` (the
+``+ 1e-6`` added once, to the global sum), and a count of rows is this
+rank's times the ranks (every rank holds ``[L_r; U_r]`` of equal sizes).
+Without an active group each helper is the plain expression.
 """
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import all_reduce_sum, world
 
 FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
@@ -29,7 +39,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights=None) -> t
     return nll
 
 
+def global_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / (sum over ranks of den + 1e-6): this rank's share of a ratio of
+    global sums, ``num`` and ``den`` this rank's sums."""
+    return num / (all_reduce_sum(den) + 1e-6)
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """sum(x * mask) / (sum(mask) + 1e-6), the reference normalisation."""
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / (mask.sum() + 1e-6)
+    return global_ratio((x * mask).sum(), mask.sum())
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of every element of ``x``, over every rank's rows."""
+    w = world()
+    return x.mean() if w == 1 else x.sum() / (x.numel() * w)
+
+
+def global_count(n: int) -> int:
+    """A count of this rank's rows or elements -> the global batch's."""
+    return n * world()

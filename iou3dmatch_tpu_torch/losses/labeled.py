@@ -11,7 +11,7 @@ import torch
 from ..geometry.iou3d import boxes_iou3d_paired_rows
 from ..geometry.nn_distance import huber_loss, nn_distance
 from .common import (FAR_THRESHOLD, GT_VOTE_FACTOR, NEAR_THRESHOLD, OBJECTNESS_CLS_WEIGHTS,
-                     cross_entropy, masked_mean, one_hot)
+                     batch_mean, cross_entropy, global_count, masked_mean, one_hot)
 from .iou_labels import _gt_boxes, compute_iou_labels, placeholder_centers
 
 LABEL_KEYS = ("center_label", "box_label_mask", "heading_class_label",
@@ -108,9 +108,9 @@ def _jitter_iou_loss(ep: dict, batch: dict, nl: int, cfg, m: dict) -> torch.Tens
     labels, assignment = iou.max(-1)
     pred = _class_iou(ep["iou_scores_jitter"][:nl], _take(batch["sem_cls_label"], assignment))
     err = (pred - labels).abs()
-    m["jitter_iou_acc"] = err.mean()
-    m["jitter_iou_acc_obj"] = err.sum() / (bl * kj + 1e-6)
-    return huber_loss(pred - labels, 1.0).sum() / (bl * kj + 1e-6)
+    m["jitter_iou_acc"] = batch_mean(err)
+    m["jitter_iou_acc_obj"] = err.sum() / (global_count(bl * kj) + 1e-6)
+    return huber_loss(pred - labels, 1.0).sum() / (global_count(bl * kj) + 1e-6)
 
 
 def get_labeled_loss(ep: dict, batch: dict, cfg, num_labeled: int):
@@ -126,7 +126,7 @@ def get_labeled_loss(ep: dict, batch: dict, cfg, num_labeled: int):
     objectness_loss, objectness_label, objectness_mask, object_assignment = (
         compute_objectness_loss(ep, batch, nl))
     m["objectness_loss"] = objectness_loss
-    total_props = objectness_label.numel()
+    total_props = global_count(objectness_label.numel())
     m["pos_ratio"] = objectness_label.float().sum() / total_props
     m["neg_ratio"] = objectness_mask.sum() / total_props - m["pos_ratio"]
 
@@ -149,14 +149,14 @@ def get_labeled_loss(ep: dict, batch: dict, cfg, num_labeled: int):
         batch, ep["aggregated_vote_xyz"][:nl], ep["center"][:nl], ep["heading_scores"][:nl],
         ep["heading_residuals"][:nl], ep["size_scores"][:nl], ep["size_residuals"][:nl], cfg)
     obj_f = objectness_label.float()
-    m["pred_iou_value"] = iou_labels.mean()
+    m["pred_iou_value"] = batch_mean(iou_labels)
     m["pred_iou_obj_value"] = masked_mean(iou_labels, obj_f)
     m["obj_count"] = obj_f.sum()
     iou_pred = _class_iou(ep["iou_scores"][:nl], _take(batch["sem_cls_label"], iou_assignment))
     iou_err = (iou_pred - iou_labels).abs()
-    m["iou_acc"] = iou_err.mean()
+    m["iou_acc"] = batch_mean(iou_err)
     m["iou_acc_obj"] = masked_mean(iou_err, obj_f)
-    iou_loss = huber_loss(iou_pred - iou_labels, 1.0).mean()  # an unmasked mean
+    iou_loss = batch_mean(huber_loss(iou_pred - iou_labels, 1.0))  # an unmasked mean
     m["iou_loss"] = iou_loss
 
     total = vote_loss + 0.5 * objectness_loss + box_loss + 0.1 * sem_cls_loss + iou_loss

@@ -18,8 +18,9 @@ import torch
 from ..geometry.boxes import corners_aabb
 from ..geometry.nn_distance import huber_loss, nn_distance, nn_distance_withcls
 from ..ops.lhs import lhs_3d_samecls
-from .common import (FAR_THRESHOLD, NEAR_THRESHOLD, OBJECTNESS_CLS_WEIGHTS, cross_entropy,
-                     masked_mean, one_hot)
+from ..parallel.collectives import all_reduce_sum
+from .common import (FAR_THRESHOLD, NEAR_THRESHOLD, OBJECTNESS_CLS_WEIGHTS, batch_mean,
+                     cross_entropy, global_count, global_ratio, masked_mean, one_hot)
 from .iou_labels import iou_labels_from, proposal_gt_iou
 from .labeled import _take
 
@@ -86,9 +87,9 @@ def compute_objectness_gt(ep, gt_labels, num_labeled):
     label = (euclid < NEAR_THRESHOLD).long()
     mask = ((euclid < NEAR_THRESHOLD) | (euclid > FAR_THRESHOLD)).float()
     scores = ep["objectness_scores"][nl:]
-    mask_sum = mask.sum() + 1e-6
-    loss = (cross_entropy(scores, label, OBJECTNESS_CLS_WEIGHTS) * mask).sum() / mask_sum
-    acc = ((scores.argmax(2) == label).float() * mask).sum() / mask_sum
+    loss = global_ratio((cross_entropy(scores, label, OBJECTNESS_CLS_WEIGHTS) * mask).sum(),
+                        mask.sum())
+    acc = global_ratio(((scores.argmax(2) == label).float() * mask).sum(), mask.sum())
     return loss, label, mask, ind1, {"true_unlabeled_obj_acc": acc, "unlabeled_obj_acc": acc}
 
 
@@ -128,7 +129,7 @@ def get_pseudo_labels(teacher: Dict, cfg, obj_threshold, cls_threshold, iou_thre
         return _take(x, inds)
 
     final_mask_sorted = take(final_mask)
-    metrics = {"pseudo_gt_ratio": final_mask_sorted.float().mean()}
+    metrics = {"pseudo_gt_ratio": batch_mean(final_mask_sorted.float())}
     neg_obj_mask = take(neg_obj_mask)
 
     if gt_labels is not None:
@@ -140,12 +141,12 @@ def get_pseudo_labels(teacher: Dict, cfg, obj_threshold, cls_threshold, iou_thre
         iou_labels, vs_obj_label, vs_assignment = iou_labels_from(
             gt_labels, teacher["aggregated_vote_xyz"], gt_iou)
         vs_obj = vs_obj_label.float()
-        metrics["unlabeled_pred_iou_value"] = iou_labels.mean()
-        obj_count = vs_obj.sum() + 1e-6
-        metrics["unlabeled_pred_iou_obj_value"] = (iou_labels * vs_obj).sum() / obj_count
+        metrics["unlabeled_pred_iou_value"] = batch_mean(iou_labels)
+        metrics["unlabeled_pred_iou_obj_value"] = global_ratio((iou_labels * vs_obj).sum(),
+                                                               vs_obj.sum())
         iou_err = (iou_pred - iou_labels).abs()
-        metrics["unlabeled_iou_acc"] = iou_err.mean()
-        metrics["unlabeled_iou_obj_acc"] = (iou_err * vs_obj).sum() / obj_count
+        metrics["unlabeled_iou_acc"] = batch_mean(iou_err)
+        metrics["unlabeled_iou_obj_acc"] = global_ratio((iou_err * vs_obj).sum(), vs_obj.sum())
 
     argmax_size = teacher["size_scores"].argmax(2)
     argmax_heading = teacher["heading_scores"].argmax(2)
@@ -176,20 +177,22 @@ def get_pseudo_labels(teacher: Dict, cfg, obj_threshold, cls_threshold, iou_thre
         # (loss_helper_unlabeled.py:494-523)
         fmask = final_mask_sorted.float()
         picked_iou, sel_obj = take(iou_labels), take(vs_obj)
-        metrics["final_iou_avg_value"] = (picked_iou * fmask).sum() / (fmask.sum() + 1e-6)
-        metrics["final_iou_avg_obj_value"] = (picked_iou * fmask * sel_obj).sum() / (
-            (fmask * sel_obj).sum() + 1e-6)
+        metrics["final_iou_avg_value"] = global_ratio((picked_iou * fmask).sum(), fmask.sum())
+        metrics["final_iou_avg_obj_value"] = global_ratio((picked_iou * fmask * sel_obj).sum(),
+                                                          (fmask * sel_obj).sum())
         sel_cls_gt = gt_labels["sem_cls_label"].gather(1, take(vs_assignment))
         correct_cls = (sem_cls_sel == sel_cls_gt).float()
-        metrics["final_cls_value"] = (correct_cls * fmask).sum() / (fmask.sum() + 1e-6)
-        metrics["final_cls_obj_value"] = (correct_cls * fmask * sel_obj).sum() / (
-            (fmask * sel_obj).sum() + 1e-6)
+        metrics["final_cls_value"] = global_ratio((correct_cls * fmask).sum(), fmask.sum())
+        metrics["final_cls_obj_value"] = global_ratio((correct_cls * fmask * sel_obj).sum(),
+                                                      (fmask * sel_obj).sum())
         gt_to_pred = gt_iou.transpose(1, 2)  # (B, G, K)
         gt_to_sel = gt_to_pred.gather(2, inds[:, None, :].expand(-1, gt_to_pred.shape[1], -1))
         best_cover = (gt_to_sel * fmask[:, None, :]).amax(2)  # (B, G)
-        gt_count = gt_labels["box_label_mask"].sum() + 1e-6
-        metrics["final_coverage_0.25_value"] = (best_cover > 0.25).float().sum() / gt_count
-        metrics["final_coverage_0.5_value"] = (best_cover > 0.5).float().sum() / gt_count
+        gt_count = gt_labels["box_label_mask"].sum()
+        metrics["final_coverage_0.25_value"] = global_ratio((best_cover > 0.25).float().sum(),
+                                                            gt_count)
+        metrics["final_coverage_0.5_value"] = global_ratio((best_cover > 0.5).float().sum(),
+                                                           gt_count)
 
     label_mask = final_mask_sorted.int()
     return {
@@ -303,11 +306,12 @@ def get_unlabeled_loss(ep, ema_ep, batch, cfg, num_labeled, *, obj_threshold=0.9
         m.update(compute_objectness_gt(ep, gt_student, nl)[4])
         # the reference divides the coverage by the GT count of the whole
         # mixed batch, labeled rows included (loss_helper_unlabeled.py:498)
-        ratio = (gt_labels["box_label_mask"].sum() + 1e-6) / (batch["box_label_mask"].sum() + 1e-6)
+        ratio = global_ratio(all_reduce_sum(gt_labels["box_label_mask"].sum()) + 1e-6,
+                             batch["box_label_mask"].sum())
         for key in ("final_coverage_0.25_value", "final_coverage_0.5_value"):
             m[key] = m[key] * ratio
     m["unlabeled_objectness_loss"] = obj_loss
-    total_props = obj_label.numel()
+    total_props = global_count(obj_label.numel())
     m["unlabeled_pos_ratio"] = obj_label.float().sum() / total_props
     m["unlabeled_neg_ratio"] = obj_mask.sum() / total_props - m["unlabeled_pos_ratio"]
 

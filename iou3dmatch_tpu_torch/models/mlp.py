@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_, all_reduce_sum, current
+
 
 class BatchNorm(nn.Module):
     """Channels-last batch norm with torch's semantics, eps 1e-5.
@@ -36,6 +38,13 @@ class BatchNorm(nn.Module):
     (``tests/torch_grad_precision.py``). The card keeps the native kernels
     for speed: ``chip_smoke.py`` times both forms at the pretrain step's
     shapes (PERF.md).
+
+    While a step runs under ``parallel/mesh.py::shard_train_step``, train
+    mode takes the statistics of the global rows, every rank's; the
+    teacher's too, as JAX's GSPMD step does. On the card in
+    ``global_native``, PyTorch's native kernels with the ranks' sums
+    all-reduced (``_GroupBatchNorm``); on the CPU, where those kernels do not
+    exist, in ``global_two_pass``, written out.
 
     Keys: ``weight``, ``bias``, ``running_mean``, ``running_var`` (no
     ``num_batches_tracked``: nothing reads it)."""
@@ -56,7 +65,9 @@ class BatchNorm(nn.Module):
         if self.momentum is None:
             raise RuntimeError("train-mode BatchNorm needs a momentum: call set_bn_momentum")
         flat = x.reshape(-1, x.shape[-1])
-        if x.is_cuda:
+        if current() is not None:
+            out = self.global_native(flat) if x.is_cuda else self.global_two_pass(flat)
+        elif x.is_cuda:
             out = F.batch_norm(flat, self.running_mean, self.running_var, self.weight, self.bias,
                                True, self.momentum, self.eps)
         else:
@@ -75,6 +86,78 @@ class BatchNorm(nn.Module):
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
             self.running_var.copy_((1 - m) * self.running_var + m * var * (n / max(n - 1, 1)))
         return centered * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+    def global_two_pass(self, flat: torch.Tensor) -> torch.Tensor:
+        """``two_pass`` over the rows of every rank of the active group:
+        mean = sum x / N, var = sum (x - mean)^2 / N with N the global row
+        count, the running variance unbiased by N / (N - 1). The row count
+        rides in the first all-reduce, so ranks may hold different numbers
+        of rows, and both sums go through ``all_reduce_sum``, so the
+        backward is global too. N stays on the device: nothing waits for
+        the card."""
+        sums = all_reduce_sum(torch.cat([flat.sum(0), flat.new_full((1,), flat.shape[0])]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        centered = flat - mean
+        var = all_reduce_sum((centered * centered).sum(0)) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var
+                                   + m * var * (n / torch.clamp(n - 1, min=1)))
+        return centered * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+    def global_native(self, flat: torch.Tensor) -> torch.Tensor:
+        """Train mode over the rows of every rank of the active group, on the
+        card, from PyTorch's native kernels (``_GroupBatchNorm``)."""
+        return _GroupBatchNorm.apply(flat, self.weight, self.bias, self.running_mean,
+                                     self.running_var, self.eps, self.momentum, current())
+
+
+class _GroupBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of (rows, C) CUDA rows over every rank of
+    ``group``, from the native kernels ``torch.nn.SyncBatchNorm`` runs, with
+    its all-gather done as an all-reduce: each rank writes its mean, inverse
+    std and row count into its own row of a zeroed (ranks, 2C + 1) stack, and
+    the sum over ranks is every rank's stack. ``batch_norm_gather_stats_with
+    _counts`` merges the rows (Welford) into the global mean and inverse std
+    and updates the running statistics with the global count (unbiased). The
+    backward all-reduces the two per-channel sums the input's gradient needs;
+    the weight's and bias's gradients stay this rank's share, summed with
+    the other parameters' after the backward. One all-reduce forward, one
+    backward."""
+
+    @staticmethod
+    def forward(ctx, flat, weight, bias, running_mean, running_var, eps, momentum, group):
+        c = flat.shape[1]
+        mean, invstd = torch.batch_norm_stats(flat, eps)
+        stack = flat.new_zeros(group.world, 2 * c + 1)
+        # a fill, not a host scalar copied in, which would wait for the card
+        stack[group.rank] = torch.cat([mean, invstd, mean.new_full((1,), flat.shape[0])])
+        all_reduce_(stack, group)
+        counts = stack[:, 2 * c].contiguous()
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            flat, stack[:, :c].contiguous(), stack[:, c:2 * c].contiguous(), running_mean,
+            running_var, momentum, eps, counts)
+        ctx.save_for_backward(flat, weight, mean, invstd, counts.to(torch.int32))
+        ctx.group = group
+        return torch.batch_norm_elemt(flat, weight, bias, mean, invstd, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        flat, weight, mean, invstd, counts = ctx.saved_tensors
+        grad = grad.contiguous()
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        sum_dy, sum_dy_xmu, grad_w, grad_b = torch.batch_norm_backward_reduce(
+            grad, flat, mean, invstd, weight, need_x, need_w, need_b)
+        grad_x = None
+        if need_x:
+            c = sum_dy.shape[0]
+            sums = all_reduce_(torch.cat([sum_dy, sum_dy_xmu]), ctx.group)
+            grad_x = torch.batch_norm_backward_elemt(grad, flat, mean, invstd, weight, sums[:c],
+                                                     sums[c:], counts)
+        return (grad_x, grad_w if need_w else None, grad_b if need_b else None,
+                None, None, None, None, None)
 
 
 def set_bn_momentum(model: nn.Module, momentum: float) -> None:

@@ -12,13 +12,18 @@ package's torch import (``checkpoint.py:109-127``) read the keys they know.
 import os
 
 import torch
+import torch.distributed as dist
 
 from .state import TrainState
 
 
 def save(path: str, state: TrainState, epoch: int, loss: float = 0.0) -> None:
     """Writes ``state`` to ``path`` through ``path.tmp`` and a rename, so
-    that a run killed while writing leaves the last file whole."""
+    that a run killed while writing leaves the last file whole. In a
+    process group only rank 0 writes (every rank holds the same state);
+    every rank reads."""
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     payload = {"epoch": int(epoch), "loss": float(loss),
                "model_state_dict": state.model.state_dict(),
                "optimizer_state_dict": state.optimizer.state_dict(),

@@ -15,6 +15,8 @@ from torch import nn
 from ..losses import get_labeled_loss, get_loss, get_unlabeled_loss
 from ..models.mlp import set_bn_momentum
 from ..ops import furthest_point_sample
+from ..parallel.collectives import all_reduce_grads, current
+from ..parallel.mesh import take_rows
 from .state import TrainState
 
 KEEP = (
@@ -23,6 +25,35 @@ KEEP = (
     "iou_scores", "size", "heading", "seed_xyz", "seed_features",
     "vote_xyz", "vote_features", "aggregated_vote_xyz",
 )
+
+
+def _global_draws(model, generator, num_labeled: int, num_unlabeled: int, noise=None,
+                  jitter: bool = True):
+    """Under a data group: one forward's random tensors drawn at the global
+    batch's shapes from ``generator``, in the forward's order (``random``
+    sampling's proposal indices, then the two jitter draws unless ``noise``,
+    global, gives them or ``jitter`` is off), and this rank's rows
+    ``[L_r; U_r]`` of them, for a rank holding ``num_labeled`` +
+    ``num_unlabeled`` rows. Every rank draws the same numbers, so the
+    generators stay in step, and a single process on the global batch draws
+    them too. Returns (sample_inds or None, noise or None)."""
+    group = current()
+    w, dev = group.world, generator.device
+    b, k = (num_labeled + num_unlabeled) * w, model.pnet.num_proposal
+
+    def rows(x):
+        return take_rows(x, group.rank, w, num_labeled * w, num_unlabeled * w)
+
+    inds = None
+    if model.pnet.sampling == "random":
+        num_seed = model.backbone_net.sa2.npoint
+        inds = rows(torch.randint(0, num_seed, (b, k), generator=generator, device=dev,
+                                  dtype=torch.int32))
+    if jitter and noise is None:
+        noise = tuple(torch.randn((b, k, 3), generator=generator, device=dev) for _ in range(2))
+    if noise is not None:
+        noise = tuple(rows(n) for n in noise)
+    return inds, noise
 
 
 def make_pretrain_step(cfg):
@@ -35,7 +66,9 @@ def make_pretrain_step(cfg):
     on the model's device, without waiting for the card. ``noise``
     optionally gives the two jitter draws; else they come from
     ``state.generator``, after the proposal indices of ``random``
-    sampling."""
+    sampling. Under ``parallel/mesh.py::shard_train_step`` the draws and
+    ``noise`` have the global batch's shape, this rank takes its rows, and
+    the gradient is summed over the ranks before Adam."""
 
     def step(state: TrainState, batch: dict, lr: float, bn_momentum: float,
              noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> dict:
@@ -46,9 +79,14 @@ def make_pretrain_step(cfg):
             group["lr"] = lr
         opt.zero_grad(set_to_none=True)
         point_clouds = batch["point_clouds"]
-        ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator, noise=noise)
+        inds = None
+        if current() is not None:
+            inds, noise = _global_draws(model, state.generator, point_clouds.shape[0], 0, noise)
+        ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator, noise=noise,
+                                            sample_inds=inds)
         loss, metrics = get_labeled_loss(ep, batch, cfg, point_clouds.shape[0])
         loss.backward()
+        all_reduce_grads(model.parameters())
         opt.step()
         state.step += 1
         metrics["loss"] = loss
@@ -108,7 +146,10 @@ def make_ssl_step(cfg, num_labeled: int, *, unlabeled_weight: float = 2.0,
     draws from ``state.generator`` in this order: the teacher's proposal
     indices (``random`` sampling only), the teacher's jitter (jittered
     teacher forward only), the student's indices, the student's jitter;
-    a resume restores the generator, so it continues the sequence. The step
+    a resume restores the generator, so it continues the sequence. Under
+    ``parallel/mesh.py::shard_train_step`` it draws them at the global
+    batch's shapes (``noise`` has them too) and takes this rank's rows, and
+    sums the gradient over the ranks before Adam. The step
     updates ``state`` in place and returns the loss metrics, ``loss``
     included, as detached tensors on the model's device, without waiting
     for the card."""
@@ -144,19 +185,29 @@ def make_ssl_step(cfg, num_labeled: int, *, unlabeled_weight: float = 2.0,
         inds = furthest_point_sample(xyz, model.backbone_net.sa1.npoint)
         t_inds, s_inds = inds[:ema_clouds.shape[0]], inds[ema_clouds.shape[0]:]
 
+        t_sample = s_sample = None
+        if current() is not None:
+            nu = point_clouds.shape[0] - nl
+            t_sample, t_noise = _global_draws(teacher, state.generator, nl if teacher_full else 0,
+                                              nu, t_noise, jitter=jitter_full)
+            s_sample, s_noise = _global_draws(model, state.generator, nl, nu, s_noise)
         with torch.no_grad():
             if jitter_full:
                 ema_ep = teacher.forward_with_pred_jitter(
-                    ema_clouds, generator=state.generator, noise=t_noise, sa1_inds=t_inds)
+                    ema_clouds, generator=state.generator, noise=t_noise, sa1_inds=t_inds,
+                    sample_inds=t_sample)
             else:
-                ema_ep = teacher(ema_clouds, sa1_inds=t_inds, generator=state.generator)
+                ema_ep = teacher(ema_clouds, sa1_inds=t_inds, generator=state.generator,
+                                 sample_inds=t_sample)
         ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator,
                                             noise=s_noise, sa1_inds=s_inds,
-                                            jitter_rows=None if jitter_full else nl)
+                                            jitter_rows=None if jitter_full else nl,
+                                            sample_inds=s_sample)
         sup_loss, metrics = get_labeled_loss(ep, batch, cfg, nl)
         unsup_loss, m2 = get_unlabeled_loss(ep, ema_ep, batch, cfg, nl, **loss_args)
         loss = sup_loss + unlabeled_weight * unsup_loss
         loss.backward()
+        all_reduce_grads(model.parameters())
         opt.step()
         # the reference counts the step before the EMA (train.py:353-354)
         alpha = min(np.float32(1.0) - np.float32(1.0) / (np.float32(state.step) + np.float32(2.0)),
