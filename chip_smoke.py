@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's detection forward, eval, pretrain step, SSL step, training input path, drivers, SUN RGB-D end to end and the library modules on one NVIDIA GPU.
+"""Drives the PyTorch port's detection forward, eval, pretrain step, SSL step, training input path, drivers, SUN RGB-D end to end, the library modules, data parallelism and bf16 mixed precision on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (``nvcc``); it builds the kernels from
@@ -28,7 +28,10 @@ reported on its own line; a failed check raises and the exit code is not 0:
    prefixes), and the shapes of phase 11 and of ``query_feats="vote"``
    (the ball query at r 0.4 ns 128 over SA1 and the LFP's r 0.4 ns 16, the
    gather and its backward there, the gather's backward at ns 64 with
-   C = 4, GridConv's gather and three_nn over the votes), rows marked off
+   C = 4, GridConv's gather and three_nn over the votes), and bf16's
+   (phase 13: the bitcast-packed bf16 gather of SA3, SA4 and GridConv as
+   131 f32 words, bit for bit its plain bf16 gather, its backward at C =
+   256 and through the wrapper within one bf16 ulp), rows marked off
    the main path,
    with CUDA-event timings of kernel, plain version and library call, the
    launch floor (a one-element ``zero_()`` timed the same way), and the
@@ -193,7 +196,24 @@ reported on its own line; a failed check raises and the exit code is not 0:
    data-parallel and group lines, its first step's logged metrics equal to
    9 (b)'s to the log's 4 decimals, the step, epoch and generator state
    equal to (b)'s, the checkpoint finite, its change against (b)'s
-   reported, and the epochs' ms.
+   reported, and the epochs' ms;
+13. bf16 mixed precision (``phase_bf16``), after phase 12 on phase 9's
+   dumps, for ``compute_dtype="bfloat16"`` and with ``f32_gridconv``: (a)
+   the forward on one scene against the CPU (indices equal; heads within
+   1e-2 of scale or twice the card's own change for clouds moved by 1e-5);
+   (b) serving's 3 requests in turns with f32 (picks held to the NumPy
+   parse; device ms, scenes/s, peak memory, launches); (c) phase 6's and
+   7's card-vs-CPU steps (``step_gate``: FPS equal, SA1 within 4 bf16
+   ulps, loss rtol 0.15, gradient cosine > 0.3, beside the card's own
+   distance with the CPU's BatchNorm form), then 2 warm-up and 5 timed steps of each precision
+   in turns, twice; (d) one profiled pretrain and SSL step in f32 and in
+   bf16 (the GEMMs', BatchNorm's and other kernels' device ms, busy
+   share), and bf16 BatchNorm's native form against the CPU's cast form at
+   a step's 19 bf16 inputs; (e) the drivers with ``--bf16`` and ``--bf16
+   --f32_gridconv``: a pretrain epoch, an SSL epoch and ``--eval
+   --use_iou_for_nms --opt_step 10``, each logging bf16, every checkpoint
+   float32. (b) and the timed steps run first, (a) and (c)'s long CPU
+   sides after them.
 
 ``--kernels-only`` stops after phase 3 and prints neither of the last two
 lines. It also runs from the root of another checkout that has the SSL
@@ -221,6 +241,7 @@ a scan sees it, so that most balls of r 0.2 fill their 64 slots. The last
 two lines are the kernels' JSON and the device JSON.
 """
 import argparse
+import contextlib
 import functools
 import itertools
 import json
@@ -273,6 +294,7 @@ from iou3dmatch_tpu_torch.ops.ball_query import (BallQueryLaunch, GatherBwdLaunc
                                                  gather_bwd_plan, group_points,
                                                  group_points_backward,
                                                  group_points_backward_plain,
+                                                 group_points_bitcast, group_points_bitcast_plain,
                                                  group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import (fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain)
@@ -722,6 +744,41 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
                             (table, idx), nbytes, lambda _: 0, ops_per_s, 10, main=main)
         rows.setdefault("gather", []).append(r)
 
+    def bitcast(label, pts, feats, idx, backward=True):
+        """bf16 mixed precision's gather (``group_points_bitcast``): the
+        (B, N, 6 + C) bf16 table [xyz's f32 bits | bf16 features] as f32
+        words through csrc/gather.cu, bit for bit its plain bf16 gather; the
+        bound counts the rows read, the indices and the output once. With
+        ``backward``, the backward at C feature channels (csrc/gather_bwd.cu,
+        the gather_bwd row) and the gradient through the wrapper within one
+        bf16 ulp of the plain f32 sum rounded to bf16."""
+        b, n, c = feats.shape
+        fb = feats.to(torch.bfloat16).contiguous()
+        q = idx.shape[1] * idx.shape[2]
+        flat = idx.long().clamp(0, n - 1)
+        rows_read = sum(int(torch.unique(flat[i]).numel()) for i in range(b))
+        width = (6 + c) * 2
+        nbytes = rows_read * width + b * q * 4 + b * q * width
+        table = torch.cat([pts.contiguous().view(torch.bfloat16), fb], -1)
+        library = lambda *_: table[rows_idx[:, :, None], flat]  # noqa: E731
+        _, r = check_kernel("gather", label, group_points_bitcast, group_points_bitcast_plain,
+                            library, (pts, fb, idx), nbytes, lambda _: 0, ops_per_s, 10,
+                            main=False)
+        rows["gather"].append(r)
+        if backward:
+            gather_bwd(label.replace("131 words", f"{c}") + " backward", feats, idx, main=False)
+            g = torch.randn(idx.shape + (c,), generator=gen, device=dev).to(torch.bfloat16)
+            f = feats.detach().clone().requires_grad_()
+            got, = torch.autograd.grad(group_points_bitcast(pts, f.to(torch.bfloat16), idx)[1], f, g)
+            want = group_points_backward_plain(g.float(), idx, n).to(torch.bfloat16).float()
+            ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+            ulps = float(((got - want).abs() / ulp).max())
+            say(phase="bitcast_bwd", shape=label, max_bf16_ulps=ulps,
+                equal_share=float((got == want).float().mean()), tol="1 bf16 ulp")
+            if ulps > 1:
+                raise AssertionError(f"the bitcast gather's backward at {label}: {ulps} bf16 ulps")
+        return r
+
     # the forward's five ball queries and six gathers, at its shapes: SA2-SA4
     # take FPS-ordered prefixes, vote aggregation the first 128 of 1,024 votes,
     # GridConv 128 boxes x 64 grid points x 3 neighbours among 1,024 seeds
@@ -740,11 +797,13 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     idx = bq(f"sa3 r0.8 ns16 ({B},1024)x512", 0.8, 16, sa2_xyz, sa2_xyz[:, :512].contiguous())
     gather(f"sa3 ({B},1024,259)x({B},512,16)", torch.cat([sa2_xyz, f256], -1), idx)
     gather_bwd(f"sa3 ({B},{512 * 16},259)->({B},1024,259)", torch.cat([sa2_xyz, f256], -1), idx)
+    bitcast(f"sa3 bf16 ({B},1024,131 words)x({B},512,16)", sa2_xyz, f256, idx)
     sa3_xyz = sa2_xyz[:, :512].contiguous()
     idx = bq(f"sa4 r1.2 ns16 ({B},512)x256", 1.2, 16, sa3_xyz, sa3_xyz[:, :256].contiguous())
     gather(f"sa4 ({B},512,259)x({B},256,16)", torch.cat([sa3_xyz, f256[:, :512]], -1), idx)
     gather_bwd(f"sa4 ({B},{256 * 16},259)->({B},512,259)", torch.cat([sa3_xyz, f256[:, :512]], -1),
                idx)
+    bitcast(f"sa4 bf16 ({B},512,131 words)x({B},256,16)", sa3_xyz, f256[:, :512], idx)
     # the FPS shapes of --cluster_sampling vote_fps (off the default path):
     # FPS over the votes at vote_factor 1 and 2
     for what, pts, npoint in (
@@ -758,6 +817,10 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     gather_bwd(f"vote_agg ({B},{128 * 16},259)->({B},1024,259)", torch.cat([votes, f256], -1), idx)
     _, idx = three_nn(grid_queries(sa2_xyz, False, 5), sa2_xyz)
     gather(f"grid_conv ({B},1024,259)x({B},{K * 64},3)", torch.cat([sa2_xyz, f256], -1), idx)
+    # GridConv's bf16 interpolation: the packed bf16 table against the f32
+    # table of the rounded values (the row above; the same bytes as any f32 table)
+    bitcast(f"grid_conv bf16 ({B},1024,131 words)x({B},{K * 64},3)", sa2_xyz, f256, idx,
+            backward=False)["f32_table_ms"] = rows["gather"][-2]["ms"]
 
     # Off the default path, the knobs and library modules of phases 4, 6 and
     # 11. fps_prefix=False: FPS over SA1's, SA2's and SA3's FPS-ordered
@@ -1821,7 +1884,8 @@ def timed_train_steps(cfg, dev, batch: dict, knobs: dict) -> tuple:
     if launches != expect:
         raise AssertionError(f"launches a step {launches} ({knobs}), expected {expect}")
     return model, state, step, counts, {"step_ms": step_ms, "wall_ms_per_step": wall_s * 200,
-                                        "scenes_per_s": 5 * B / wall_s}
+                                        "scenes_per_s": 5 * B / wall_s,
+                                        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
 
 
 def phase_train_profile(model, state, step, batch, momentum):
@@ -2036,12 +2100,22 @@ def phase_ssl(cfg, dev) -> tuple:
     step's spans and profile. Returns the kernels' launches over the 5
     timed steps and the timed steps' ms, wall ms and scenes/s."""
     ssl_check(cfg, dev)
-    momentum = get_bn_momentum(0)
-    model, _ = build_votenet("scannet", device=dev)
-    state = create_train_state(model, with_ema=True)
-    step = make_ssl_step(cfg, SSL_NL, reference_exact=True, view_stats=True)
     batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
              for k, v in make_ssl_batch(53, SSL_NL, SSL_NU, cfg).items()}
+    state, step, counts, stats = timed_ssl_steps(cfg, dev, batch, {})
+    phase_ssl_profile(state, step, batch, get_bn_momentum(0))
+    return counts, stats
+
+
+def timed_ssl_steps(cfg, dev, batch: dict, knobs: dict) -> tuple:
+    """2 warm-up and 5 timed SSL steps of ``batch`` at run_train.sh's
+    settings on the model built with ``knobs``; launches a step must be
+    SSL_LAUNCHES. Returns the state, the step, the launches over the 5
+    steps and their ms, wall ms and scenes/s."""
+    momentum = get_bn_momentum(0)
+    model, _ = build_votenet("scannet", device=dev, **knobs)
+    state = create_train_state(model, with_ema=True)
+    step = make_ssl_step(cfg, SSL_NL, reference_exact=True, view_stats=True)
     for _ in range(2):
         step(state, batch, SSL_LR, momentum)
     torch.cuda.synchronize()
@@ -2063,7 +2137,7 @@ def phase_ssl(cfg, dev) -> tuple:
     losses = torch.stack([m["loss"] for m in metrics]).cpu()
     scenes = SSL_NL + SSL_NU
     step_ms = [a.elapsed_time(e) for a, e in events]
-    say(phase="ssl", scenes=f"{SSL_NL} + {SSL_NU}", points=N, steps=5,
+    say(phase="ssl", knobs=knobs, scenes=f"{SSL_NL} + {SSL_NU}", points=N, steps=5,
         step_ms=step_ms, wall_ms_per_step=wall_s * 200,
         scenes_per_s=5 * scenes / wall_s, max_memory_allocated=torch.cuda.max_memory_allocated(dev),
         losses=losses.tolist(), pseudo_gt_ratio=[float(m["pseudo_gt_ratio"]) for m in metrics],
@@ -2072,10 +2146,10 @@ def phase_ssl(cfg, dev) -> tuple:
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite SSL loss: {losses.tolist()}")
     if launches != SSL_LAUNCHES:
-        raise AssertionError(f"SSL launches a step {launches}, expected {SSL_LAUNCHES}")
-    phase_ssl_profile(state, step, batch, momentum)
-    return counts, {"step_ms": step_ms, "wall_ms_per_step": wall_s * 200,
-                    "scenes_per_s": 5 * scenes / wall_s}
+        raise AssertionError(f"SSL launches a step {launches} ({knobs}), expected {SSL_LAUNCHES}")
+    return state, step, counts, {"step_ms": step_ms, "wall_ms_per_step": wall_s * 200,
+                                 "scenes_per_s": 5 * scenes / wall_s,
+                                 "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
 
 
 def phase_ssl_profile(state, step, batch, momentum):
@@ -3761,6 +3835,474 @@ def phase_parallel(cfg, dev, root: Path) -> dict:
     return {"a_s": a_s, "b_s": b_s, "c_s": c_s}
 
 
+# ----------------------------------------------------------- phase 13: bf16
+# the precisions phase 13 runs in turns: f32 first, then --bf16 and --bf16 --f32_gridconv
+PRECISIONS = ({}, {"compute_dtype": "bfloat16"}, {"compute_dtype": "bfloat16", "f32_gridconv": True})
+BF16_FLAGS = (["--bf16"], ["--bf16", "--f32_gridconv"])
+# The bf16 train-mode step is chaotic: random weights leave channels of
+# tiny spread, whose train-mode normalisation turns one-ulp bf16 flips into
+# O(1) changes (a 1e-5 move of the clouds, which also moves FPS's picks,
+# changes the forward's every layer; tests/test_torch_bf16_steps.py). The
+# forward is held within twice the change such a move makes on the card.
+ENVELOPE_EPS = 1e-5
+BF16_FORWARD_REL = 1e-2  # eval forward, card vs CPU: a head's max |diff| over its max |value|
+# the bf16 steps, card vs CPU (phase 13 (c)), set from an H100 run's data
+# (PERF.md): SA1 1 ulp apart; the losses 2.9 % (pretrain) and 7.1 %
+# (SSL) apart at gradient cosine 0.62 and 0.65, as far as the card stands
+# from itself with the CPU's BatchNorm form (3.0 % and 5.1 %, 0.61 and 0.48)
+BF16_SA1_ULPS = 4
+BF16_LOSS_RTOL = 0.15
+BF16_MIN_COSINE = 0.3
+BF16_TURNS = 2
+REQUEST_LAUNCHES = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 0, "iou3d": 0, "lhs": 0,
+                    "three_nn": 3, "nms": 1}  # a serving request's, phase 5b's
+GEMM_KERNEL = re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)
+BN_KERNEL = re.compile(r"batch_norm|batchnorm|bn_fw|bn_bw|welford", re.I)
+
+
+def precision_name(knobs: dict) -> str:
+    if not knobs:
+        return "f32"
+    return "bf16+f32_gridconv" if knobs.get("f32_gridconv") else "bf16"
+
+
+def bf16_forward(dev, knobs: dict) -> dict:
+    """Phase 13 (a): the bf16 eval forward of one scene on the card against
+    the CPU: every index before the heads equal (FPS, the ball queries and
+    three_nn read f32 xyz); each head within the larger of
+    BF16_FORWARD_REL of its largest magnitude and twice the card's own
+    change for clouds moved by ENVELOPE_EPS (the IoU logits move by ~2e-2
+    so on the CPU); the objectness logits' correlation > 0.999; and the
+    card's f32 proposal heads further from the CPU's bf16 ones than the
+    card's bf16 heads are."""
+    model_gpu, _ = build_votenet("scannet", device=dev, **knobs)
+    model_cpu, _ = build_votenet("scannet", device="cpu", **knobs)
+    model_f32, _ = build_votenet("scannet", device=dev)
+    pc = torch.from_numpy(make_scenes(4, 1, N))
+    moved = torch.from_numpy(moved_clouds({"point_clouds": pc.numpy()}, ENVELOPE_EPS)[
+        "point_clouds"])
+    with torch.inference_mode():
+        ep_gpu, ep_f32 = model_gpu(pc.to(dev)), model_f32(pc.to(dev))
+        ep_moved = model_gpu(moved.to(dev))
+        torch.cuda.synchronize()
+        ep_cpu = model_cpu(pc)
+    for k in ("sa1_inds", "sa2_inds", "seed_inds", "aggregated_vote_inds"):
+        if not torch.equal(ep_gpu[k].cpu(), ep_cpu[k]):
+            raise AssertionError(f"{k} differ between the card and the CPU ({knobs})")
+    rel, rel_f32, rel_env, failed = {}, {}, {}, []
+    for k in ("center", "objectness_scores", "sem_cls_scores", "size_residuals", "iou_scores"):
+        a, f, m, b = ep_gpu[k].cpu(), ep_f32[k].cpu(), ep_moved[k].cpu(), ep_cpu[k]
+        if a.dtype != torch.float32 or not torch.isfinite(a).all():
+            raise AssertionError(f"{k}: {a.dtype} or non-finite on the card ({knobs})")
+        scale = float(b.abs().max())
+        rel[k], rel_f32[k], rel_env[k] = (max_err(x, b) / scale for x in (a, f, m))
+        if rel[k] > max(BF16_FORWARD_REL, 2 * rel_env[k]):
+            failed.append(k)
+    corr = float(np.corrcoef(ep_gpu["objectness_scores"].cpu().numpy().ravel(),
+                             ep_cpu["objectness_scores"].numpy().ravel())[0, 1])
+    heads = ("center", "objectness_scores", "sem_cls_scores")
+    say(phase="bf16_forward_vs_cpu", precision=precision_name(knobs), scenes=1, points=N,
+        indices_equal=True, rel_diff=rel, moved_rel_diff=rel_env, f32_rel_diff_to_cpu_bf16=rel_f32,
+        objectness_correlation=corr,
+        tol=f"indices equal, max |diff| / max |cpu| <= max({BF16_FORWARD_REL}, 2 x the card's for "
+            f"clouds moved by {ENVELOPE_EPS}), objectness correlation > 0.999, f32's proposal "
+            "heads further from the CPU's bf16 than the card's bf16")
+    if failed or corr <= 0.999:
+        raise AssertionError(f"bf16 forward ({knobs}): {failed} of {rel}, correlation {corr}")
+    if not max(rel_f32[k] for k in heads) > max(rel[k] for k in heads):
+        raise AssertionError(f"the card's bf16 forward is no nearer the CPU's than f32 ({knobs})")
+    return rel
+
+
+def bf16_serve(cfg, dev) -> dict:
+    """Phase 13 (b): 3 requests of B scenes for each precision, in turns
+    (f32, bf16, bf16 with f32 GridConv, twice), each request's picks held
+    to the host NumPy parse of the same outputs; device ms (CUDA events
+    around the forward), scenes/s (forward and parse) and peak memory of
+    the second turn; launches a request counted over the first bf16 turn."""
+    config = eval_config_dict(cfg, use_iou_for_nms=True)
+    forwards = {precision_name(k): make_eval_forward(build_votenet("scannet", device=dev, **k)[0])
+                for k in PRECISIONS}
+    batches = [torch.from_numpy(make_scenes(10 + i, B, N)).to(dev) for i in range(3)]
+    for fwd in forwards.values():
+        parse_predictions(fwd(batches[0]), config)  # warm-up
+    out = {}
+    for turn in range(BF16_TURNS):
+        for name, fwd in forwards.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for fn in KERNELS.values():
+                fn.launches = 0
+            device_ms, wall = [], 0.0
+            for i, pc in enumerate(batches):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                res = fwd(pc)
+                end.record()
+                end.synchronize()
+                picks = proposal_lists(pack_predictions(res, config), cfg.num_class, config)
+                wall += time.perf_counter() - t0
+                device_ms.append(start.elapsed_time(end))
+                same_picks(picks, parse_predictions_np({k: v.cpu().numpy() for k, v in res.items()},
+                                                       config), f"{name} request {i}")
+                if not all(torch.isfinite(v).all() for v in res.values()):
+                    raise AssertionError(f"{name} request {i}: non-finite outputs")
+            launches = {k: fn.launches for k, fn in KERNELS.items()}
+            row = {"device_ms": device_ms, "scenes_per_s": 3 * B / wall,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+                   "launches_per_request": {k: v / 3 for k, v in launches.items()}}
+            say(phase="bf16_serve", turn=turn, precision=name, requests=3, **row)
+            if row["launches_per_request"] != REQUEST_LAUNCHES:
+                raise AssertionError(f"{name} serving launched {launches}, expected 3 x "
+                                     f"{REQUEST_LAUNCHES}")
+            out.setdefault(name, []).append(row)
+            if name == "bf16" and turn == 0:
+                out["launches_bf16_3_requests"] = launches
+    return out
+
+
+def step_gate(what: str, gpu: dict, cast: dict, cpu: dict, extra: dict) -> dict:
+    """The card's bf16 step against the CPU's: FPS indices equal; SA1's
+    features (before any train-mode BatchNorm has amplified a flip) within
+    BF16_SA1_ULPS bf16 ulps of their largest magnitude; the loss finite and
+    within BF16_LOSS_RTOL, the gradient's cosine above BF16_MIN_COSINE.
+    Beside them, for the record, the same step on the card with BatchNorm
+    in the CPU's cast form (``cast``): two bf16 programs that differ only in
+    f32 rounding, the distance rounding alone makes."""
+    def cos(a, b):
+        return float(a @ b / (a.norm() * b.norm()))
+
+    scale = float(cpu["sa1"].abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    row = {"loss_gpu": gpu["loss"], "loss_cpu": cpu["loss"], "loss_gpu_cast_bn": cast["loss"],
+           "loss_rel": abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "loss_rel_cast_bn": abs(gpu["loss"] - cast["loss"]) / abs(cpu["loss"]),
+           "grad_cosine": cos(gpu["grads"], cpu["grads"]),
+           "grad_cosine_cast_bn": cos(gpu["grads"], cast["grads"]),
+           "sa1_ulps": float((gpu["sa1"] - cpu["sa1"]).abs().max()) / ulp,
+           "gpu_s": gpu["seconds"], "cpu_s": cpu["seconds"], **extra}
+    say(phase=what, **row, tol=f"FPS indices equal, SA1's features within {BF16_SA1_ULPS} bf16 "
+                               f"ulps of scale, loss rtol {BF16_LOSS_RTOL}, gradient cosine > "
+                               f"{BF16_MIN_COSINE}")
+    if not torch.equal(gpu["inds"], cpu["inds"]):
+        raise AssertionError(f"{what}: the FPS indices differ between the card and the CPU")
+    if not (np.isfinite(gpu["loss"]) and row["loss_rel"] <= BF16_LOSS_RTOL
+            and row["sa1_ulps"] <= BF16_SA1_ULPS and row["grad_cosine"] > BF16_MIN_COSINE):
+        raise AssertionError(f"{what}: {row}")
+    return row
+
+
+def moved_clouds(batch: dict, eps: float) -> dict:
+    out = dict(batch)
+    if eps:
+        rng = np.random.RandomState(61)
+        for k in ("point_clouds", "ema_point_clouds"):
+            if k in out:
+                pc = np.array(out[k])
+                pc[..., 0:3] += eps * rng.randn(*pc[..., 0:3].shape).astype(np.float32)
+                out[k] = pc
+    return out
+
+
+@contextlib.contextmanager
+def cast_bn_form():
+    """Train-mode BatchNorm in the CPU's form (cast to f32, ``two_pass``,
+    cast back) on every device, for the card's rounding-only comparison."""
+    real = BatchNorm.forward
+
+    def cast(self, x):
+        if not self.training:
+            return real(self, x)
+        flat = x.reshape(-1, x.shape[-1])
+        return self.two_pass(flat.float()).to(x.dtype).reshape(x.shape)
+
+    BatchNorm.forward = cast
+    try:
+        yield
+    finally:
+        BatchNorm.forward = real
+
+
+def step_runs(knobs: dict, dev, run_one) -> list:
+    """``run_one(model, state, where) -> (loss, metrics)`` on the card, on the
+    card with ``cast_bn_form``, and on the CPU, from the same weights; each
+    run's loss, gradient, FPS indices, SA1 features and seconds."""
+    runs = []
+    for where, cast in ((dev, False), (dev, True), (torch.device("cpu"), False)):
+        model, _ = build_votenet("scannet", device=where, **knobs)
+        state = create_train_state(model, with_ema=True)
+        seen = {}
+        hooks = [model.backbone_net.sa1.register_forward_hook(
+            lambda m, a, out: seen.__setitem__("sa1", out[1].detach().float().cpu()))]
+        hooks += [m.backbone_net.register_forward_hook(
+            lambda mod, a, ep, who=who: seen.__setitem__(who, ep["sa1_inds"].cpu()))
+            for who, m in (("teacher", state.ema_model), ("student", model))]
+        try:
+            with cast_bn_form() if cast else contextlib.nullcontext():
+                t = time.perf_counter()
+                loss, metrics = run_one(model, state, where)
+                seconds = time.perf_counter() - t
+        finally:
+            for h in hooks:
+                h.remove()
+        runs.append({"loss": loss, "metrics": metrics, "grads": _grads(model),
+                     "sa1": seen["sa1"], "seconds": seconds,
+                     "inds": torch.cat([seen[w] for w in ("teacher", "student") if w in seen])})
+    return runs
+
+
+def bf16_train_check(cfg, dev, knobs: dict) -> dict:
+    """Phase 13 (c): phase 6's card-vs-CPU pretrain step (2 scenes, GT at
+    the random model's vote centres), in bf16, held by ``step_gate``."""
+    momentum = get_bn_momentum(0)
+    batch = make_train_batch(20, 2, cfg, vote_anchors(make_scenes(20, 2, N), dev))
+    noise = torch.randn((2, 2, K, 3), generator=torch.Generator().manual_seed(21))
+
+    def run_one(model, state, where):
+        metrics = make_pretrain_step(cfg)(
+            state, {k: torch.from_numpy(np.asarray(v)).to(where) for k, v in batch.items()},
+            LR, momentum, noise=(noise[0].to(where), noise[1].to(where)))
+        return float(metrics["loss"]), {"pos_ratio": float(metrics["pos_ratio"])}
+
+    runs = step_runs(knobs, dev, run_one)
+    return step_gate("bf16_train_vs_cpu", *runs, {"precision": precision_name(knobs),
+                                                  "pos_ratio": runs[0]["metrics"]["pos_ratio"]})
+
+
+def bf16_ssl_check(cfg, dev, knobs: dict) -> dict:
+    """Phase 13 (c): phase 7's card-vs-CPU SSL step (1 + 1 scenes,
+    reference_exact with view-stats, LHS IoU SSL_CHECK_NMS_IOU), in bf16,
+    held by ``step_gate``; pseudo labels on the card, and its LHS equal to
+    the plain version on the card's own inputs (the teacher's bf16 outputs
+    may pick other boxes on the CPU)."""
+    momentum = get_bn_momentum(0)
+    student_pc, _ = augment_view(make_scenes(50, 2, N), 51)
+    batch = make_ssl_batch(50, 1, 1, cfg, vote_anchors(student_pc, dev))
+    noise = torch.randn((4, 2, K, 3), generator=torch.Generator().manual_seed(52))
+    thr = teacher_thresholds(batch["ema_point_clouds"], (noise[0], noise[1]), dev, 1)
+
+    def run_one(model, state, where):
+        lhs_calls = []
+
+        def recording(*args):
+            lhs_calls.append((args, lhs_3d_samecls(*args)))
+            return lhs_calls[-1][1]
+
+        unlabeled.lhs_3d_samecls = recording
+        try:
+            metrics = make_ssl_step(cfg, 1, reference_exact=True, view_stats=True,
+                                    nms_iou=SSL_CHECK_NMS_IOU, **thr)(
+                state, {k: torch.from_numpy(np.asarray(v)).to(where) for k, v in batch.items()},
+                SSL_LR, momentum, noise=((noise[0].to(where), noise[1].to(where)),
+                                         (noise[2].to(where), noise[3].to(where))))
+        finally:
+            unlabeled.lhs_3d_samecls = lhs_3d_samecls
+        (lhs_args, keep), = lhs_calls
+        return float(metrics["loss"]), {
+            "pseudo_gt_ratio": float(metrics["pseudo_gt_ratio"]),
+            "lhs_equal_plain": bool(torch.equal(keep.cpu(), lhs_3d_samecls_plain(*lhs_args).cpu()))}
+
+    runs = step_runs(knobs, dev, run_one)
+    gpu = runs[0]["metrics"]
+    row = step_gate("bf16_ssl_vs_cpu", *runs, {
+        "precision": precision_name(knobs), "thresholds": thr, **gpu,
+        "pseudo_gt_ratio_cpu": runs[2]["metrics"]["pseudo_gt_ratio"]})
+    if not (gpu["lhs_equal_plain"] and gpu["pseudo_gt_ratio"] > 0):
+        raise AssertionError(f"bf16 SSL check: LHS against its plain version, or no pseudo labels: {row}")
+    return row
+
+
+def split_profile(what: str, knobs: dict, step, state, batch, lr: float) -> dict:
+    """Phase 13 (d): one step under torch.profiler: the device ms of the
+    GEMMs (cuBLAS / CUTLASS kernels: the SA, FP, GridConv and head
+    products), of BatchNorm's kernels and of the rest, and the busy share
+    of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    momentum = get_bn_momentum(0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, batch, lr, momentum)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    gemm = sum(e.self_device_time_total for e in kern if GEMM_KERNEL.search(e.key)) / 1e3
+    bn = sum(e.self_device_time_total for e in kern if BN_KERNEL.search(e.key)) / 1e3
+    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    row = {"gemm_ms": gemm, "batch_norm_ms": bn, "other_ms": busy - gemm - bn,
+           "device_busy_ms": busy, "profiled_wall_ms": wall_ms, "busy_share": busy / wall_ms,
+           "gemm_share_of_device": gemm / busy}
+    say(phase="bf16_profile", step=what, precision=precision_name(knobs), **row,
+        top_kernels=[[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in kern[:10]])
+    return row
+
+
+def bn_bf16_forms(model, step, state, batch, dev) -> dict:
+    """BatchNorm at each bf16 input of one bf16 pretrain step: the card's
+    native kernels on bf16 rows (f32 statistics and weights) against the
+    CPU's form, cast to f32 -> ``two_pass`` (train) or the f32 eval formula
+    -> cast, on the card: outputs within one bf16 ulp on all but 1e-3 of the
+    elements, running statistics within rtol 1e-4; and both train forms'
+    forward+backward ms a step."""
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: shapes.append((a[0].numel() // a[0].shape[-1], a[0].shape[-1]))
+        if a[0].dtype == torch.bfloat16 else None)
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    try:
+        step(state, batch, LR, get_bn_momentum(0))
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    total, worst_share, worst_stats = {"native": 0.0, "two_pass_casts": 0.0}, 0.0, 0.0
+    for rows, c in shapes:
+        x = (torch.randn(rows, c, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        x.requires_grad_()
+        g = torch.randn(rows, c, generator=gen, device=dev).to(torch.bfloat16)
+        bns = [BatchNorm(c).to(dev) for _ in range(2)]
+        for bn in bns:
+            bn.momentum = get_bn_momentum(0)
+            bn.train()
+        native = lambda t, bn=bns[0]: F.batch_norm(t, bn.running_mean, bn.running_var,  # noqa: E731
+                                                   bn.weight, bn.bias, True, bn.momentum, bn.eps)
+        casts = lambda t, bn=bns[1]: bn.two_pass(t.float()).to(torch.bfloat16)  # noqa: E731
+        with torch.no_grad():
+            a, b = native(x).float(), casts(x).float()
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=2.0 ** -126))) - 7)
+        worst_share = max(worst_share, float(((a - b).abs() > ulp).float().mean()))
+        with torch.no_grad():  # eval mode: BatchNorm's own forms, native and cast
+            bns[0].eval()
+            bns[1].eval()
+            a = bns[0](x.detach()).float()
+            b = (bns[1](x.detach().float())).to(torch.bfloat16).float()
+            bns[0].train()
+            bns[1].train()
+        worst_share = max(worst_share, float(((a - b).abs() > ulp).float().mean()))
+        for key in ("running_mean", "running_var"):
+            ra, rb = getattr(bns[0], key), getattr(bns[1], key)
+            worst_stats = max(worst_stats, float(((ra - rb).abs() / rb.abs().clamp(min=1e-6)).max()))
+        for name, fn, bn in (("native", native, bns[0]), ("two_pass_casts", casts, bns[1])):
+            total[name] += cuda_ms(lambda: torch.autograd.grad(fn(x), (x, bn.weight, bn.bias), g),
+                                   1, 5)
+    say(phase="bn_bf16_forms", layers_a_step=len(shapes), forward_backward_ms_a_step=total,
+        share_over_1_bf16_ulp=worst_share, running_stats_max_rel=worst_stats,
+        tol="<= 1e-3 of the outputs over 1 bf16 ulp, running statistics rtol 1e-4")
+    if not shapes or worst_share > 1e-3 or worst_stats > 1e-4:
+        raise AssertionError(f"bf16 BatchNorm's native form against the CPU's: {worst_share}, "
+                             f"{worst_stats} ({len(shapes)} layers)")
+    return total
+
+
+def bf16_drivers(root: Path, dev) -> dict:
+    """Phase 13 (e), on phase 9's dumps: for ``--bf16`` and ``--bf16
+    --f32_gridconv``, one pretrain epoch (one step of the 8 labeled scans),
+    one SSL epoch from its checkpoint (2 steps), and ``--eval
+    --use_iou_for_nms --opt_step 10`` resuming the SSL checkpoint. Each logs
+    its compute dtype; the checkpoints hold float32 only; launches a step as
+    phases 6 and 7's."""
+    data = ["--dataset", "scannet", "--data_path", str(root / "data"),
+            "--labeled_sample_list", "labeled.txt"]
+    out = {}
+    for flags in BF16_FLAGS:
+        name = "bf16" + ("_f32_gridconv" if "--f32_gridconv" in flags else "")
+        line = ("compute dtype: bfloat16 (GridConv " + ("float32" if "--f32_gridconv" in flags
+                                                          else "bfloat16") + ")")
+        pre, ssl = root / f"{name}_pretrain", root / f"{name}_ssl"
+        runs = {"pretrain": driver_run(
+            f"{name}_pretrain", cli_pretrain.main,
+            ["--log_dir", str(pre), "--batch_size", str(B), "--max_epoch", "1",
+             "--eval_interval", "0", "--print_interval", "1"] + data + flags, pre,
+            DUMP_LABELED // B, B, {k: v * (DUMP_LABELED // B) for k, v in TRAIN_LAUNCHES.items()})}
+        runs["ssl"] = driver_run(
+            f"{name}_ssl", cli_train.main,
+            ["--log_dir", str(ssl), "--batch_size", f"{SSL_NL},{SSL_NU}", "--detector_checkpoint",
+             str(pre / "checkpoint.tar"), "--view_stats", "--reference_exact_step", "--max_epoch",
+             "1", "--eval_interval", "0", "--print_interval", "1"] + data + flags, ssl,
+            DUMP_LABELED // SSL_NL, SSL_NL + SSL_NU,
+            {k: v * (DUMP_LABELED // SSL_NL) for k, v in SSL_LAUNCHES.items()})
+        t = time.perf_counter()
+        means, ap, map_sum = cli_train.main(
+            ["--log_dir", str(ssl), "--resume", "--eval", "--use_iou_for_nms", "--opt_step",
+             str(OPT_STEP), "--opt_rate", str(OPT_RATE), "--batch_size", f"{SSL_NL},{SSL_NU}"]
+            + data + flags)
+        eval_s = time.perf_counter() - t
+        log = (ssl / "log_train.txt").read_text()
+        for run in ("pretrain", "ssl"):
+            if line not in runs[run]["log"]:
+                raise AssertionError(f"{name} {run}: no '{line}' in its log")
+        if log.count(line) != 2 or "compute dtype: float32" in log:
+            raise AssertionError(f"{name}: the SSL and eval runs' logs do not both say bf16")
+        dtypes = {}
+        for path in (pre / "checkpoint.tar", ssl / "checkpoint.tar"):
+            saved = checkpoint.read(str(path))
+            for key in ("model_state_dict", "ema_model_state_dict"):
+                for k, v in saved.get(key, {}).items():
+                    dtypes[str(v.dtype)] = dtypes.get(str(v.dtype), 0) + 1
+        if set(dtypes) != {"torch.float32"}:
+            raise AssertionError(f"{name}: checkpoints hold {dtypes}")
+        if not (np.isfinite(map_sum) and all(np.isfinite(v) for v in means.values())):
+            raise AssertionError(f"{name} eval: non-finite results")
+        say(phase="bf16_drivers", precision=name, checkpoint_dtypes=dtypes, eval_s=eval_s,
+            eval_map={t: ap[t]["mAP"] for t in ap}, eval_ar={t: ap[t]["AR"] for t in ap})
+        out[name] = {k: v["row"]["launches"] for k, v in runs.items()}
+    return out
+
+
+def phase_bf16(cfg, dev, root: Path) -> dict:
+    """Phase 13, bf16 mixed precision at full width (8 x 40,000 points, 128
+    proposals), after phase 9 and on its dumps: (b) serving in turns with
+    f32; 2 warm-up and 5 timed pretrain and SSL steps of each precision in
+    turns, twice, with (d) one profiled step of each kind in f32 and in
+    bf16 and bf16 BatchNorm's two forms; then, their long CPU sides after
+    the timed cells (long CPU work stalls a host-clock cell after it), (a)
+    the forward and (c) the pretrain and SSL steps card vs CPU for
+    ``--bf16`` and ``--bf16 --f32_gridconv``; (e) the drivers. Returns the
+    bf16 launches (3 requests, 5 pretrain and 5 SSL steps of ``--bf16``,
+    the drivers')."""
+    t0 = time.perf_counter()
+    serve = bf16_serve(cfg, dev)
+    train_batch = {k: torch.from_numpy(v).to(dev) for k, v in make_train_batch(22, B, cfg).items()}
+    ssl_batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                 for k, v in make_ssl_batch(53, SSL_NL, SSL_NU, cfg).items()}
+    out, timed = {"serve": serve}, {}
+    for turn in range(BF16_TURNS):
+        for knobs in PRECISIONS:
+            name = precision_name(knobs)
+            model, state, step, counts, stats = timed_train_steps(cfg, dev, train_batch, knobs)
+            timed.setdefault(f"train_{name}", []).append(stats)
+            if turn == BF16_TURNS - 1 and name in ("f32", "bf16"):
+                out[f"profile_train_{name}"] = split_profile("pretrain", knobs, step, state,
+                                                             train_batch, LR)
+                if name == "bf16":
+                    out["launches_bf16_5_train_steps"] = counts
+                    out["bn_bf16_forms"] = bn_bf16_forms(model, step, state, train_batch, dev)
+            del model, state, step
+            state, step, counts, stats = timed_ssl_steps(cfg, dev, ssl_batch, knobs)
+            timed.setdefault(f"ssl_{name}", []).append(stats)
+            if turn == BF16_TURNS - 1 and name in ("f32", "bf16"):
+                out[f"profile_ssl_{name}"] = split_profile("ssl", knobs, step, state, ssl_batch,
+                                                           SSL_LR)
+                if name == "bf16":
+                    out["launches_bf16_5_ssl_steps"] = counts
+            del state, step
+    say(phase="bf16_steps", turns=BF16_TURNS, **{k: [
+        {"step_ms_median": float(np.median(s["step_ms"])), "wall_ms_per_step": s["wall_ms_per_step"],
+         "scenes_per_s": s["scenes_per_s"], "max_memory_allocated": s["max_memory_allocated"]}
+        for s in v] for k, v in timed.items()})
+    # the card-vs-CPU checks' long CPU sides run after the timed cells
+    for knobs in PRECISIONS[1:]:
+        bf16_forward(dev, knobs)
+        bf16_train_check(cfg, dev, knobs)
+        bf16_ssl_check(cfg, dev, knobs)
+    out["drivers"] = bf16_drivers(root, dev)
+    say(phase="bf16", seconds=time.perf_counter() - t0)
+    return out
+
+
 def first_step_metrics(log: str) -> dict:
     """The metrics a driver's log prints after its first step (``--print_interval 1``)."""
     line = next(x for x in log.splitlines() if x.startswith(" batch 0001 "))
@@ -3884,6 +4426,7 @@ def main() -> int:
     try:
         drivers = phase_drivers(cfg, dev, eval_request, root)
         phase_parallel(cfg, dev, root)
+        bf16 = phase_bf16(cfg, dev, root)
     finally:
         shutil.rmtree(root)
     sunrgbd = phase_sunrgbd(dev, card, ops_per_s, rows, eval_request)
@@ -3905,6 +4448,11 @@ def main() -> int:
             "launches_5_loader_ssl_steps": data["ssl"][name],
             "launches_3_eval_requests": evals[0][name],
             "launches_3_eval_opt_requests": evals[OPT_STEP][name],
+            "launches_bf16_3_requests": bf16["serve"]["launches_bf16_3_requests"][name],
+            "launches_bf16_5_train_steps": bf16["launches_bf16_5_train_steps"][name],
+            "launches_bf16_5_ssl_steps": bf16["launches_bf16_5_ssl_steps"][name],
+            **{f"launches_driver_{run}_{p}": counts[name]
+               for p, runs in bf16["drivers"].items() for run, counts in runs.items()},
             **{f"launches_driver_{run}": counts[name] for run, counts in drivers.items()},
             **{f"launches_sunrgbd_{run}": counts[name] for run, counts in sunrgbd.items()},
             "max_abs_err": max(c["max_abs_err"] for c in checks),

@@ -221,16 +221,12 @@ def evaluate(model, cfg, eval_loader, config_dict, logger, eval_loss,
 
 def driver_device(args) -> torch.device:
     """The drivers' startup checks, before any data or model: raises
-    ``SystemExit`` for ``--bf16`` and ``--f32_gridconv`` (not ported yet) and,
-    on the card, for a ``--num_target`` above what its NMS takes
-    (``ops/nms.py::MAX_BOXES``); then the device ``--device`` names, the
-    card's first by default. Raises when CUDA is asked for and absent:
+    ``SystemExit``, on the card, for a ``--num_target`` above what its NMS
+    takes (``ops/nms.py::MAX_BOXES``); then the device ``--device`` names,
+    the card's first by default. Raises when CUDA is asked for and absent:
     nothing falls back to the CPU. Under torchrun (``WORLD_SIZE`` > 1) it
     joins the process group (``parallel/distributed.py``) and returns the
     rank's device, of ``--device``'s type."""
-    if args.bf16 or args.f32_gridconv:
-        raise SystemExit("--bf16 and --f32_gridconv are not ported yet (ROADMAP Queue 1 item "
-                         "11): the port computes in float32 only")
     dev = torch.device(args.device)
     num_target = args.num_target or (16 if args.tiny else 128)
     if dev.type == "cuda" and num_target > MAX_BOXES:
@@ -263,6 +259,23 @@ class _Silent:
 
     def close(self) -> None:
         pass
+
+
+def model_precision(args) -> dict:
+    """``build_votenet``'s precision arguments from ``--bf16`` and
+    ``--f32_gridconv``, as the JAX drivers pass them (``cli/train.py:188-189``)."""
+    return {"compute_dtype": "bfloat16" if args.bf16 else None,
+            "f32_gridconv": args.f32_gridconv}
+
+
+def log_precision(args, logger) -> None:
+    """The compute dtype line: the shared MLPs' dtype, and GridConv's where
+    ``--f32_gridconv`` keeps it apart; parameters are float32 always."""
+    if not args.bf16:
+        logger("compute dtype: float32")
+    else:
+        logger("compute dtype: bfloat16 (GridConv "
+               + ("float32" if args.f32_gridconv else "bfloat16") + "), parameters float32")
 
 
 def log_device(dev: torch.device, logger, group=None) -> None:

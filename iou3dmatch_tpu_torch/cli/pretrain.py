@@ -11,7 +11,6 @@ Where it differs from the JAX driver (ROADMAP Queue 3):
 
 - ``--device`` (default ``cuda``, the first card) takes the place of
   ``--platform``. Without CUDA it raises unless ``--device cpu`` is given.
-- ``--bf16`` and ``--f32_gridconv`` parse, and are refused at startup.
 - On the card, ``--num_target`` above ``ops/nms.py::MAX_BOXES`` is refused
   at startup.
 - ``--profile_steps`` writes a ``torch.profiler`` Chrome trace.
@@ -85,11 +84,11 @@ def parse_args(argv=None):
                    help="torch device [default: cuda, the first card]; raises without CUDA "
                         "unless --device cpu (the JAX driver's --platform)")
     p.add_argument("--f32_gridconv", action="store_true",
-                   help="parsed for flag parity and refused: bf16 is not ported yet "
-                        "(ROADMAP Queue 1 item 11)")
+                   help="keep the GridConv IoU branch in float32 under --bf16 (no effect "
+                        "without it)")
     p.add_argument("--bf16", action="store_true",
-                   help="parsed for flag parity and refused: bf16 is not ported yet "
-                        "(ROADMAP Queue 1 item 11)")
+                   help="bf16 mixed precision: the SA, FP and GridConv shared MLPs compute "
+                        "in bfloat16; parameters, BN statistics and heads stay float32")
     p.add_argument("--profile_steps", type=int, default=0,
                    help="write a torch.profiler Chrome trace of this many steps (epoch 0, "
                         "from its second step) into <log_dir>/profile")
@@ -130,6 +129,7 @@ def main(argv=None):
     logger = Logger(args.log_dir)
     logger(str(args))
     common.log_device(dev, logger)
+    common.log_precision(args, logger)
     train_ds, eval_ds, cfg = common.build_supervised_datasets(args)
     logger(f"train scenes: {len(train_ds)}  eval scenes: {len(eval_ds)}")
     # the loaders fork their workers before the model touches the card
@@ -148,7 +148,8 @@ def main(argv=None):
             args.dataset, num_proposal=args.num_target,
             input_feature_dim=(0 if args.no_height else 1) + (3 if args.use_color else 0),
             sampling=args.cluster_sampling, tiny=args.tiny, vote_factor=args.vote_factor,
-            device=dev, generator=torch.Generator().manual_seed(args.seed))
+            device=dev, generator=torch.Generator().manual_seed(args.seed),
+            **common.model_precision(args))
         state = create_train_state(model, seed=args.seed + 1, weight_decay=args.weight_decay)
 
         start_epoch = 0

@@ -6,10 +6,15 @@ ground-truth boxes in the (x, y, z, dx, dy, dz, heading) IoU format, with
 the heading NEGATED and -1000 placeholder centers for empty GT slots; the
 label of a proposal is its largest IoU with a GT of its own scene, computed
 only for same-scene pairs (``boxes_iou3d_paired_rows``). No gradient.
+
+``compute_iou_labels_axis_aligned`` is the reference's axis-aligned form
+(``loss_helper_iou.py:115-152``, JAX ``iou_labels.py:109-152``): corners
+from the argmax size class, ``box3d_iou_axis_aligned`` against every GT of
+the scene, differentiable in the predicted center and size residuals.
 """
 import torch
 
-from ..geometry.iou3d import boxes_iou3d_paired_rows
+from ..geometry.iou3d import box3d_iou_axis_aligned, boxes_iou3d_paired_rows
 from ..geometry.nn_distance import nn_distance
 from .common import NEAR_THRESHOLD
 
@@ -87,3 +92,35 @@ def compute_iou_from_given_size(labels: dict, pred_center, pred_size, pred_headi
     iou = boxes_iou3d_paired_rows(pred_bbox.detach(), gt_bbox)
     iou_labels, object_assignment = iou.max(-1)
     return iou_labels, pred_bbox, object_assignment
+
+
+def compute_iou_labels_axis_aligned(labels: dict, pred_votes, pred_center, pred_size_scores,
+                                    pred_size_residuals, origin_object_assignment, cfg):
+    """Axis-aligned IoU labels. Returns (iou_labels (B, K), iou_zero_mask
+    (B, K) int32, final_object_assignment (B, K), {acc_pred_iou,
+    acc_pred_iou_obj}). A proposal's label is its largest IoU over the GT
+    of its scene (the first GT on ties); where that is below 1e-4 the
+    assignment falls back to ``origin_object_assignment``. The gradient
+    reaches ``pred_center`` and ``pred_size_residuals`` (at the argmax
+    class), not the GT."""
+    center_label = placeholder_centers(labels)
+    with torch.no_grad():
+        dist1, _, _, _ = nn_distance(pred_votes, center_label)
+        objectness_label = (torch.sqrt(dist1 + 1e-6) < NEAR_THRESHOLD).to(torch.int32)
+    size_class = pred_size_scores.argmax(-1)
+    size_residual = pred_size_residuals.gather(
+        2, size_class[:, :, None, None].expand(-1, -1, 1, 3))[:, :, 0, :]
+    gt_size = cfg.class2size_tensor(labels["size_class_label"].long(),
+                                    labels["size_residual_label"]) / 2
+    gt_corners = torch.stack([gt_size + center_label, center_label - gt_size], 2).detach()
+    pred_size = cfg.class2size_tensor(size_class, size_residual) / 2
+    pred_corners = torch.stack([pred_size + pred_center, pred_center - pred_size], 2)
+    iou = box3d_iou_axis_aligned(gt_corners[:, None], pred_corners[:, :, None])  # (B, K, G)
+    iou_labels, object_assignment = iou.max(-1)
+    iou_zero_mask = (iou_labels < 1e-4).to(torch.int32)
+    final_object_assignment = (origin_object_assignment * iou_zero_mask
+                               + object_assignment * (1 - iou_zero_mask))
+    obj = objectness_label.to(iou_labels.dtype)
+    stats = {"acc_pred_iou": iou_labels.mean(),
+             "acc_pred_iou_obj": (iou_labels * obj).sum() / (obj.sum() + 1e-6)}
+    return iou_labels, iou_zero_mask, final_object_assignment, stats

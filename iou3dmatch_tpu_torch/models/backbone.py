@@ -10,6 +10,10 @@ input is FPS-ordered, so FPS over it picks its first npoint points in order
 and the kernel is skipped. ``fps_prefix=False`` runs FPS in each of them,
 as the reference does (JAX ``models/backbone.py:76-84``); the outputs are
 the same.
+
+``dtype=torch.bfloat16`` runs SA1-SA4 and FP1-FP2's shared MLPs in bf16;
+SA3 and SA4, whose rows are widest, gather the bitcast-packed bf16 table,
+while SA1 and SA2 keep the f32 packed table (JAX ``backbone.py:38-51``).
 """
 from typing import Optional, Sequence
 
@@ -23,7 +27,8 @@ class Pointnet2Backbone(nn.Module):
     def __init__(self, input_feature_dim: int, generator: torch.Generator,
                  sa_npoints: Sequence[int] = (2048, 1024, 512, 256),
                  sa_radii: Sequence[float] = (0.2, 0.4, 0.8, 1.2),
-                 sa_nsamples: Sequence[int] = (64, 32, 16, 16), fps_prefix: bool = True):
+                 sa_nsamples: Sequence[int] = (64, 32, 16, 16), fps_prefix: bool = True,
+                 dtype=None):
         super().__init__()
         self.fps_prefix = fps_prefix
         mlps = ((input_feature_dim, 64, 64, 128), (128, 128, 128, 256),
@@ -32,9 +37,9 @@ class Pointnet2Backbone(nn.Module):
                 zip(sa_npoints, sa_radii, sa_nsamples, mlps), start=1):
             self.add_module(f"sa{i}", PointnetSAModuleVotes(
                 mlp=mlp, npoint=npoint, radius=radius, nsample=nsample,
-                generator=generator))
-        self.fp1 = PointnetFPModule((256 + 256, 256, 256), generator)
-        self.fp2 = PointnetFPModule((256 + 256, 256, 256), generator)
+                generator=generator, dtype=dtype, bitcast_gather=i >= 3))
+        self.fp1 = PointnetFPModule((256 + 256, 256, 256), generator, dtype=dtype)
+        self.fp2 = PointnetFPModule((256 + 256, 256, 256), generator, dtype=dtype)
 
     def forward(self, pointcloud: torch.Tensor,
                 sa1_inds: Optional[torch.Tensor] = None) -> dict:

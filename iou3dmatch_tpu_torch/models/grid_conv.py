@@ -21,6 +21,19 @@ The interpolation takes the reference's gather form (the JAX package's
 ``IOU3DMATCH_GRIDCONV_GATHER`` branch, ``grid_conv.py:158-169``): three_nn
 indices, one ``group_points`` gather of the packed origin [xyz | features],
 distances recomputed from the gathered xyz, a weighted sum.
+
+With ``dtype=torch.bfloat16`` (JAX's bf16 ``_interp_onehot``,
+``grid_conv.py:60-104``) the shared MLP runs in bf16, and so does the
+interpolation: the neighbours' xyz are the seeds' bf16-rounded xyz, each
+normalised weight is rounded to bf16, and a row is bf16(sum_k w_k * f_k)
+over the bf16 features, the exact products summed in f32. The gather
+takes the bitcast-packed bf16 table (``group_points_bitcast``, the seeds'
+f32 xyz bits beside their bf16 features), half the f32 table's bytes, and
+rounds the xyz after it. The gradient to center, size and heading flows
+through the distances and the bf16 casts, as in JAX. JAX's bf16 GridConv
+picks its neighbours by ``approx_min_k`` (``_three_nn_approx``), whose TPU
+picks cannot be reproduced; the port runs the exact ``three_nn`` in both
+dtypes (ROADMAP Queue 3).
 """
 import numpy as np
 import torch
@@ -29,6 +42,7 @@ from torch import nn
 
 from ..geometry.boxes import rot_gpu
 from ..ops import group_points, three_nn
+from ..ops.ball_query import group_points_bitcast
 from .mlp import BatchNorm, SharedMLP, head_conv
 
 GRID_SIZE = 4
@@ -46,15 +60,17 @@ def _grid_offsets() -> np.ndarray:
 class GridConv(nn.Module):
     def __init__(self, num_class: int, num_heading_bin: int, num_size_cluster: int,
                  generator: torch.Generator, seed_feat_dim: int = 256,
-                 query_feats: str = "seed"):
+                 query_feats: str = "seed", dtype=None):
         super().__init__()
         if query_feats not in QUERY_FEATS:
             raise ValueError(f"query_feats is one of {QUERY_FEATS}, not {query_feats!r}")
         self.num_class = num_class
         self.query_feats = query_feats
+        self.dtype = dtype
         self.register_buffer(
             "offsets", torch.as_tensor(_grid_offsets(), dtype=torch.float32), persistent=False)
-        self.mlp_before_iou = SharedMLP((3 + seed_feat_dim, 128, 128, 128), generator)
+        self.mlp_before_iou = SharedMLP((3 + seed_feat_dim, 128, 128, 128), generator,
+                                        dtype=dtype)
         out_dim = 3 + num_heading_bin * 2 + num_size_cluster * 3 + num_class
         self.conv1_iou = head_conv(128, 128, generator)
         self.conv2_iou = head_conv(128, 128, generator)
@@ -79,13 +95,7 @@ class GridConv(nn.Module):
         flat_grid = grid.reshape(b, k * g, 3)
 
         _, idx = three_nn(flat_grid, origin_xyz)  # (B, K*64, 3)
-        packed = torch.cat([origin_xyz, origin_features], dim=-1)
-        grouped = group_points(packed, idx)  # (B, K*64, 3, 3+C)
-        diff = grouped[..., :3] - flat_grid[:, :, None, :]
-        dist = torch.sqrt((diff * diff).sum(dim=-1))
-        weight = 1.0 / (dist + 1e-8)
-        weight = weight / weight.sum(dim=2, keepdim=True)
-        interp = (grouped[..., 3:] * weight[..., None]).sum(dim=2)  # (B, K*64, C)
+        interp = self.interpolate(flat_grid, origin_xyz, origin_features, idx)
 
         # box-relative grid coordinates in world orientation first
         # (grid_conv_module.py:94)
@@ -96,3 +106,23 @@ class GridConv(nn.Module):
         net = F.relu(self.bn2_iou(self.conv2_iou(net)))
         ep["iou_scores"] = self.conv3_iou(net)[..., -self.num_class:]
         return ep
+
+    def interpolate(self, flat_grid: torch.Tensor, origin_xyz: torch.Tensor,
+                    origin_features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """(B, q, C) inverse-distance interpolation of the origin features at
+        the grid points from their three_nn ``idx`` (B, q, 3), in f32, or in
+        bf16 with ``dtype`` bf16 (the module docstring)."""
+        if self.dtype is None:
+            grouped = group_points(torch.cat([origin_xyz, origin_features], dim=-1), idx)
+            pts, feats = grouped[..., :3], grouped[..., 3:]  # (B, q, 3, 3), (B, q, 3, C)
+        else:
+            pts, feats = group_points_bitcast(origin_xyz, origin_features.to(self.dtype), idx)
+            pts = pts.to(self.dtype).float()
+        diff = pts - flat_grid[:, :, None, :]
+        dist = torch.sqrt((diff * diff).sum(dim=-1))
+        weight = 1.0 / (dist + 1e-8)
+        weight = weight / weight.sum(dim=2, keepdim=True)
+        if self.dtype is None:
+            return (feats * weight[..., None]).sum(dim=2)
+        weight = weight.to(self.dtype).float()
+        return (feats.float() * weight[..., None]).sum(dim=2).to(self.dtype)

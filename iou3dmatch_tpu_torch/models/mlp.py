@@ -12,6 +12,15 @@ Initialisation draws from an explicit ``torch.Generator``:
   bias, as the reference's BN-followed 1x1 convs (pytorch_utils.py:17).
 - Head convolutions (voting, proposal and GridConv heads): PyTorch's default
   Conv1d init, weight and bias ~ U(+-1/sqrt(fan_in)).
+
+Mixed precision (JAX ``SharedMLP(dtype=jnp.bfloat16)``): a SharedMLP with
+``dtype=torch.bfloat16`` casts its input and each weight to bf16, so every
+product takes bf16 operands, accumulates in f32 and rounds its output to
+bf16; BatchNorm takes its statistics and normalises in f32 and returns the
+input's dtype; the SharedMLP's output is f32 again. The parameters and the
+running statistics stay f32, so their gradients are f32. The dtype is set
+per module, as in JAX; ``torch.autocast`` would cast other operations than
+JAX does (the f32 heads among them).
 """
 from collections import OrderedDict
 
@@ -20,6 +29,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.collectives import all_reduce_, all_reduce_sum, current
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """bf16 as f32; f32 and f64 as they are."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class BatchNorm(nn.Module):
@@ -46,6 +60,13 @@ class BatchNorm(nn.Module):
     all-reduced (``_GroupBatchNorm``); on the CPU, where those kernels do not
     exist, in ``global_two_pass``, written out.
 
+    A bf16 input (a bf16 SharedMLP's) is normalised in f32 and the output
+    cast back to bf16, as the JAX ``BatchNorm`` does: on the CPU by explicit
+    casts around the f32 forms; on the card by the native kernels, which
+    take bf16 input with f32 weights and statistics and compute in f32, and
+    so skip the two cast passes over the activations (``chip_smoke.py``
+    holds them to the cast form).
+
     Keys: ``weight``, ``bias``, ``running_mean``, ``running_var`` (no
     ``num_batches_tracked``: nothing reads it)."""
 
@@ -60,18 +81,23 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            if x.is_cuda and x.dtype == torch.bfloat16:  # one pass, f32 inside
+                return F.batch_norm(x.reshape(-1, x.shape[-1]), self.running_mean,
+                                    self.running_var, self.weight, self.bias, False, 0.0,
+                                    self.eps).reshape(x.shape)
             inv = torch.rsqrt(self.running_var + self.eps)
-            return (x - self.running_mean) * inv * self.weight + self.bias
+            return ((_wide(x) - self.running_mean) * inv * self.weight + self.bias).to(x.dtype)
         if self.momentum is None:
             raise RuntimeError("train-mode BatchNorm needs a momentum: call set_bn_momentum")
         flat = x.reshape(-1, x.shape[-1])
         if current() is not None:
-            out = self.global_native(flat) if x.is_cuda else self.global_two_pass(flat)
+            out = self.global_native(flat) if x.is_cuda else \
+                self.global_two_pass(_wide(flat)).to(x.dtype)
         elif x.is_cuda:
             out = F.batch_norm(flat, self.running_mean, self.running_var, self.weight, self.bias,
                                True, self.momentum, self.eps)
         else:
-            out = self.two_pass(flat)
+            out = self.two_pass(_wide(flat)).to(x.dtype)
         return out.reshape(x.shape)
 
     def two_pass(self, flat: torch.Tensor) -> torch.Tensor:
@@ -130,8 +156,8 @@ class _GroupBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, flat, weight, bias, running_mean, running_var, eps, momentum, group):
         c = flat.shape[1]
-        mean, invstd = torch.batch_norm_stats(flat, eps)
-        stack = flat.new_zeros(group.world, 2 * c + 1)
+        mean, invstd = torch.batch_norm_stats(flat, eps)  # f32, for bf16 rows too
+        stack = mean.new_zeros(group.world, 2 * c + 1)
         # a fill, not a host scalar copied in, which would wait for the card
         stack[group.rank] = torch.cat([mean, invstd, mean.new_full((1,), flat.shape[0])])
         all_reduce_(stack, group)
@@ -208,7 +234,11 @@ class PointwiseConv(nn.Module):
         self.bias = None if bias is None else nn.Parameter(bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.flatten(1), self.bias)
+        """In the input's dtype: a bf16 input takes the weight cast to bf16."""
+        w, b = self.weight.flatten(1), self.bias
+        if x.dtype == torch.bfloat16:
+            w, b = w.to(x.dtype), None if b is None else b.to(x.dtype)
+        return F.linear(x, w, b)
 
 
 def shared_conv(cin: int, cout: int, generator: torch.Generator) -> PointwiseConv:
@@ -237,9 +267,17 @@ class _ConvBNReLU(nn.Module):
 
 class SharedMLP(nn.Sequential):
     """conv -> BN -> ReLU layers ``layer0``, ``layer1``, ... over the last
-    axis; ``channels`` lists the input width and then each layer's width."""
+    axis; ``channels`` lists the input width and then each layer's width.
+    ``dtype`` (None or ``torch.bfloat16``) is the compute dtype: the input
+    is cast to it, and the output is f32 (JAX ``models/mlp.py:113-124``)."""
 
-    def __init__(self, channels, generator: torch.Generator):
+    def __init__(self, channels, generator: torch.Generator, dtype=None):
         super().__init__(OrderedDict(
             (f"layer{i}", _ConvBNReLU(cin, cout, generator))
             for i, (cin, cout) in enumerate(zip(channels[:-1], channels[1:]))))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        return super().forward(x.to(self.dtype)).float()

@@ -19,6 +19,14 @@ Where xyz and features are both grouped, one gather of the packed table
 [xyz | features] stands for the JAX modules' two; a gather copies rows, so
 the result is the same.
 
+``dtype=torch.bfloat16`` (JAX's ``dtype``) runs the shared MLPs in bf16
+(``models/mlp.py``). With it, ``bitcast_gather`` (the backbone's SA3 and
+SA4) gathers one bf16 table, the f32 xyz bitcast into 6 bf16 lanes beside
+the features cast to bf16 (``ops/ball_query.py::group_points_bitcast``):
+half the bytes of the f32 table, and the same MLP input, since the MLP
+would cast the features to bf16 anyway. Only for SA layers whose xyz
+carries no gradient.
+
 Random draws come from an explicit ``torch.Generator`` on the tensors'
 device: ``uniform_resample_idx`` splits into a deterministic core that takes
 the uniform draws and a wrapper that draws them.
@@ -31,6 +39,7 @@ from torch import nn
 
 from ..ops import (ball_query, furthest_point_sample, gather_points,
                    group_points, three_interpolate, three_nn)
+from ..ops.ball_query import group_points_bitcast
 from .mlp import BatchNorm, PointwiseConv, SharedMLP
 
 POOLINGS = ("max", "avg", "rbf")
@@ -67,11 +76,16 @@ def uniform_resample_idx(idx: torch.Tensor, generator: torch.Generator):
 
 
 def _group(xyz: torch.Tensor, features: Optional[torch.Tensor], centers: torch.Tensor,
-           idx: torch.Tensor):
+           idx: torch.Tensor, bitcast: bool = False):
     """(xyz relative to the centers, features or None), both (B, m, ns, .),
-    through one gather of the packed table where there are features."""
+    through one gather of the packed table where there are features; with
+    ``bitcast``, of the bf16 table, whose features come back in bf16."""
     if features is None:
         return group_points(xyz, idx) - centers[:, :, None, :], None
+    if bitcast:
+        grouped_xyz, grouped_features = group_points_bitcast(
+            xyz.detach(), features.to(torch.bfloat16), idx)
+        return grouped_xyz - centers[:, :, None, :], grouped_features
     grouped = group_points(torch.cat([xyz, features], dim=-1), idx)
     return grouped[..., :3] - centers[:, :, None, :], grouped[..., 3:]
 
@@ -118,12 +132,15 @@ class PointnetSAModuleVotes(nn.Module):
     ``normalize_xyz`` divides the relative xyz by the radius; ``sigma``
     (rbf) defaults to radius / 2. ``sample_uniformly`` needs a
     ``generator`` at the call; ``ret_unique_cnt`` (which needs it) also
-    returns the unique count of each ball."""
+    returns the unique count of each ball. ``dtype`` is the shared MLP's
+    compute dtype; ``bitcast_gather`` takes the bf16 packed gather where
+    ``dtype`` is bf16 and there are features."""
 
     def __init__(self, *, mlp, npoint: int, radius: float, nsample: int,
                  generator: torch.Generator, use_xyz: bool = True, normalize_xyz: bool = True,
                  pooling: str = "max", sigma: Optional[float] = None,
-                 sample_uniformly: bool = False, ret_unique_cnt: bool = False):
+                 sample_uniformly: bool = False, ret_unique_cnt: bool = False,
+                 dtype=None, bitcast_gather: bool = False):
         super().__init__()
         if pooling not in POOLINGS:
             raise ValueError(f"pooling is one of {POOLINGS}, not {pooling!r}")
@@ -133,7 +150,8 @@ class PointnetSAModuleVotes(nn.Module):
         self.use_xyz, self.normalize_xyz, self.pooling = use_xyz, normalize_xyz, pooling
         self.sigma = radius / 2 if sigma is None else sigma
         self.sample_uniformly, self.ret_unique_cnt = sample_uniformly, ret_unique_cnt
-        self.mlp_module = SharedMLP(_mlp_channels(mlp, use_xyz), generator)
+        self.bitcast = bitcast_gather and dtype == torch.bfloat16
+        self.mlp_module = SharedMLP(_mlp_channels(mlp, use_xyz), generator, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
                 inds: Union[None, str, torch.Tensor] = None,
@@ -147,7 +165,7 @@ class PointnetSAModuleVotes(nn.Module):
         unique_cnt = None
         if self.sample_uniformly:
             idx, unique_cnt = uniform_resample_idx(idx, generator)
-        grouped_xyz, grouped_features = _group(xyz, features, new_xyz, idx)
+        grouped_xyz, grouped_features = _group(xyz, features, new_xyz, idx, self.bitcast)
         if self.normalize_xyz:
             grouped_xyz = grouped_xyz / self.radius
         h = self.mlp_module(_join(grouped_xyz, grouped_features, self.use_xyz))
@@ -167,11 +185,12 @@ class PointnetSAModuleVotes(nn.Module):
 
 class PointnetFPModule(nn.Module):
     """Feature propagation: 3-NN inverse-distance interpolation, concat
-    [interpolated, skip], shared MLP."""
+    [interpolated, skip], shared MLP (in ``dtype``; the interpolation in
+    f32)."""
 
-    def __init__(self, mlp, generator: torch.Generator):
+    def __init__(self, mlp, generator: torch.Generator, dtype=None):
         super().__init__()
-        self.mlp = SharedMLP(list(mlp), generator)
+        self.mlp = SharedMLP(list(mlp), generator, dtype=dtype)
 
     def forward(self, unknown, known, unknown_feats, known_feats):
         dist, idx = three_nn(unknown, known)

@@ -14,6 +14,13 @@ IoU branch alone on given boxes, for test-time IoU optimisation.
 forward takes a ``generator`` (or given ``sample_inds``);
 ``forward_with_pred_jitter`` draws the proposal indices first and the
 jitter after them, from the same generator.
+
+``compute_dtype="bfloat16"`` is JAX's mixed precision (``votenet.py:34-66``):
+the backbone's SA and FP shared MLPs, and GridConv's ``mlp_before_iou`` and
+interpolation unless ``f32_gridconv``, compute in bf16; the voting and
+proposal modules and GridConv's conv head stay f32, and so do every
+parameter and running statistic. ``f32_gridconv`` without bf16 changes
+nothing.
 """
 import math
 from typing import Optional, Tuple
@@ -27,14 +34,23 @@ from .grid_conv import GridConv
 from .proposal import ProposalModule
 from .voting import VotingModule
 
+# compute_dtype -> the shared MLPs' dtype (JAX's names)
+COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+
 
 class VoteNet(nn.Module):
     def __init__(self, num_class: int, num_heading_bin: int, num_size_cluster: int,
                  mean_size_arr, generator: torch.Generator, input_feature_dim: int = 0,
                  num_proposal: int = 128, vote_factor: int = 1,
                  sa_npoints=(2048, 1024, 512, 256), sampling: str = "seed_fps",
-                 query_feats: str = "seed", fps_prefix: bool = True):
+                 query_feats: str = "seed", fps_prefix: bool = True,
+                 compute_dtype=None, f32_gridconv: bool = False):
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype is one of {COMPUTE_DTYPES}, not {compute_dtype!r}")
+        mp_dtype = COMPUTE_DTYPES[compute_dtype]
+        self.compute_dtype = mp_dtype or torch.float32
+        self.f32_gridconv = f32_gridconv
         if query_feats == "seed+vote" and vote_factor != 1:
             raise ValueError("query_feats='seed+vote' pairs each seed with one vote: it needs "
                              f"vote_factor 1, not {vote_factor} (the JAX GridConv fails on "
@@ -44,13 +60,15 @@ class VoteNet(nn.Module):
             "mean_size", torch.as_tensor(np.asarray(mean_size_arr), dtype=torch.float32),
             persistent=False)
         self.backbone_net = Pointnet2Backbone(input_feature_dim, generator,
-                                              sa_npoints=sa_npoints, fps_prefix=fps_prefix)
+                                              sa_npoints=sa_npoints, fps_prefix=fps_prefix,
+                                              dtype=mp_dtype)
         self.vgen = VotingModule(vote_factor, 256, generator)
         self.pnet = ProposalModule(num_class, num_heading_bin, num_size_cluster,
                                    mean_size_arr, generator, num_proposal=num_proposal,
                                    sampling=sampling, fps_prefix=fps_prefix)
         self.grid_conv = GridConv(num_class, num_heading_bin, num_size_cluster, generator,
-                                  query_feats=query_feats)
+                                  query_feats=query_feats,
+                                  dtype=None if f32_gridconv else mp_dtype)
 
     def class2angle(self, cls: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         """Heading decode; ScanNet (1 bin) is always 0."""

@@ -20,6 +20,10 @@ the reference CUDA kernels:
   counting sort of each scene's slots by row, then a warp for each run of
   whole rows, which writes each row's sum once; ``gather_bwd_plan`` picks
   the runs from the shape and the SM count.
+- ``group_points_bitcast`` (bf16 mixed precision, JAX
+  ``models/pointnet2.py:133-165``): one gather of the bf16 table [f32 xyz
+  bitcast into 6 bf16 lanes | bf16 features], which ``csrc/gather.cu`` and
+  ``csrc/gather_bwd.cu`` run as pairs of bf16 lanes viewed as f32 words.
 
 Each wrapper takes its plain version only for a CPU tensor.
 """
@@ -201,6 +205,77 @@ def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 group_points.launches = 0
+
+
+def _bitcast_table(xyz: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
+    """The (B, N, 6 + C) bf16 table [xyz's f32 bits | features]."""
+    table = torch.cat([xyz.contiguous().view(torch.bfloat16), features], dim=-1)
+    if table.shape[-1] % 2:
+        raise ValueError(f"group_points_bitcast: the packed table's width 6 + C = "
+                         f"{table.shape[-1]} is odd, so its bf16 lanes do not pair into f32 words")
+    return table
+
+
+def _split_bitcast(out: torch.Tensor):
+    return out[..., :6].view(torch.float32), out[..., 6:]
+
+
+def group_points_bitcast_plain(xyz: torch.Tensor, features: torch.Tensor, idx: torch.Tensor):
+    """Plain PyTorch ``group_points_bitcast``: the bf16 gather of the packed
+    table by indexing, on any device; no gradient."""
+    return _split_bitcast(group_points_plain(_bitcast_table(xyz, features), idx))
+
+
+class _GroupPointsBitcast(torch.autograd.Function):
+    """The bitcast-packed bf16 gather, differentiable in the features only
+    (the xyz lanes are bits, not numbers)."""
+
+    @staticmethod
+    def forward(ctx, xyz, features, idx):
+        ctx.n = features.shape[1]
+        ctx.save_for_backward(idx)
+        table = _bitcast_table(xyz, features)
+        if table.device.type == "cpu":
+            out = group_points_plain(table, idx)
+        else:
+            words = table.view(torch.float32)
+            _check_grouping(words, idx)
+            out = _gather_kernel(words, idx).view(torch.bfloat16)
+        grouped_xyz, grouped_features = _split_bitcast(out)
+        ctx.mark_non_differentiable(grouped_xyz)
+        return grouped_xyz, grouped_features
+
+    @staticmethod
+    def backward(ctx, g_xyz, g):
+        if not ctx.needs_input_grad[1] or g is None:
+            return None, None, None
+        (idx,) = ctx.saved_tensors
+        # summed in f32 and rounded once, as ops/scatter.py:62 casts its f32
+        # accumulator to the cotangent's dtype
+        grad = group_points_backward(g.float().contiguous(), idx, ctx.n)
+        return None, grad.to(torch.bfloat16), None
+
+
+def group_points_bitcast(xyz: torch.Tensor, features: torch.Tensor, idx: torch.Tensor):
+    """xyz: (B, N, 3) f32, features: (B, N, C) bf16 with 6 + C even, idx:
+    (B, m, ns) int32 -> (grouped xyz (B, m, ns, 3) f32, exact bits; grouped
+    features (B, m, ns, C) bf16). One gather of the (B, N, 6 + C) bf16
+    table [xyz's bits | features]: on a CUDA tensor ``csrc/gather.cu`` on
+    the table viewed as (B, N, (6 + C) / 2) f32 words (131 at C = 256),
+    bit for bit the plain bf16 gather by indexing that the CPU runs. The
+    gradient reaches the features only: the cotangent of their lanes in
+    f32, ``group_points_backward`` over C channels, rounded to bf16 (one
+    bf16 ulp from the plain f32 sum, whose order differs). xyz must carry
+    no gradient, as in the JAX backbone, where it derives from the input
+    cloud alone."""
+    if features.dtype != torch.bfloat16:
+        raise ValueError(f"group_points_bitcast takes bf16 features, not {features.dtype}")
+    if xyz.dtype != torch.float32 or xyz.shape[:2] != features.shape[:2] or xyz.shape[-1] != 3:
+        raise ValueError(f"group_points_bitcast takes f32 xyz (B, N, 3) beside the features, "
+                         f"got {xyz.dtype} {tuple(xyz.shape)} and {tuple(features.shape)}")
+    if xyz.requires_grad:
+        raise ValueError("group_points_bitcast: xyz carries its bits, not a gradient: detach it")
+    return _GroupPointsBitcast.apply(xyz, features, idx)
 
 
 def group_points_backward_plain(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:

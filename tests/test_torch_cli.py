@@ -4,10 +4,10 @@ and ``--eval`` against the JAX driver.
 - Flag parity: ``vars(parse_args(argv))`` of each port driver equals the
   JAX driver's for ``[]`` and for ``tests/test_cli.py``'s argvs, but for
   JAX's ``platform`` and the port's ``device``.
-- Startup refusals, before any log, data or model: ``--bf16``,
-  ``--f32_gridconv``, and ``--num_target 1025`` on the card
-  (``ops/nms.py::MAX_BOXES``); with no CUDA and no ``--device`` a driver
-  raises.
+- Startup refusals, before any log, data or model: ``--num_target 1025``
+  on the card (``ops/nms.py::MAX_BOXES``); with no CUDA and no
+  ``--device`` a driver raises. ``--bf16`` and ``--f32_gridconv`` run:
+  tests/test_torch_bf16_cli.py.
 - The chain ``run_pretrain_torch.sh`` -> ``run_train_torch.sh`` ->
   ``run_eval_opt_torch.sh`` on ``--synthetic --tiny --device cpu`` in
   ``tmp_path`` (``tests/test_cli.py:75``'s recipe): every file the drivers
@@ -71,7 +71,6 @@ def test_flag_types_and_choices_match(driver, monkeypatch):
 
 @pytest.mark.parametrize("driver", [pretrain, train])
 @pytest.mark.parametrize("argv,match", [
-    (["--bf16"], "Queue 1 item 11"), (["--f32_gridconv"], "Queue 1 item 11"),
     (["--num_target", "1025"], "MAX_BOXES"), (["--num_target", "1025", "--tiny"], "MAX_BOXES")])
 def test_startup_refusals(tmp_path, driver, argv, match):
     log_dir = tmp_path / "log"

@@ -16,8 +16,9 @@ block a scene, ragged and largest K, and the wrapper's refusals;
 FPS over FPS-ordered clouds at the shapes of ``fps_prefix=False``, which
 must give back their prefixes under every launch the plan weighs; the ball
 query and the gather's backward at nsample 128 over 2,048 centres;
-three_nn bit for bit on ties, fewer than 3 seeds, overflow, NaN queries
-and seeds, ties across the lanes that split a query's seeds, seeds beyond
+the bitcast-packed bf16 gather bit for bit and its backward within one
+bf16 ulp at SA3's and SA4's shapes; three_nn bit for bit on ties, fewer
+than 3 seeds, overflow, NaN queries and seeds, ties across the lanes that split a query's seeds, seeds beyond
 one shared-memory tile, under every (S, Q) the source instantiates, at
 GridConv's and FP's shapes, and the wrapper's refusals; greedy NMS
 exactly on every case of tests/nms_cases.py in its three box modes, both
@@ -49,7 +50,8 @@ from iou3dmatch_tpu_torch.geometry.nms import (lhs_3d_samecls_plain, nms_boxes_p
                                                nms_masked_plain, nms_rotated)
 from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, GatherBwdLaunch,
                                                  ball_query, ball_query_plain, group_points,
-                                                 group_points_backward, group_points_plain)
+                                                 group_points_backward, group_points_bitcast,
+                                                 group_points_plain)
 from iou3dmatch_tpu_torch.ops.interpolate import NN_LAUNCHES, NnLaunch, three_nn, three_nn_plain
 from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.ops.nms import MAX_BOXES as NMS_MAX_BOXES
@@ -843,3 +845,56 @@ def test_stage_batch_back_to_back_is_bit_exact(cuda):
         for k, v in host.items():
             assert dev[k].device.type == "cuda" and dev[k].dtype == torch.from_numpy(v).dtype, k
             assert torch.equal(dev[k].cpu(), torch.from_numpy(v)), k
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.cpu().contiguous().view(torch.int16)
+
+
+@pytest.mark.parametrize("b,n,m,ns,c", [
+    (8, 1024, 512, 16, 256),  # SA3: (8, 1024, 131 words) x (8, 512 * 16)
+    (8, 512, 256, 16, 256),  # SA4: (8, 512, 131 words) x (8, 256 * 16)
+    (2, 64, 33, 3, 256),  # GridConv's bf16 table at the tiny model's seeds
+    (3, 57, 11, 7, 2),  # 4 words a row
+])
+def test_bitcast_gather_kernel_matches_plain(cuda, b, n, m, ns, c):
+    """The bitcast-packed bf16 table through csrc/gather.cu, bit for bit
+    the plain bf16 gather: xyz bits that are no bf16 numbers a pair at a
+    time (-0.0, subnormal, huge), out-of-range indices clamped."""
+    rng = np.random.RandomState(n + c)
+    xyz = rng.uniform(-3, 3, (b, n, 3)).astype(np.float32)
+    xyz[0, :3, 0] = (-0.0, 1e-40, 3e38)
+    feats = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(torch.bfloat16)
+    idx = torch.from_numpy(rng.randint(-3, n + 3, (b, m, ns)).astype(np.int32))
+    before = group_points.launches
+    got = group_points_bitcast(torch.from_numpy(xyz).to(cuda), feats.to(cuda), idx.to(cuda))
+    assert group_points.launches == before + 1
+    want = group_points_bitcast(torch.from_numpy(xyz), feats, idx)
+    assert torch.equal(_bits(got[0].view(torch.bfloat16)), _bits(want[0].view(torch.bfloat16)))
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+    with pytest.raises(ValueError, match="odd"):
+        group_points_bitcast(torch.from_numpy(xyz).to(cuda), feats[..., :1].to(cuda),
+                             idx.to(cuda))
+
+
+@pytest.mark.parametrize("b,n,m,ns", [(8, 1024, 512, 16), (8, 512, 256, 16), (2, 57, 11, 7)])
+def test_bitcast_gather_backward_within_one_bf16_ulp(cuda, b, n, m, ns):
+    """The features' gradient through csrc/gather_bwd.cu over the 256
+    feature channels, rounded to bf16: within one bf16 ulp of the plain f32
+    sum rounded to bf16 (the sum order differs); xyz gets none."""
+    rng = np.random.RandomState(m)
+    xyz = torch.from_numpy(rng.uniform(-3, 3, (b, n, 3)).astype(np.float32))
+    feats = torch.from_numpy(rng.randn(b, n, 256).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, n, (b, m, ns)).astype(np.int32))
+    g = torch.from_numpy(rng.randn(b, m, ns, 256).astype(np.float32)).to(torch.bfloat16)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        f = feats.to(dev).requires_grad_()
+        before = group_points_backward.launches
+        _, gf = group_points_bitcast(xyz.to(dev), f.to(torch.bfloat16), idx.to(dev))
+        (gf.float() * g.to(dev).float()).sum().backward()
+        assert group_points_backward.launches == before + (dev.type == "cuda")
+        grads.append(f.grad.cpu())
+    got, want = grads
+    ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+    assert ((got - want).abs() <= ulp).all()

@@ -59,12 +59,13 @@ def make_setup():
 
 
 def step_case(setup, ssl=True, knobs="reference_exact", dtype=torch.float32,
-              sampling="seed_fps", noise=True, steps=2):
+              sampling="seed_fps", noise=True, steps=2, compute_dtype=None):
     """One case of ``run_steps``: the setup's weights, global batch and, with
     ``noise``, the JAX step's jitter draws at the global shape for the first
     step (later steps, and every step without it, draw from the state's
     generator). The pretrain step trains on the student's view of all four
-    scenes, their labels and votes."""
+    scenes, their labels and votes. ``compute_dtype`` goes to
+    ``build_votenet`` (bf16 mixed precision)."""
     batch = C.torch_batch(setup.batch)
     if ssl:
         step_noise = C.port_noise(setup.key, knobs, b=BL + BU) if noise else None
@@ -78,7 +79,8 @@ def step_case(setup, ssl=True, knobs="reference_exact", dtype=torch.float32,
             "ema": state_dict_from_jax(setup.ema) if ssl else None,
             "batch": batch, "noise": step_noise, "num_labeled": num_labeled,
             "thresholds": setup.thr, "knobs": C.knobs(knobs) if ssl else {},
-            "adam_eps": C.ADAM_EPS, "lr": C.LR, "momentum": C.MOMENTUM, "steps": steps}
+            "adam_eps": C.ADAM_EPS, "lr": C.LR, "momentum": C.MOMENTUM, "steps": steps,
+            "compute_dtype": compute_dtype}
 
 
 def close(got, want, rtol, what, atol=0.0):

@@ -176,7 +176,8 @@ def run_steps(case, group=None):
     from iou3dmatch_tpu_torch.train.steps import make_pretrain_step, make_ssl_step
 
     dtype = case["dtype"]
-    model, _ = build_votenet(case["dataset"], tiny=True, device="cpu", sampling=case["sampling"])
+    model, _ = build_votenet(case["dataset"], tiny=True, device="cpu", sampling=case["sampling"],
+                             compute_dtype=case.get("compute_dtype"))
     model.load_state_dict(case["model"], strict=True)
     state = create_train_state(model, adam_eps=case["adam_eps"], with_ema=case["ssl"])
     if case["ssl"]:
