@@ -16,13 +16,16 @@ reported on its own line; a failed check raises and the exit code is not 0:
    gather's backward at SA2 of the student's 12 scenes, LHS at (8, 64)
    clustered boxes (with the cycles of each step, ``lhs_phases``),
    three_nn at GridConv's grids of serving, the pretrain step and the SSL
-   step and at FP1 and FP2 of 8 and 12 scenes, greedy NMS at serving's
+   step and at FP1 and FP2 of 8 and 12 scenes, three_interpolate's forward
+   (bit for bit) and backward (the gather backward's f64 gate) at FP1 and
+   FP2 of 8 and 12 scenes, greedy NMS at serving's
    (8, 128) class-aware boxes in float64 (off every path: its float32 3D
    and 2D branches, tied scores, K = 256, 512 and 1,024 and matrix mode on
    a rotated BEV IoU, each with its planned cluster size and its cycles a
    step for the leader block and the others, and the overlaps computed and
-   skipped; the ball query on surface scenes, the rotated IoU on rotated
-   boxes), FPS also at ``--cluster_sampling vote_fps``'s shapes (over
+   skipped; class-aware float64 and matrix mode at K = 2,048 and 4,096,
+   the global-matrix path; the ball query on surface scenes, the rotated
+   IoU on rotated boxes), FPS also at ``--cluster_sampling vote_fps``'s shapes (over
    1,024 and 2,048 votes) and at ``fps_prefix=False``'s (SA2-SA4 and
    ``seed_fps`` over FPS-ordered sets, which must give back their
    prefixes), and the shapes of phase 11 and of ``query_feats="vote"``
@@ -37,10 +40,11 @@ reported on its own line; a failed check raises and the exit code is not 0:
    launch floor (a one-element ``zero_()`` timed the same way), and the
    launch plans of FPS, the ball query, the gather's backward and
    three_nn; FPS, the
-   ball query, the gather, LHS, three_nn and NMS must be
-   exactly equal, the gather's backward within 1e-5 x the sum of |g| of each
-   element of an f64 sum, the IoU within atol 1e-5; it fails if a planned
-   FPS variant spills, or three_nn, LHS or NMS spills;
+   ball query, the gather, LHS, three_nn, three_interpolate and NMS must be
+   exactly equal, the gather's backward and three_interpolate's within
+   1e-5 x the sum of |g| (|g w|) of each element of an f64 sum, the IoU
+   within atol 1e-5; it fails if a planned FPS variant spills, or three_nn,
+   LHS, NMS, three_interpolate or the gather backward's sum kernel spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene,
    for the default model, two built with the samplings the drivers'
    ``--cluster_sampling`` reaches (FORWARD_KNOBS: vote_fps; random at given
@@ -53,7 +57,9 @@ reported on its own line; a failed check raises and the exit code is not 0:
    and ``parse_predictions``' two halves with IoU-guided class-aware NMS on
    the card, each request's picks equal to the host NumPy parse of the same
    outputs, which is timed beside it (parse ms, host list ms, old host
-   parse ms), with the kernels' launch counts; then the first request
+   parse ms), with the kernels' launch counts (three_interpolate's plain
+   version never running on the card, ``plain_watch``, here and in the
+   timed steps of phases 6, 7 and 13); then the first request
    parsed again at IoU SERVE_CHECK_NMS_IOU in each NMS branch, where the
    NMS must drop boxes, its picks equal to the NumPy parse's;
 5b. eval: ``cli/common.py::evaluate`` as run_eval.sh and run_eval_opt.sh run
@@ -123,7 +129,10 @@ reported on its own line; a failed check raises and the exit code is not 0:
    must log the card as its device and whose mAP and AR lines and dumps
    must equal those of ``evaluate`` in this process on the same checkpoint
    and batches, (e) one pretrain epoch with ``--cluster_sampling
-   vote_fps``, (f) 2 epochs of each driver without eval on more scans
+   vote_fps``, (g) the eval entry point with (d)'s flags in this process at
+   ``--cluster_sampling vote_fps --vote_factor 2 --num_target 2048``, past
+   the NMS cluster path, the first request's picks held to the plain NMS
+   on the same proposals, (f) 2 epochs of each driver without eval on more scans
    (pretrain on the 40 train scans, 5 steps an epoch; SSL with 24 labeled,
    6 steps an epoch), steps 2-4 of each traced by ``--profile_steps 3``
    and the trace read back: the device's idle share and the host's wait
@@ -298,9 +307,14 @@ from iou3dmatch_tpu_torch.ops.ball_query import (BallQueryLaunch, GatherBwdLaunc
                                                  group_points_plain)
 from iou3dmatch_tpu_torch.ops.fps import (fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain)
-from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, NnLaunch, three_nn, three_nn_plain,
+from iou3dmatch_tpu_torch.ops import interpolate as interpolate_mod
+from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, NnLaunch, three_interpolate,
+                                                  three_interpolate_backward,
+                                                  three_interpolate_backward_plain,
+                                                  three_interpolate_plain, three_nn, three_nn_plain,
                                                   three_nn_plan)
 from iou3dmatch_tpu_torch.ops.lhs import SMALL_BOXES, lhs_3d_samecls
+from iou3dmatch_tpu_torch.ops.nms import MAX_BOXES as NMS_MAX_BOXES
 from iou3dmatch_tpu_torch.ops.nms import MODE_IDS as NMS_MODE_IDS
 from iou3dmatch_tpu_torch.ops.nms import NMS_CLUSTERS, nms_boxes, nms_masked, planned_cluster
 from iou3dmatch_tpu_torch.ops.nms import max_active_clusters as nms_max_active
@@ -382,6 +396,8 @@ KERNELS = {
     "lhs": lhs_3d_samecls,
     "three_nn": three_nn,
     "nms": nms_boxes,
+    "three_interpolate": three_interpolate,
+    "three_interpolate_bwd": three_interpolate_backward,
 }
 REPLACES = {
     "fps": "iou3dmatch_tpu/ops/fps_pallas.py:46",
@@ -392,7 +408,21 @@ REPLACES = {
     "lhs": "iou3dmatch_tpu/geometry/nms.py:115",
     "three_nn": "iou3dmatch_tpu/ops/interpolate.py:21",
     "nms": "iou3dmatch_tpu/geometry/nms.py:170",
+    "three_interpolate": "iou3dmatch_tpu/ops/interpolate.py:111",
+    "three_interpolate_bwd": "iou3dmatch_tpu/ops/interpolate.py:137",
 }
+# the source of a kernel named otherwise: three_interpolate's backward is
+# csrc/gather_bwd.cu's weighted sum
+KERNEL_SOURCES = {"three_interpolate_bwd": "gather_bwd"}
+# three_interpolate's forward has no single PyTorch call: the plain version
+# is an index gather, a product and a sum (three calls and a (B, n, 3, C)
+# intermediate)
+INTERP_NO_LIBRARY = ("no single PyTorch call computes a weighted sum of three gathered rows: "
+                     "the plain version is an index gather, a product and a sum")
+# three_interpolate's operations: a product a neighbour and a channel, and
+# three sums from the identity (forward); a product and a sum a slot and a
+# channel (backward)
+INTERP_OPS, INTERP_BWD_OPS = 3 + 3, 2
 # three_nn's operations: each (query, seed) pair is a distance test of
 # PAIR_OPS (3 sub, 3 mul, 2 add, 1 compare; no FMA, csrc/three_nn.cu is
 # built with -fmad=false); each query's 3 selected d2 are computed again,
@@ -402,7 +432,11 @@ NN_YARDSTICK = "torch.cdist + topk(3, largest=False): two calls, matmul-form dis
 # the kernels whose compiler report must list these entries, none spilling
 NO_SPILL = {"three_nn": tuple(f"three_nn_kernelILi{s}ELi{q}EE" for s, q in NN_LAUNCHES),
             "lhs": ("lhs_small_kernel", "lhs_kernel"),
-            "nms": tuple(f"nms_kernelILi{mode}EE" for mode in range(4))}
+            "nms": tuple(f"nms_kernelILi{mode}EE" for mode in range(4))
+            + ("nms_order_kernel",) + tuple(f"nms_tile_kernelILi{mode}EE" for mode in range(4))
+            + ("nms_rounds_kernelILb0EE", "nms_rounds_kernelILb1EE"),
+            "three_interpolate": ("three_interpolate_kernelILi1EE", "three_interpolate_kernelILi4EE"),
+            "gather_bwd": ("gather_bwd_sum_kernelILb0EE", "gather_bwd_sum_kernelILb1EE")}
 NN_COUNTS = ("warps", "group_steps", "insert_steps", "stage_cycles", "scan_cycles",
              "merge_cycles", "write_cycles")  # csrc/three_nn.cu nn_counts
 SSL_NL, SSL_NU = 4, 8  # run_train.sh: 4 labeled + 8 unlabeled scenes a step
@@ -415,11 +449,11 @@ SSL_CHECK_NMS_IOU = 0.05
 SERVE_CHECK_NMS_IOU = 0.02  # serving's outputs parsed again where the NMS drops boxes
 # the kernels' launches a pretrain step and an SSL step
 TRAIN_LAUNCHES = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 4, "iou3d": 2, "lhs": 0,
-                  "three_nn": 3, "nms": 0}
+                  "three_nn": 3, "nms": 0, "three_interpolate": 2, "three_interpolate_bwd": 2}
 # the knobs no driver sets, whose pretrain steps phase 6 runs beside the default's
 TRAIN_KNOBS = ({"fps_prefix": False, "query_feats": "seed+vote"}, {"query_feats": "vote"})
 SSL_LAUNCHES = {"fps": 1, "ball_query": 10, "gather": 12, "gather_bwd": 4, "iou3d": 3, "lhs": 1,
-                "three_nn": 6, "nms": 0}
+                "three_nn": 6, "nms": 0, "three_interpolate": 4, "three_interpolate_bwd": 2}
 # Phase 8's dumps: ScanNet scans as data/prep_scannet.py writes them, at
 # its MAX_NUM_POINT of 50,000 vertices (prep_scannet.py:31)
 DUMP_SCANS, DUMP_TRAIN, DUMP_LABELED = 48, 40, 8
@@ -874,6 +908,7 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     # ctr: SA1's centers of the SSL step's 12 clouds
     three_nn_rows(ops_per_s, rows, sa1_xyz, ctr, floor, nn_sweep_on, nn_counts_on,
                   votes.contiguous())
+    three_interpolate_rows(ops_per_s, rows, sa1_xyz, ctr)
     return rows
 
 
@@ -997,6 +1032,97 @@ def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12, floor: float, sweep_on: bool =
         grid = grid_queries(votes, False, 60 + len("serving"))
         one(f"grid_conv query_feats=vote ({votes.shape[0]},{grid.shape[1]})x1024 votes", grid,
             votes, main=False)
+
+
+def three_interpolate_rows(ops_per_s, rows, sa1_8, sa1_12):
+    """three_interpolate's forward and backward at FP1 ((B, 256, 256) onto
+    512 queries) and FP2 ((B, 512, 256) onto 1,024) of B and SSL_B scenes,
+    the queries and known points the FPS-ordered prefixes of SA1's centres
+    as SA2-SA4 give them, the indices and weights FP's (three_nn, inverse
+    distances normalised), the features and the cotangent N(0, 1). The
+    forward is held to the plain version bit for bit (the sign of zeros
+    included); the backward, and the plain backward, within 1e-5 x (the sum
+    of |g w| added into each element) of an f64 sum, the gather backward's
+    gate. Bounds count the rows the indices name, the indices, the weights
+    and the output once (forward), and the cotangent, the indices, the
+    weights and the output once (backward). library_ms: the backward's
+    ``index_add_`` of the precomputed g w rows; the forward's is None
+    (INTERP_NO_LIBRARY)."""
+    dev = sa1_8.device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    c = 256
+    for pts in (sa1_8, sa1_12):
+        b = pts.shape[0]
+        for name, n, m in (("fp1", 512, 256), ("fp2", 1024, 512)):
+            unknown, known = pts[:, :n].contiguous(), pts[:, :m].contiguous()
+            dist, idx = three_nn(unknown, known)
+            recip = 1.0 / (dist + 1e-8)
+            w = (recip / recip.sum(dim=2, keepdim=True)).contiguous()
+            f = torch.randn((b, m, c), generator=gen, device=dev)
+            rows_read = sum(int(torch.unique(idx[i].long()).numel()) for i in range(b))
+            nbytes = rows_read * c * 4 + 2 * b * n * 3 * 4 + b * n * c * 4
+            _, r = check_kernel(
+                "three_interpolate", f"{name} ({b},{m},{c})->({b},{n},{c})", three_interpolate,
+                three_interpolate_plain, None, (f, idx, w), nbytes,
+                lambda _: b * n * c * INTERP_OPS, ops_per_s, 10,
+                agree=lambda got, want: torch.equal(got.view(torch.int32), want.view(torch.int32)))
+            r["library_null"] = INTERP_NO_LIBRARY
+            rows.setdefault("three_interpolate", []).append(r)
+
+            g = torch.randn((b, n, c), generator=gen, device=dev)
+            flat = (idx.long() + m * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
+            gw = (g[:, :, None, :] * w[..., None]).reshape(-1, c)
+            ref = torch.zeros(b * m, c, dtype=torch.float64, device=dev).index_add_(
+                0, flat, gw.double())
+            mag = torch.zeros(b * m, c, dtype=torch.float64, device=dev).index_add_(
+                0, flat, gw.double().abs())
+            errs = []
+
+            def agree(got, want):
+                offs = [(t.double().reshape(b * m, c) - ref).abs() for t in (got, want)]
+                errs.extend(float(o.max()) for o in offs)
+                return all(bool((o <= 1e-5 * mag).all()) for o in offs)
+
+            out = torch.zeros(b * m, c, device=dev)
+            library = lambda *_: out.zero_().index_add_(0, flat, gw)  # noqa: E731
+            nbytes = (b * n * c + 2 * b * n * 3 + b * m * c) * 4
+            _, r = check_kernel(
+                "three_interpolate_bwd", f"{name} ({b},{n},{c})->({b},{m},{c})",
+                three_interpolate_backward, three_interpolate_backward_plain, library,
+                (g, idx, w, m), nbytes, lambda _: b * n * 3 * c * INTERP_BWD_OPS, ops_per_s, 10,
+                agree=agree)
+            r["max_abs_err_f64"] = {"kernel": errs[0], "plain": errs[1]}
+            r["plan"] = list(gather_bwd_plan(
+                b, 3 * n, m, c, torch.cuda.get_device_properties(dev).multi_processor_count))
+            rows.setdefault("three_interpolate_bwd", []).append(r)
+
+
+@contextlib.contextmanager
+def plain_watch(what: str):
+    """Counts the calls of three_interpolate's plain versions on CUDA tensors
+    while the context lasts, and raises at its end if there was any: on the
+    card the main path runs the kernels, and nothing falls back. The
+    module's functions are wrapped, not changed: the autograd Function
+    reaches them by name."""
+    names = ("three_interpolate_plain", "three_interpolate_backward_plain")
+    real = {n: getattr(interpolate_mod, n) for n in names}
+    calls = dict.fromkeys(names, 0)
+
+    def wrap(name):
+        def counted(t, *args, **kw):
+            calls[name] += t.is_cuda
+            return real[name](t, *args, **kw)
+        return counted
+
+    for n in names:
+        setattr(interpolate_mod, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, f in real.items():
+            setattr(interpolate_mod, n, f)
+    if any(calls.values()):
+        raise AssertionError(f"{what}: three_interpolate's plain versions ran on the card: {calls}")
 
 
 def make_boxes(rng, b: int, n: int, rotated: bool, cfg=None) -> np.ndarray:
@@ -1162,7 +1288,9 @@ def nms_row(dev, ops_per_s, rows, floor: float, label: str, mode: str, tensors, 
     """One row of ``nms_rows``: the kernel against its plain version on
     ``tensors`` (mins, maxs, scores, classes; in matrix mode the boxes
     (B, K, 7) in place of mins), its bound from a replay of the rounds, its
-    planned cluster and its cycles a step."""
+    planned cluster and its cycles a step; past NMS_MAX_BOXES the global
+    path, which has neither (and the plain version, K rounds each waiting on
+    the card, is timed 3 times)."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     f64_ratio = LANES_PER_SM / FP64_LANES_PER_SM  # float32 instructions a float64 one costs
     mins, maxs, scores, cls = tensors
@@ -1183,18 +1311,25 @@ def nms_row(dev, ops_per_s, rows, floor: float, label: str, mode: str, tensors, 
     scale = f64_ratio if mode == "3d_cls" else 1.0
     ops = (pairs * NMS_PAIR_OPS[mode] + b * k * NMS_AREA_OPS[mode]) * scale \
         + b * k * int(np.ceil(np.log2(max(k, 2))))
+    glob = k > NMS_MAX_BOXES
     got, r = check_kernel("nms", label, kernel, plain, None, args, nbytes, lambda _: ops,
-                          ops_per_s, 10, main=main)
+                          ops_per_s, 10, 3 if glob else REPS, main=main)
+    r.update(mode=mode, pairs=pairs, kept=int(got.sum()), launch_floor_ms=floor,
+             of_floor=r["ms"] / floor, plain_rounds="K masked rounds in PyTorch")
+    rows.setdefault("nms", []).append(r)
+    if glob:
+        r.update(path="global matrix: order, 64 x 64 tiles, rounds (three launches)",
+                 matrix_bytes=b * (-(-k // 64)) ** 2 * 64 * 8)
+        say(phase="nms_work", shape=label, mode=mode, pairs=pairs, ops=ops, kept=r["kept"],
+            of_floor=r["of_floor"], path=r["path"], matrix_bytes=r["matrix_bytes"])
+        return
     cluster = planned_cluster(dev, b, k, mode)
     answers = {c: nms_max_active(dev, mode, k, c) for c in NMS_CLUSTERS[1:]}
-    r.update(mode=mode, pairs=pairs, kept=int(got.sum()), launch_floor_ms=floor,
-             of_floor=r["ms"] / floor, plain_rounds="K masked rounds in PyTorch",
-             cluster=cluster, max_active_clusters=answers)
+    r.update(cluster=cluster, max_active_clusters=answers)
     r["phases"] = nms_phases(args, got, cluster)
     say(phase="nms_work", shape=label, mode=mode, pairs=pairs, ops=ops, kept=r["kept"],
         of_floor=r["of_floor"], fp64_lanes_per_sm=FP64_LANES_PER_SM, sms=n_sm,
         cluster=cluster, max_active_clusters=answers, phases=r.get("phases"))
-    rows.setdefault("nms", []).append(r)
     if sweep_on:
         nms_sweep(label, kernel, args, got)
 
@@ -1203,8 +1338,10 @@ def nms_rows(dev, ops_per_s, rows, floor: float, sweep_on: bool = False):
     """Greedy NMS (csrc/nms.cu) against its plain versions, exactly: box mode
     at serving's (B, K) class-aware in float64 at IoU 0.25 (the main path's
     shape), the 3D and 2D float32 branches, tied scores, K = 256, 512 and
-    1,024 (the most proposals the model makes), and matrix mode on the
-    rotated BEV IoU of (B, K) boxes (nms_rotated's). Each row names its
+    1,024 (the most the cluster path takes), and matrix mode on the
+    rotated BEV IoU of (B, K) boxes (nms_rotated's); past the cluster path,
+    class-aware float64 and matrix mode at K = 2,048 and 4,096 (the global
+    matrix). Each cluster-path row names its
     planned cluster size, the card's cudaOccupancyMaxActiveClusters answers
     it was planned from, and its cycles a step (``nms_phases``);
     ``sweep_on`` also times every cluster size.
@@ -1233,6 +1370,14 @@ def nms_rows(dev, ops_per_s, rows, floor: float, sweep_on: bool = False):
     scores = torch.from_numpy(np.random.RandomState(76).rand(B, K).astype(np.float32)).to(dev)
     one(f"matrix ({B},{K}) rotated BEV IoU, IoU > 0.1", "matrix", (rot, None, scores, None), 0.1,
         False)
+    # past the cluster path: the global matrix, K 2,048 (--cluster_sampling
+    # vote_fps --vote_factor 2 --num_target 2048) and 4,096
+    for k, seed in ((2048, 82), (4096, 84)):
+        one(f"({B},{k}) 3d_cls float64, global matrix", "3d_cls", boxes(seed, k), 0.25, False)
+        rot = torch.from_numpy(make_boxes(np.random.RandomState(seed + 1), B, k, True)).to(dev)
+        scores = torch.from_numpy(np.random.RandomState(seed).rand(B, k).astype(np.float32)).to(dev)
+        one(f"matrix ({B},{k}) rotated BEV IoU, IoU > 0.1, global matrix", "matrix",
+            (rot, None, scores, None), 0.1, False)
 
 
 # csrc/nms.cu's NMS_STAMP 0-8: the steps between them ("order_barrier" and
@@ -1335,15 +1480,15 @@ FPS_ENTRY = re.compile(r"fps_cluster_kernelILi(\d+)ELi(n?\d+)E")
 def kernel_name(line: str):
     """The identifier ending in ``_kernel`` of the nested name in a line's
     mangled symbol (``_ZN``, then each identifier as its length in digits and
-    its characters), with its integer template arguments as mangled, or
-    None."""
+    its characters), with its integer and bool template arguments as
+    mangled, or None."""
     m = re.search(r"_ZN(\w+)", line)
     rest = m[1] if m else ""
     while rest[:1].isdigit():
         digits = re.match(r"\d+", rest)[0]
         ident, rest = rest[len(digits):len(digits) + int(digits)], rest[len(digits) + int(digits):]
         if ident.endswith("_kernel"):
-            args = re.match(r"I(?:Lin?\d+E)+E", rest)
+            args = re.match(r"I(?:L[ib]n?\d+E)+E", rest)
             return ident + (args[0] if args else "")
     return None
 
@@ -1487,7 +1632,8 @@ def phase_serve(model, cfg, dev) -> dict:
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = forward(pc)
+        with plain_watch(f"request {i}"):
+            out = forward(pc)
         end.record()
         end.synchronize()
         t1 = time.perf_counter()
@@ -1516,7 +1662,7 @@ def phase_serve(model, cfg, dev) -> dict:
             boxes_kept_per_scene=kept_per_scene(packed, cfg.num_class))
     launches = {k: fn.launches for k, fn in KERNELS.items()}
     expect = {"fps": 3, "ball_query": 15, "gather": 18, "gather_bwd": 0, "iou3d": 0, "lhs": 0,
-              "three_nn": 9, "nms": 3}
+              "three_nn": 9, "nms": 3, "three_interpolate": 6, "three_interpolate_bwd": 0}
     say(phase="serve", requests=3, scenes_per_s=3 * B / sum(request_s), wall_s=sum(request_s),
         scenes_per_s_host_numpy_parse=3 * B / sum(old_s),
         max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches,
@@ -1682,7 +1828,8 @@ def phase_eval(model, cfg, dev) -> dict:
             raise AssertionError(f"non-finite eval metrics {means}")
         grid = 1 + (OPT_STEP + 2 if opt_step else 0)  # GridConv runs a request
         expect = {"fps": 3, "ball_query": 15, "gather": 3 * (5 + grid), "gather_bwd": 0,
-                  "iou3d": 3, "lhs": 0, "three_nn": 3 * (2 + grid), "nms": 3}
+                  "iou3d": 3, "lhs": 0, "three_nn": 3 * (2 + grid), "nms": 3,
+                  "three_interpolate": 6, "three_interpolate_bwd": 0}
         if launches != expect:
             raise AssertionError(f"eval launches {launches} with opt_step {opt_step}, "
                                  f"expected {expect}")
@@ -1861,13 +2008,14 @@ def timed_train_steps(cfg, dev, batch: dict, knobs: dict) -> tuple:
         fn.launches = 0
     events, losses = [], []
     t = time.perf_counter()
-    for _ in range(5):
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        metrics = step(state, batch, LR, momentum)
-        ev[1].record()
-        events.append(ev)
-        losses.append(metrics["loss"])
+    with plain_watch(f"pretrain steps ({knobs})"):
+        for _ in range(5):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            metrics = step(state, batch, LR, momentum)
+            ev[1].record()
+            events.append(ev)
+            losses.append(metrics["loss"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
     counts = {k: fn.launches for k, fn in KERNELS.items()}
@@ -2124,12 +2272,13 @@ def timed_ssl_steps(cfg, dev, batch: dict, knobs: dict) -> tuple:
         fn.launches = 0
     events, metrics = [], []
     t = time.perf_counter()
-    for _ in range(5):
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        metrics.append(step(state, batch, SSL_LR, momentum))
-        ev[1].record()
-        events.append(ev)
+    with plain_watch(f"SSL steps ({knobs})"):
+        for _ in range(5):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            metrics.append(step(state, batch, SSL_LR, momentum))
+            ev[1].record()
+            events.append(ev)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
     counts = {k: fn.launches for k, fn in KERNELS.items()}
@@ -2700,7 +2849,56 @@ def eval_subprocess(root: Path, ckpt: Path, data: list, cfg, dev, dataset: str,
     return {"ap": ap, "launches": launches}
 
 
-def phase_drivers(cfg, dev, eval_request: dict, root: Path) -> dict:
+DRIVER_NUM_TARGET = 2048  # phase 9 (g): past the NMS cluster path's 1,024 proposals
+
+
+def driver_num_target(root: Path, data: list, dev, opt_request: dict) -> dict:
+    """Phase 9 (g): the eval entry point as (d) runs it (``--eval
+    --use_iou_for_nms --opt_step 10 --opt_rate 5e-4``), in this process, at
+    ``--cluster_sampling vote_fps --vote_factor 2 --num_target 2048``: a
+    full-width model of those knobs (random weights, seed 0) saved as a
+    pretrain checkpoint and loaded by ``--detector_checkpoint``. NMS takes
+    its global-matrix path (K > NMS_MAX_BOXES); the first request's keep
+    mask (from ``ap_helper.nms_boxes``, wrapped to keep its arguments) is
+    held to ``nms_boxes_plain`` on the same proposals on the card.
+    Launches: phase 5b's request with the optimisation, FPS 2."""
+    model, _ = build_votenet("scannet", device=dev, sampling="vote_fps", vote_factor=2,
+                             num_proposal=DRIVER_NUM_TARGET)
+    ckpt = root / "vote_fps_k2048.tar"
+    checkpoint.save(str(ckpt), create_train_state(model), epoch=0)
+    del model
+    log = root / "eval_k2048"
+    argv = ["--log_dir", str(log), "--detector_checkpoint", str(ckpt), "--eval",
+            "--use_iou_for_nms", "--opt_step", str(OPT_STEP), "--opt_rate", str(OPT_RATE),
+            "--cluster_sampling", "vote_fps", "--vote_factor", "2", "--num_target",
+            str(DRIVER_NUM_TARGET)] + data
+    first, real = [], ap_helper.nms_boxes
+
+    def kept(*args, **kw):
+        keep = real(*args, **kw)
+        if not first:
+            first.append((args, kw, keep))
+        return keep
+
+    ap_helper.nms_boxes = kept
+    try:
+        run = driver_run("eval_k2048", cli_train.main, argv, log, 0, SSL_NL + SSL_NU,
+                         {**opt_request, "fps": 2 * opt_request["fps"]})
+    finally:
+        ap_helper.nms_boxes = real
+    (args, kw, keep), = first
+    want = nms_boxes_plain(*args)
+    k = args[2].shape[1]
+    say(phase="driver_eval_k2048_picks", proposals=k, keep_shape=list(keep.shape),
+        kept=int(keep.sum()), picks_equal_plain=bool(torch.equal(keep, want)),
+        ap={t: {m: float(v[m]) for m in ("mAP", "AR")} for t, v in run["result"][1].items()})
+    if k != DRIVER_NUM_TARGET or not keep.is_cuda or not torch.equal(keep, want):
+        raise AssertionError(f"phase 9 (g): NMS over {k} proposals on {keep.device} picks "
+                             f"otherwise than its plain version")
+    return run
+
+
+def phase_drivers(cfg, dev, eval_request: dict, root: Path, opt_request: dict) -> dict:
     """Phase 9, the drivers at full width on ScanNet-format dumps (written
     again as phase 8 writes them): (a) ``cli/pretrain.main`` of 3 epochs of
     one step on the 8-scan labeled list and one eval, (b) ``cli/train.main``
@@ -2714,9 +2912,11 @@ def phase_drivers(cfg, dev, eval_request: dict, root: Path) -> dict:
     vote_fps``, (f) 2 epochs of each driver on more scans without eval
     (pretrain on every train scan; SSL with 24 labeled), the steady cost of
     a driver's step, three steps of each traced and the traces read by
-    ``driver_trace``. Launches: (a) 3 pretrain steps and one eval request of
+    ``driver_trace``, (g) ``driver_num_target``: (d)'s eval at 2,048
+    proposals a scene. Launches: (a) 3 pretrain steps and one eval request of
     phase 5b's, (b) 4 SSL steps and one eval request, (c) 2 SSL steps, (e)
-    a pretrain step with FPS 2, (f) their steps. Everything goes under
+    a pretrain step with FPS 2, (f) their steps, (g) one eval request with
+    the optimisation (``opt_request``) and FPS 2. Everything goes under
     ``root``, which phase 12 reads after it: the dumps, (a)'s checkpoint and
     a copy of (b)'s. Returns each run's launches."""
     say(phase="driver_dumps", **write_dumps(root / "data", cfg, 90))
@@ -2793,6 +2993,7 @@ def phase_drivers(cfg, dev, eval_request: dict, root: Path) -> dict:
         ["--log_dir", str(vote), "--batch_size", str(B), "--max_epoch", "1",
          "--eval_interval", "0", "--cluster_sampling", "vote_fps"] + data, vote, 1, B,
         {**TRAIN_LAUNCHES, "fps": 2})
+    out["eval_k2048"] = driver_num_target(root, data, dev, opt_request)
     return {k: v["row"]["launches"] for k, v in out.items()}
 
 
@@ -3855,7 +4056,8 @@ BF16_LOSS_RTOL = 0.15
 BF16_MIN_COSINE = 0.3
 BF16_TURNS = 2
 REQUEST_LAUNCHES = {"fps": 1, "ball_query": 5, "gather": 6, "gather_bwd": 0, "iou3d": 0, "lhs": 0,
-                    "three_nn": 3, "nms": 1}  # a serving request's, phase 5b's
+                    "three_nn": 3, "nms": 1, "three_interpolate": 2,
+                    "three_interpolate_bwd": 0}  # a serving request's, phase 5b's
 GEMM_KERNEL = re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)
 BN_KERNEL = re.compile(r"batch_norm|batchnorm|bn_fw|bn_bw|welford", re.I)
 
@@ -3938,7 +4140,8 @@ def bf16_serve(cfg, dev) -> dict:
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 t0 = time.perf_counter()
                 start.record()
-                res = fwd(pc)
+                with plain_watch(f"{name} request {i}"):
+                    res = fwd(pc)
                 end.record()
                 end.synchronize()
                 picks = proposal_lists(pack_predictions(res, config), cfg.num_class, config)
@@ -4422,9 +4625,10 @@ def main() -> int:
     ssl, ssl_stats = phase_ssl(cfg, dev)
     data = phase_data(cfg, dev, train_stats, ssl_stats)
     eval_request = {k: v // 3 for k, v in evals[0].items()}
+    opt_request = {k: v // 3 for k, v in evals[OPT_STEP].items()}
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_"))
     try:
-        drivers = phase_drivers(cfg, dev, eval_request, root)
+        drivers = phase_drivers(cfg, dev, eval_request, root, opt_request)
         phase_parallel(cfg, dev, root)
         bf16 = phase_bf16(cfg, dev, root)
     finally:
@@ -4440,7 +4644,8 @@ def main() -> int:
         # (NMS) over the 3 requests of the eval phase without optimisation
         on_ssl = ssl[name] > 0
         kernels.append({
-            "name": name, "route": "cuda", "source": f"iou3dmatch_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda",
+            "source": f"iou3dmatch_tpu_torch/csrc/{KERNEL_SOURCES.get(name, name)}.cu",
             "replaces": REPLACES[name], "launches": ssl[name] if on_ssl else evals[0][name],
             "launches_of": "5 SSL steps" if on_ssl else "3 eval requests",
             "launches_5_train_steps": train[name], "launches_3_requests": serve[name],

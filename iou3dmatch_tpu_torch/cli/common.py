@@ -25,7 +25,6 @@ from ..data.staging import stage_batch
 from ..data.synthetic import SyntheticDataset
 from ..eval.ap_helper import APCalculator, parse_groundtruths, parse_predictions
 from ..eval.iou_opt import iou_optimize
-from ..ops.nms import MAX_BOXES
 from ..parallel import distributed
 from ..train import checkpoint
 from ..train.schedules import get_bn_momentum, get_lr
@@ -220,18 +219,15 @@ def evaluate(model, cfg, eval_loader, config_dict, logger, eval_loss,
 
 
 def driver_device(args) -> torch.device:
-    """The drivers' startup checks, before any data or model: raises
-    ``SystemExit``, on the card, for a ``--num_target`` above what its NMS
-    takes (``ops/nms.py::MAX_BOXES``); then the device ``--device`` names,
-    the card's first by default. Raises when CUDA is asked for and absent:
-    nothing falls back to the CPU. Under torchrun (``WORLD_SIZE`` > 1) it
-    joins the process group (``parallel/distributed.py``) and returns the
-    rank's device, of ``--device``'s type."""
+    """The drivers' startup checks, before any data or model: the device
+    ``--device`` names, the card's first by default. Raises when CUDA is
+    asked for and absent: nothing falls back to the CPU. Every flag of the
+    JAX drivers runs on the card, ``--num_target`` at any count (NMS past
+    1,024 proposals a scene takes its global-matrix path, ``ops/nms.py``).
+    Under torchrun (``WORLD_SIZE`` > 1) it joins the process group
+    (``parallel/distributed.py``) and returns the rank's device, of
+    ``--device``'s type."""
     dev = torch.device(args.device)
-    num_target = args.num_target or (16 if args.tiny else 128)
-    if dev.type == "cuda" and num_target > MAX_BOXES:
-        raise SystemExit(f"--num_target {num_target}: NMS on the card takes at most "
-                         f"{MAX_BOXES} proposals a scene (ops/nms.py MAX_BOXES)")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")

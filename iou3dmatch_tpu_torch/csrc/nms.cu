@@ -70,6 +70,34 @@
 //    rounds after it change nothing.
 // 5. The write: the leader writes every box's keep flag.
 //
+// Past kMaxBoxes the K x K bit matrix no longer fits one block's shared
+// memory, and a second path (nms_boxes_global_launch,
+// nms_matrix_global_launch) keeps it in device memory, in three launches:
+//
+// a. nms_order_kernel, a block per (scene, kOrderThreads boxes): a box's
+//    position counts the larger keys of its scene (the same order_key, read
+//    through shared memory kOrderTile keys at a time); box_at[p] is the box
+//    at position p, and each scene's first block writes its count of valid
+//    boxes, nv.
+// b. nms_tile_kernel, a block per (scene, 64 x 64 tile of positions) on and
+//    above the diagonal and below nv: the tile's 64 row and 64 column boxes
+//    in shared memory, each pair's overlap by the same device functions,
+//    float64 class-aware, float32 otherwise, the class queue at thresh >= 0
+//    (a warp's candidate pairs over its 8 rows queued 32 at a time), a
+//    ballot a 32-column group otherwise; the tile's 64 row words written
+//    coalesced into mat[scene][word][position], (B, W, 64 W) u64 with W =
+//    ceil(K / 64) from the caller's allocator. A box with a NaN bound
+//    takes the NaN-carrying min and max within its tiles: a pair's overlap
+//    depends on its own two boxes only, so this equals the scene-wide rule.
+// c. nms_rounds_kernel, a block a scene: for each word w below ceil(nv /
+//    64), 64 threads stage its diagonal words, thread 0 decides its winners
+//    serially, then a warp per later word ORs the winners' rows into that
+//    word of the removed mask (W words in shared memory, kept there whole);
+//    matrix mode's all -inf rule as in step 4; then every keep flag.
+//
+// Rows past nv in the last word are written as zeros, so they remove
+// nothing. The picks are the cluster path's and the plain version's.
+//
 // Exactness against NumPy, JAX and the plain versions (geometry/nms.py::
 // nms_boxes_plain, nms_masked_plain): each side is max(0, min(hi_i, hi_r) -
 // max(lo_i, lo_r)) with NaN carried through as np.minimum and np.maximum
@@ -615,6 +643,303 @@ int max_active(int k, int cluster, int* count) {
 
 bool bad_shape(int b, int k) { return b < 1 || k < 1 || k > kMaxBoxes; }
 
+// ------------------------------------------------- past kMaxBoxes: the global matrix
+
+constexpr int kOrderThreads = 256;  // boxes an order block places
+constexpr int kOrderTile = 2048;  // keys an order block stages in shared memory at a time
+constexpr int kTileThreads = 256;
+constexpr int kTileWarps = kTileThreads / 32;  // a warp's rows of a tile: 64 / kTileWarps
+constexpr int kRoundsThreads = 512;
+constexpr int kRoundsWarps = kRoundsThreads / 32;
+constexpr int kSmemMax = 232448;  // the H100's largest dynamic shared memory a block
+
+// the order key of box i, as nms_kernel's load computes it
+__device__ __forceinline__ unsigned long long box_key(const float* scores, const bool* valid,
+                                                      long long base, int i, int k, bool matrix) {
+  const bool ok = valid == nullptr || valid[base + i];
+  const int low = matrix ? k - 1 - i : i;
+  return ok ? order_key(scores[base + i], low) : kInvalidKey | static_cast<unsigned int>(low);
+}
+
+// (a) box_at[p] = the box at position p; nv[scene] = the valid boxes
+__global__ void __launch_bounds__(kOrderThreads)
+nms_order_kernel(const float* __restrict__ scores, const bool* __restrict__ valid,
+                 int* __restrict__ box_at, int* __restrict__ nv_out, int k, int matrix) {
+  __shared__ unsigned long long keys[kOrderTile];
+  __shared__ int n_ok;
+  const int scene = blockIdx.y, t = threadIdx.x;
+  const long long base = static_cast<long long>(scene) * k;
+  const int i = blockIdx.x * kOrderThreads + t;
+  const unsigned long long mine = i < k ? box_key(scores, valid, base, i, k, matrix) : 0ull;
+  int pos = 0;
+  for (int j0 = 0; j0 < k; j0 += kOrderTile) {
+    const int len = min(kOrderTile, k - j0);
+    for (int j = t; j < len; j += kOrderThreads) keys[j] = box_key(scores, valid, base, j0 + j, k, matrix);
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < len; ++j) pos += keys[j] > mine;
+    __syncthreads();
+  }
+  if (i < k) box_at[base + pos] = i;
+  if (blockIdx.x == 0) {  // the scene's valid boxes, by its first block
+    if (t == 0) n_ok = 0;
+    __syncthreads();
+    int ok = 0;
+    for (int j = t; j < k; j += kOrderThreads) ok += valid == nullptr || valid[base + j];
+    atomicAdd(&n_ok, ok);
+    __syncthreads();
+    if (t == 0) nv_out[scene] = n_ok;
+  }
+}
+
+// (b) the 64 x 64 tile (row word rw, column word cw) of a scene's matrix
+template <int kMode>
+__global__ void __launch_bounds__(kTileThreads)
+nms_tile_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
+                const float* __restrict__ iou, const long long* __restrict__ cls,
+                const int* __restrict__ box_at, const int* __restrict__ nv_in,
+                unsigned long long* __restrict__ mat, int k, int words, double thresh,
+                int old_type) {
+  using T = typename Traits<kMode>::T;
+  constexpr int kAxes = Traits<kMode>::kAxes;
+  constexpr int kSlots = 128;  // the tile's 64 row boxes, then its 64 column boxes
+  const int scene = blockIdx.y;
+  const int rw = blockIdx.x / words, cw = blockIdx.x % words;
+  const int nv = nv_in[scene];
+  const int q0 = 64 * rw, c0 = 64 * cw;
+  if (cw < rw || q0 >= nv || c0 >= nv) return;  // block-uniform: no tile the rounds read
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long base = static_cast<long long>(scene) * k;
+  __shared__ float lo[kAxes * kSlots], hi[kAxes * kSlots];
+  __shared__ T area[kSlots];
+  __shared__ long long label[kSlots];
+  __shared__ int box[kSlots];
+  __shared__ unsigned int bits32[128];  // the tile's 64 rows, two 32-bit halves each
+  __shared__ int queue_s[kTileWarps][64];
+  bool has_nan = false;
+  if (t < kSlots) {
+    const int p = t < 64 ? q0 + t : c0 + t - 64;
+    const int r = box_at[base + min(p, nv - 1)];  // a dead slot computes on a live box
+    box[t] = r;
+    if constexpr (Traits<kMode>::kBoxes) {
+      T d[kAxes];
+#pragma unroll
+      for (int a = 0; a < kAxes; ++a) {
+        const int axis = kAxes == 2 && a == 1 ? 2 : a;
+        const float l = mins[(base + r) * 3 + axis], h = maxs[(base + r) * 3 + axis];
+        lo[a * kSlots + t] = l;
+        hi[a * kSlots + t] = h;
+        d[a] = sub(static_cast<T>(h), static_cast<T>(l));
+        has_nan = has_nan || (p < nv && d[a] != d[a]);
+      }
+      T ar = mul(d[0], d[1]);
+      if constexpr (kAxes == 3) ar = mul(ar, d[2]);
+      area[t] = ar;
+      if constexpr (Traits<kMode>::kGated) label[t] = cls[base + r];
+    }
+  }
+  if (t < 128) bits32[t] = 0u;
+  const bool any_nan = __syncthreads_or(has_nan);
+  const bool skip = Traits<kMode>::kGated && !(thresh < 0.0);
+  const float thresh_f = static_cast<float>(thresh);
+  auto fill = [&](auto nan_tag) {
+    constexpr bool kNan = decltype(nan_tag)::value;
+    const Boxes<kMode> bx{lo, hi, area, label, kSlots};
+    if (skip) {
+      // same-class pairs only, queued (row << 6 | column) 32 at a time, a lane
+      // a pair; their bits by atomicOr
+      int* queue = queue_s[warp];
+      int queued = 0;
+      auto test = [&](bool live) {
+        const int pr = queue[live ? lane : 0];
+        const int r = pr >> 6, cc = pr & 63;
+        const bool over = suppresses<kMode, kNan, true>(bx, r, 64 + cc, old_type, thresh);
+        if (live && over) atomicOr(&bits32[2 * r + (cc >> 5)], 1u << (cc & 31));
+      };
+      for (int r = warp; r < 64; r += kTileWarps) {
+        const int q = q0 + r;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int cc = 32 * g + lane, c = c0 + cc;
+          const bool cand = (q < nv) & (c > q) & (c < nv) & (label[r] == label[64 + cc]);
+          const unsigned int m = __ballot_sync(kFull, cand);
+          if (cand) queue[queued + __popc(m & ((1u << lane) - 1u))] = r << 6 | cc;
+          queued += __popc(m);
+          if (queued >= 32) {
+            __syncwarp();
+            test(true);
+            __syncwarp();
+            queued -= 32;
+            if (lane < queued) queue[lane] = queue[32 + lane];
+            __syncwarp();
+          }
+        }
+      }
+      __syncwarp();
+      if (queued > 0) test(lane < queued);
+    } else {  // every pair: a ballot a 32-column group
+      for (int r = warp; r < 64; r += kTileWarps) {
+        const int q = q0 + r;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int cc = 32 * g + lane, c = c0 + cc;
+          const bool live = (q < nv) & (c > q) & (c < nv);
+          bool over;
+          if constexpr (kMode == kMatrix) {
+            over = iou[(base + box[r]) * k + box[64 + cc]] > thresh_f;
+          } else {
+            over = suppresses<kMode, kNan>(bx, r, 64 + cc, old_type, thresh);
+          }
+          const unsigned int bits = __ballot_sync(kFull, live && over);
+          if (lane == 0) bits32[2 * r + g] = bits;
+        }
+      }
+    }
+  };
+  if (kMode != kMatrix && any_nan) {
+    fill(std::true_type{});
+  } else {
+    fill(std::false_type{});
+  }
+  __syncthreads();
+  if (t < 64) {
+    const long long at = (static_cast<long long>(scene) * words + cw) * (64LL * words) + q0 + t;
+    mat[at] = static_cast<unsigned long long>(bits32[2 * t + 1]) << 32 | bits32[2 * t];
+  }
+}
+
+// the rounds kernel's shared memory, all of it dynamic: matrix mode's first
+// valid box, a diagonal block, and the removed, won and -inf masks of `words`
+// words
+__host__ __device__ inline long long rounds_smem(int words) { return 8 + 64 * 8 + 3LL * words * 8; }
+
+// (c) the rounds of a scene, then its keep flags
+template <bool kMatrixMode>
+__global__ void __launch_bounds__(kRoundsThreads)
+nms_rounds_kernel(const float* __restrict__ scores, const int* __restrict__ box_at,
+                  const int* __restrict__ nv_in, const unsigned long long* __restrict__ mat,
+                  bool* __restrict__ keep_out, int k, int words) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long& first_s = *reinterpret_cast<long long*>(smem);
+  unsigned long long* diag = reinterpret_cast<unsigned long long*>(smem) + 1;
+  unsigned long long* removed = diag + 64;
+  unsigned long long* won = removed + words;
+  unsigned long long* ninf = won + words;
+  const int scene = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long base = static_cast<long long>(scene) * k;
+  const unsigned long long* mat_s = mat + static_cast<long long>(scene) * words * (64LL * words);
+  const int nv = nv_in[scene];
+  const int wn = (nv + 63) / 64;
+  for (int v = t; v < wn; v += kRoundsThreads) removed[v] = 0ull;
+  if constexpr (kMatrixMode) {
+    // the -inf positions, and the position of the first valid box (pf)
+    for (int g = warp; g * 32 < nv; g += kRoundsWarps) {
+      const int q = g * 32 + lane;
+      const bool neg = q < nv &&
+          static_cast<unsigned int>(order_key(scores[base + box_at[base + q]], 0) >> 32) ==
+              kNegInfHigh;
+      const unsigned int bits = __ballot_sync(kFull, neg);
+      if (lane == 0) reinterpret_cast<unsigned int*>(ninf)[g] = bits;
+    }
+    long long first = static_cast<long long>(k) * k;  // (box, position), packed
+    for (int p = t; p < nv; p += kRoundsThreads) {
+      first = min(first, static_cast<long long>(box_at[base + p]) * k + p);
+    }
+    for (int off = 16; off; off >>= 1) first = min(first, __shfl_xor_sync(kFull, first, off));
+    if (t == 0) first_s = static_cast<long long>(k) * k;
+    __syncthreads();
+    if (lane == 0) atomicMin(&first_s, first);
+  }
+  __syncthreads();
+  for (int w = 0; w < wn; ++w) {
+    const unsigned long long* word_w = mat_s + static_cast<long long>(w) * (64LL * words);
+    if (t < 64) diag[t] = word_w[64 * w + t];
+    __syncthreads();
+    if (t == 0) {  // a position not yet removed when the scan reaches it wins
+      unsigned long long rem = removed[w], mine = 0ull;
+#pragma unroll
+      for (int b = 0; b < 64; ++b) {
+        const bool wins = (rem >> b & 1ull) == 0ull;
+        rem |= wins ? diag[b] : 0ull;
+        mine |= wins ? 1ull << b : 0ull;
+      }
+      removed[w] = rem;
+      won[w] = mine;
+    }
+    __syncthreads();
+    const unsigned long long mine = won[w];
+    for (int v = w + 1 + warp; v < wn; v += kRoundsWarps) {  // the winners' rows into word v
+      const unsigned long long* word_v = mat_s + static_cast<long long>(v) * (64LL * words) + 64 * w;
+      unsigned long long acc = (mine >> lane & 1ull ? word_v[lane] : 0ull) |
+                               (mine >> (lane + 32) & 1ull ? word_v[lane + 32] : 0ull);
+#pragma unroll
+      for (int off = 16; off; off >>= 1) acc |= __shfl_xor_sync(kFull, acc, off);
+      if (lane == 0) removed[v] |= acc;
+    }
+    __syncthreads();
+  }
+  if constexpr (kMatrixMode) {
+    // _nms_jax's all -inf rule, as step 4 applies it
+    if (t == 0) {
+      const int pf = static_cast<int>(first_s % k);
+      bool stuck = false;
+      for (int w = 0; w < wn; ++w) {
+        const int len = min(64, nv - 64 * w);
+        unsigned long long hit = won[w] & ninf[w] & (len == 64 ? ~0ull : (1ull << len) - 1ull);
+        if (pf >> 6 == w) hit &= ~(1ull << (pf & 63));
+        if (stuck) {
+          won[w] = 0ull;
+        } else if (hit) {
+          won[w] &= (hit & (0ull - hit)) - 1ull;  // the positions before it
+          stuck = true;
+        }
+      }
+      if (stuck) won[pf >> 6] |= 1ull << (pf & 63);
+    }
+    __syncthreads();
+  }
+  for (int p = t; p < k; p += kRoundsThreads) {
+    keep_out[base + box_at[base + p]] = p < nv && (won[p >> 6] >> (p & 63) & 1ull);
+  }
+}
+
+// whether the global path can launch b scenes of k boxes
+bool bad_global_shape(int b, int k) {
+  if (b < 1 || b > 65535 || k < 1) return true;
+  const long long words = (k + 63LL) / 64;
+  return words * words >= (1LL << 31) || rounds_smem(static_cast<int>(words)) > kSmemMax;
+}
+
+template <int kMode>
+int launch_global(const float* mins, const float* maxs, const float* iou, const float* scores,
+                  const long long* cls, const bool* valid, bool* keep, int* scratch,
+                  unsigned long long* mat, int b, int k, double thresh, int old_type,
+                  cudaStream_t stream) {
+  constexpr bool kMatrixMode = kMode == kMatrix;
+  const int words = (k + 63) / 64;
+  int* box_at = scratch;
+  int* nv = scratch + static_cast<long long>(b) * k;
+  nms_order_kernel<<<dim3((k + kOrderThreads - 1) / kOrderThreads, b), kOrderThreads, 0, stream>>>(
+      scores, valid, box_at, nv, k, kMatrixMode);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  nms_tile_kernel<kMode><<<dim3(words * words, b), kTileThreads, 0, stream>>>(
+      mins, maxs, iou, cls, box_at, nv, mat, k, words, thresh, old_type);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int smem = static_cast<int>(rounds_smem(words));
+  static bool ready = false;  // the attribute once a process, at the largest size
+  if (!ready) {
+    e = cudaFuncSetAttribute(nms_rounds_kernel<kMatrixMode>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  nms_rounds_kernel<kMatrixMode><<<b, kRoundsThreads, smem, stream>>>(scores, box_at, nv, mat,
+                                                                      keep, k, words);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // mins, maxs: (b, k, 3) f32; scores: (b, k) f32; cls: (b, k) int64 (mode 2
@@ -644,6 +969,34 @@ extern "C" int nms_matrix_launch(const float* iou, const float* scores, const bo
   if (bad_shape(b, k)) return static_cast<int>(cudaErrorInvalidValue);
   return launch<kMatrix>(nullptr, nullptr, iou, scores, nullptr, valid, keep, b, k, thresh, 0,
                          cluster, stream);
+}
+
+// Past kMaxBoxes, any K the card holds: the same masks through the global
+// matrix. scratch: b k + b i32 (box_at, nv); mat: (b, W, 64 W) u64, W =
+// ceil(k / 64), neither read before it is written here. Box mode's other
+// arguments are nms_boxes_launch's; matrix mode's nms_matrix_launch's.
+extern "C" int nms_boxes_global_launch(const float* mins, const float* maxs, const float* scores,
+                                       const long long* cls, const bool* valid, bool* keep,
+                                       int* scratch, unsigned long long* mat, int b, int k,
+                                       int mode, int old_type, double thresh,
+                                       cudaStream_t stream) {
+  if (bad_global_shape(b, k) || (mode == k3DCls && cls == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (mode) {
+    case k2D: return launch_global<k2D>(mins, maxs, nullptr, scores, cls, valid, keep, scratch, mat, b, k, thresh, old_type, stream);
+    case k3D: return launch_global<k3D>(mins, maxs, nullptr, scores, cls, valid, keep, scratch, mat, b, k, thresh, old_type, stream);
+    case k3DCls: return launch_global<k3DCls>(mins, maxs, nullptr, scores, cls, valid, keep, scratch, mat, b, k, thresh, old_type, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int nms_matrix_global_launch(const float* iou, const float* scores, const bool* valid,
+                                        bool* keep, int* scratch, unsigned long long* mat, int b,
+                                        int k, float thresh, cudaStream_t stream) {
+  if (bad_global_shape(b, k)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_global<kMatrix>(nullptr, nullptr, iou, scores, nullptr, valid, keep, scratch, mat,
+                                b, k, thresh, 0, stream);
 }
 
 // cudaOccupancyMaxActiveClusters for a launch of `mode` (0-2 box modes, 3

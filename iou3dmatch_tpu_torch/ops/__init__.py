@@ -1,8 +1,8 @@
 """Point-cloud primitives of the PyTorch port.
 
 Counterparts of ``iou3dmatch_tpu/ops``. FPS, ball query, the grouping
-gather and ``three_nn`` launch hand-written CUDA kernels (``csrc/``) on
-CUDA tensors and run their plain PyTorch versions on CPU tensors; so do
+gather, ``three_nn`` and ``three_interpolate`` launch hand-written CUDA
+kernels (``csrc/``) on CUDA tensors and run their plain PyTorch versions on CPU tensors; so do
 lower-half suppression (``ops/lhs.py``) and the rotated IoU
 (``geometry/iou3d.py``).
 """

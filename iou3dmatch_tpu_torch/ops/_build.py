@@ -24,15 +24,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fps", "ball_query", "gather", "gather_bwd", "iou3d", "lhs", "three_nn", "nms")
+SOURCES = ("fps", "ball_query", "gather", "gather_bwd", "iou3d", "lhs", "three_nn", "nms",
+           "three_interpolate")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# iou3d, lhs, three_nn and nms follow their plain versions operation by
-# operation, each product and sum rounded on its own: no multiply-add
-# contraction anywhere in these files
-SOURCE_FLAGS = {name: ("-fmad=false",) for name in ("iou3d", "lhs", "three_nn", "nms")}
+# iou3d, lhs, three_nn, nms and three_interpolate follow their plain
+# versions operation by operation, each product and sum rounded on its own:
+# no multiply-add contraction anywhere in these files
+SOURCE_FLAGS = {name: ("-fmad=false",)
+                for name in ("iou3d", "lhs", "three_nn", "nms", "three_interpolate")}
 
 
 def _flags(name: str) -> tuple:

@@ -11,13 +11,20 @@ Counterpart of ``iou3dmatch_tpu/ops/interpolate.py`` (reference
   of a warp and gives each thread Q queries; ``three_nn_plan`` picks
   (S, Q) from the shape and the card's SM count.
 - ``three_interpolate``: a gather and a weighted sum over the 3 neighbours,
-  in plain PyTorch on every device.
+  differentiable in the features only (as JAX's custom VJP): on CUDA
+  tensors its forward launches ``csrc/three_interpolate.cu`` (a warp a
+  query, 16-byte pieces of the channels, bit for bit its plain version) and
+  its backward, ``three_interpolate_backward``, ``csrc/gather_bwd.cu``'s
+  weighted sum (the slots counting-sorted by row, each row written once);
+  on CPU tensors the plain versions ``three_interpolate_plain`` and
+  ``three_interpolate_backward_plain``.
 """
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
+from .ball_query import gather_bwd_plan
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -132,10 +139,133 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor, launch: Optional[NnLaun
 three_nn.launches = 0
 
 
-def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
-                      weight: torch.Tensor) -> torch.Tensor:
-    """features: (B, m, C), idx: (B, n, 3), weight: (B, n, 3) -> (B, n, C)."""
+def three_interpolate_plain(features: torch.Tensor, idx: torch.Tensor,
+                            weight: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ``three_interpolate``: features (B, m, C), idx (B, n, 3)
+    clamped to [0, m - 1], weight (B, n, 3) -> (B, n, C), the (B, n, 3, C)
+    gather times the weights summed over the neighbours."""
     b, m = features.shape[:2]
     rows = torch.arange(b, device=features.device)[:, None, None]
     g = features[rows, idx.long().clamp(0, m - 1)]  # (B, n, 3, C)
     return (g * weight[..., None]).sum(dim=2)
+
+
+def three_interpolate_backward_plain(g: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
+                                     m: int) -> torch.Tensor:
+    """Plain PyTorch backward of ``three_interpolate`` into the features:
+    g (B, n, C), idx (B, n, 3), weight (B, n, 3) -> (B, m, C), each slot's
+    g row times its weight added into the row its clamped index names
+    (JAX ``_interp_bwd``)."""
+    b, n, c = g.shape
+    rows = idx.long().clamp(0, m - 1) + m * torch.arange(b, device=g.device)[:, None, None]
+    out = torch.zeros((b * m, c), dtype=g.dtype, device=g.device)
+    out.index_add_(0, rows.reshape(-1), (g[:, :, None, :] * weight[..., None]).reshape(-1, c))
+    return out.reshape(b, m, c)
+
+
+def _check_interp(features: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> None:
+    if features.dim() != 3 or idx.dim() != 3 or idx.shape[2] != 3 or weight.shape != idx.shape \
+            or idx.shape[0] != features.shape[0]:
+        raise ValueError(f"features (B, m, C), idx and weight (B, n, 3) expected, got "
+                         f"{tuple(features.shape)}, {tuple(idx.shape)} and {tuple(weight.shape)}")
+    if features.shape[1] < 1:
+        raise ValueError("three_interpolate needs at least one known row a scene")
+    if features.device.type == "cpu":
+        return
+    if features.dtype != torch.float32:
+        raise TypeError(f"three_interpolate on the card takes f32 features, not {features.dtype} "
+                        f"(FP's interpolation runs in f32 under bf16 too)")
+    _build.require(features, torch.float32, "features")
+    _build.require(idx, torch.int32, "idx", features.device)
+    _build.require(weight, torch.float32, "weight", features.device)
+
+
+def _interp_kernel(features: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    b, m, c = features.shape
+    n = idx.shape[1]
+    out = torch.empty((b, n, c), dtype=torch.float32, device=features.device)
+    if out.numel() == 0:
+        return out
+    vec = 4 if c % 4 == 0 and features.data_ptr() % 16 == 0 else 1
+    fn = _build.kernel("three_interpolate", "three_interpolate_launch",
+                       (_build.VP,) * 4 + (_build.INT,) * 5 + (_build.VP,))
+    _build.check(fn(features.data_ptr(), idx.data_ptr(), weight.data_ptr(), out.data_ptr(), b, n, m,
+                    c, vec, _build.stream(features)), "three_interpolate")
+    three_interpolate.launches += 1
+    return out
+
+
+def three_interpolate_backward(g: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
+                               m: int) -> torch.Tensor:
+    """g (B, n, C) f32 cotangent of ``three_interpolate``, idx (B, n, 3)
+    int32, weight (B, n, 3) f32 -> (B, m, C) f32 gradient of the features.
+    On a CUDA tensor it launches ``csrc/gather_bwd.cu``'s weighted sum over
+    the 3 n slots into m rows (``gather_bwd_plan``'s launch): each row
+    written once, no float atomics; the order of a row's slots, and so the
+    last bits of its sum, may change from run to run. Counted in
+    ``three_interpolate_backward.launches``."""
+    if g.device.type == "cpu":
+        return three_interpolate_backward_plain(g, idx, weight, m)
+    _build.require(g, torch.float32, "g")
+    _build.require(idx, torch.int32, "idx", g.device)
+    _build.require(weight, torch.float32, "weight", g.device)
+    if g.dim() != 3 or idx.shape != g.shape[:2] + (3,) or weight.shape != idx.shape or m < 1:
+        raise ValueError(f"g (B, n, C), idx and weight (B, n, 3) expected with m >= 1, got "
+                         f"{tuple(g.shape)}, {tuple(idx.shape)}, {tuple(weight.shape)} and m = {m}")
+    b, n, c = g.shape
+    out = torch.empty((b, m, c), dtype=torch.float32, device=g.device)
+    if g.numel() == 0:
+        return out.zero_()
+    u = 3 * n
+    launch = gather_bwd_plan(b, u, m, c,
+                             torch.cuda.get_device_properties(g.device).multi_processor_count)
+    scratch = torch.empty(launch.scratch_ints(b, u), dtype=torch.int32, device=g.device)
+    fn = _build.kernel("gather_bwd", "three_interpolate_bwd_launch",
+                       (_build.VP,) * 5 + (_build.INT,) * 6 + (_build.VP,))
+    _build.check(fn(g.data_ptr(), idx.data_ptr(), weight.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), b, m, n, c, launch.parts, launch.lists, _build.stream(g)),
+                 "three_interpolate backward")
+    three_interpolate_backward.launches += 1
+    return out
+
+
+three_interpolate_backward.launches = 0
+
+
+class _ThreeInterpolate(torch.autograd.Function):
+    """The interpolation, differentiable in the features only: the custom
+    VJP of the JAX ``three_interpolate`` (``ops/interpolate.py:110-150``).
+    It keeps the indices, the weights and m, never the table."""
+
+    @staticmethod
+    def forward(ctx, features, idx, weight):
+        ctx.m = features.shape[1]
+        ctx.save_for_backward(idx, weight)
+        if features.device.type == "cpu":
+            return three_interpolate_plain(features, idx, weight)
+        return _interp_kernel(features, idx, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        idx, weight = ctx.saved_tensors
+        return three_interpolate_backward(g.contiguous(), idx, weight, ctx.m), None, None
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """features: (B, m, C), idx: (B, n, 3), weight: (B, n, 3) -> (B, n, C),
+    equal to ``three_interpolate_plain``. Differentiable in ``features``
+    only (idx and weight get no gradient, as in JAX's VJP and the
+    reference's ``ThreeInterpolate``). On CUDA tensors (f32 features and
+    weights, int32 indices, contiguous, one device) it launches
+    ``csrc/three_interpolate.cu`` and counts the launch in
+    ``three_interpolate.launches``; its backward is
+    ``three_interpolate_backward``. CPU tensors of any float dtype take the
+    plain versions."""
+    _check_interp(features, idx, weight)
+    return _ThreeInterpolate.apply(features, idx, weight)
+
+
+three_interpolate.launches = 0

@@ -2,12 +2,14 @@
 
 ``nms_boxes`` (the three NMS branches of ``parse_predictions``) and
 ``nms_masked`` (greedy NMS over an IoU matrix, ``_nms_jax``) launch
-``csrc/nms.cu`` on CUDA tensors, every scene of a request in one launch, a
-thread-block cluster of ``nms_plan``'s size a scene, and run their plain
-PyTorch versions, ``geometry/nms.py::nms_boxes_plain`` and
-``nms_masked_plain``, on CPU tensors, at any K. Counterparts of the JAX
-package's host NumPy NMS (``iou3dmatch_tpu/eval/ap_helper.py:95-135``) and
-of ``iou3dmatch_tpu/geometry/nms.py::_nms_jax`` (``:170-191``).
+``csrc/nms.cu`` on CUDA tensors: up to MAX_BOXES boxes a scene every scene
+of a request in one launch, a thread-block cluster of ``nms_plan``'s size a
+scene, the bit matrix in the leader block's shared memory; past it three
+launches with the bit matrix in device memory (``_global``). On CPU tensors
+they run their plain PyTorch versions, ``geometry/nms.py::nms_boxes_plain``
+and ``nms_masked_plain``. Any K on either device, as the JAX package's
+host NumPy NMS (``iou3dmatch_tpu/eval/ap_helper.py:95-135``) and
+``iou3dmatch_tpu/geometry/nms.py::_nms_jax`` (``:170-191``) take.
 """
 import ctypes
 from typing import Dict, Optional
@@ -17,11 +19,16 @@ import torch
 from ..geometry.nms import BOX_MODES, nms_boxes_plain, nms_masked_plain
 from . import _build
 
-# csrc/nms.cu kMaxBoxes: the leader block holds the scene's K x K bit matrix
-# in shared memory; the model samples its proposals from 1,024 seeds, so no
-# --num_target goes past it
+# csrc/nms.cu kMaxBoxes: the cluster path's leader block holds the scene's
+# K x K bit matrix in shared memory up to it; past it the global path
 MAX_BOXES = 1024
 MODE_IDS = {"2d": 0, "3d": 1, "3d_cls": 2, "matrix": 3}  # csrc/nms.cu Mode
+# csrc/nms.cu kSmemMax: the global path's rounds kernel keeps a scene's
+# removed, won and -inf masks (3 words of 8 bytes a 64 boxes) beside a
+# diagonal block (512 bytes) and a first-box slot (8) in one block's
+# shared memory, which bounds K there
+SMEM_MAX = 232448
+GLOBAL_MAX_BOXES = (SMEM_MAX - 8 - 64 * 8) // (3 * 8) * 64
 NMS_CLUSTERS = (1, 2, 4, 8, 16)  # blocks a scene; 16 is the H100's non-portable largest
 MIN_ROWS = 16  # rows of the bit matrix a block fills, at least: one a warp
 
@@ -66,15 +73,40 @@ def planned_cluster(device: torch.device, b: int, k: int, mode: str) -> int:
 
 
 def _launch_cluster(b: int, k: int, mode: str, device, cluster: Optional[int]) -> int:
-    """The cluster size of a launch on the card; raises where the kernel
-    cannot take the shape or the size."""
-    if k > MAX_BOXES:
-        raise ValueError(f"NMS on the card takes at most {MAX_BOXES} boxes a scene, got {k}")
+    """The cluster size of a launch of the cluster path (K <= MAX_BOXES);
+    raises for a size the kernel does not take."""
     if cluster is None:
         return planned_cluster(device, b, k, mode)
     if cluster not in NMS_CLUSTERS:
         raise ValueError(f"cluster {cluster} not one of {NMS_CLUSTERS}")
     return cluster
+
+
+def _no_cluster(cluster: Optional[int], k: int) -> None:
+    if cluster is not None:
+        raise ValueError(f"cluster sizes are the cluster path's, up to {MAX_BOXES} boxes; "
+                         f"{k} boxes take the global path")
+
+
+def _global(b: int, k: int, device, launch) -> torch.Tensor:
+    """The global path past MAX_BOXES: its scratch (each box's position and
+    the valid count) and the (B, W, 64 W) u64 bit matrix, W = ceil(K / 64),
+    from the caching allocator, then ``launch(keep, scratch, mat)``, which
+    returns the C entry's code. Raises, by name, for a K the path cannot
+    launch or a matrix the card cannot allocate."""
+    if b > 65535 or k > GLOBAL_MAX_BOXES:
+        raise ValueError(f"NMS on the card takes at most {GLOBAL_MAX_BOXES} boxes a scene and "
+                         f"65,535 scenes a launch past {MAX_BOXES} boxes, got ({b}, {k})")
+    words = -(-k // 64)
+    keep = torch.empty((b, k), dtype=torch.bool, device=device)
+    scratch = torch.empty(b * k + b, dtype=torch.int32, device=device)
+    try:
+        mat = torch.empty((b, words, 64 * words), dtype=torch.int64, device=device)
+    except torch.cuda.OutOfMemoryError as e:
+        raise MemoryError(f"NMS over ({b}, {k}) boxes needs a {b * words * 64 * words * 8:,}-byte "
+                          f"bit matrix, which the card cannot allocate") from e
+    _build.check(launch(keep, scratch, mat), "nms (global matrix)")
+    return keep
 
 
 def _valid_ptr(valid, shape, device) -> int:
@@ -91,8 +123,10 @@ def nms_boxes(mins: torch.Tensor, maxs: torch.Tensor, scores: torch.Tensor, cls,
               cluster: Optional[int] = None) -> torch.Tensor:
     """mins, maxs (B, K, 3) f32, scores (B, K) f32, cls (B, K) integer
     classes for ``3d_cls`` (else None), valid (B, K) bool or None -> (B, K)
-    bool keep mask (see ``nms_boxes_plain``). On the card K <= MAX_BOXES;
-    ``cluster`` overrides the planned cluster size (for tests and sweeps)."""
+    bool keep mask (see ``nms_boxes_plain``). On the card up to MAX_BOXES
+    boxes take the cluster path, ``cluster`` overriding the planned cluster
+    size (for tests and sweeps); past it the global path, which takes no
+    cluster size."""
     if mode not in BOX_MODES:
         raise ValueError(f"unknown NMS mode {mode!r}; one of {sorted(BOX_MODES)}")
     if mins.dim() != 3 or mins.shape[2] != 3 or maxs.shape != mins.shape \
@@ -116,9 +150,19 @@ def nms_boxes(mins: torch.Tensor, maxs: torch.Tensor, scores: torch.Tensor, cls,
         _build.require(cls, torch.int64, "cls", mins.device)
         cls_ptr = cls.data_ptr()
     valid_ptr = _valid_ptr(valid, (b, k), mins.device)
-    keep = torch.empty((b, k), dtype=torch.bool, device=mins.device)
-    if keep.numel() == 0:
+    if b * k == 0:
+        return torch.empty((b, k), dtype=torch.bool, device=mins.device)
+    if k > MAX_BOXES:
+        _no_cluster(cluster, k)
+        fn = _build.kernel("nms", "nms_boxes_global_launch", (_build.VP,) * 8 + (_build.INT,) * 4
+                           + (_build.DOUBLE, _build.VP))
+        keep = _global(b, k, mins.device, lambda keep, scratch, mat: fn(
+            mins.data_ptr(), maxs.data_ptr(), scores.data_ptr(), cls_ptr, valid_ptr,
+            keep.data_ptr(), scratch.data_ptr(), mat.data_ptr(), b, k, MODE_IDS[mode],
+            int(bool(old_type)), float(thresh), _build.stream(mins)))
+        nms_boxes.launches += 1
         return keep
+    keep = torch.empty((b, k), dtype=torch.bool, device=mins.device)
     cluster = _launch_cluster(b, k, mode, mins.device, cluster)
     fn = _build.kernel("nms", "nms_boxes_launch", (_build.VP,) * 6 + (_build.INT,) * 4
                        + (_build.DOUBLE, _build.INT, _build.VP))
@@ -135,8 +179,9 @@ nms_boxes.launches = 0
 def nms_masked(iou: torch.Tensor, scores: torch.Tensor, thresh: float, valid=None, *,
                cluster: Optional[int] = None) -> torch.Tensor:
     """iou (B, K, K) f32, scores (B, K) f32, valid (B, K) bool or None ->
-    (B, K) bool keep mask (see ``nms_masked_plain``). On the card K <=
-    MAX_BOXES; ``cluster`` overrides the planned cluster size."""
+    (B, K) bool keep mask (see ``nms_masked_plain``). On the card past
+    MAX_BOXES the global path; ``cluster`` overrides the planned cluster
+    size below it."""
     if iou.dim() != 3 or iou.shape[1] != iou.shape[2] or scores.shape != iou.shape[:2]:
         raise ValueError(f"iou (B, K, K) and scores (B, K) expected, got {tuple(iou.shape)} "
                          f"and {tuple(scores.shape)}")
@@ -146,9 +191,18 @@ def nms_masked(iou: torch.Tensor, scores: torch.Tensor, thresh: float, valid=Non
     _build.require(iou, torch.float32, "iou")
     _build.require(scores, torch.float32, "scores", iou.device)
     valid_ptr = _valid_ptr(valid, (b, k), iou.device)
-    keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
-    if keep.numel() == 0:
+    if b * k == 0:
+        return torch.empty((b, k), dtype=torch.bool, device=iou.device)
+    if k > MAX_BOXES:
+        _no_cluster(cluster, k)
+        fn = _build.kernel("nms", "nms_matrix_global_launch", (_build.VP,) * 6 + (_build.INT,) * 2
+                           + (_build.FLOAT, _build.VP))
+        keep = _global(b, k, iou.device, lambda keep, scratch, mat: fn(
+            iou.data_ptr(), scores.data_ptr(), valid_ptr, keep.data_ptr(), scratch.data_ptr(),
+            mat.data_ptr(), b, k, float(thresh), _build.stream(iou)))
+        nms_masked.launches += 1
         return keep
+    keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
     cluster = _launch_cluster(b, k, "matrix", iou.device, cluster)
     fn = _build.kernel("nms", "nms_matrix_launch", (_build.VP,) * 4 + (_build.INT,) * 2
                        + (_build.FLOAT, _build.INT, _build.VP))

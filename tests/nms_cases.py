@@ -23,8 +23,12 @@ are (the heading only turns the rotated IoU's boxes).
   pair of two classes suppresses too (0 > thresh) unless its overlap is
   NaN: the one setting where the kernel computes every pair of that mode;
 - K = 1, 128 (serving's proposals), 256, 257 (one box past four 64-bit
-  words), 512 and 1,024 (the most the model makes: vote aggregation samples
-  its proposals from FP2's 1,024 seeds), each a ``--num_target``.
+  words), 512 and 1,024 (the most the cluster path takes: the bit matrix in
+  one block's shared memory), each a ``--num_target``;
+- ``LARGE``: K = 1,025 to 4,096, past the cluster path, where the kernel
+  keeps the bit matrix in device memory: ``--cluster_sampling vote_fps
+  --vote_factor 2`` gives 2,048 votes to sample proposals from, and the
+  CPU and the JAX package take any K.
 """
 import numpy as np
 
@@ -175,6 +179,20 @@ CASES = {
     "negative_thresh_k64": lambda: clustered(21, 2, 64, 3, thresh=-0.1),
     "k2_same_box": lambda: _pack(np.zeros((1, 2, 3)), np.full((1, 2, 3), 0.5), np.array([[0.3, 0.7]]),
                                  np.zeros((1, 2), np.int64)),
+}
+
+
+# past the cluster path's 1,024 boxes: a few scenes each, the (K, K) overlaps
+# of the plain versions being the largest temporaries
+LARGE = {
+    "clustered_k1025": lambda: clustered(22, 1, 1025, 18),
+    "clustered_k2048": lambda: clustered(23, 2, 2048, 18),
+    "special_k2048": lambda: special(24, 2, 2048),
+    "invalid_k1500": lambda: invalid(25, 3, 1500),
+    "all_neg_inf_k1100": lambda: all_neg_inf(26, 1, 1100),
+    "tied_k2048": lambda: clustered(27, 1, 2048, 4, ties=True),
+    "negative_thresh_k1100": lambda: clustered(29, 1, 1100, 3, thresh=-0.1),
+    "clustered_k4096": lambda: clustered(28, 1, 4096, 18),
 }
 
 

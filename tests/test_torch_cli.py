@@ -4,10 +4,13 @@ and ``--eval`` against the JAX driver.
 - Flag parity: ``vars(parse_args(argv))`` of each port driver equals the
   JAX driver's for ``[]`` and for ``tests/test_cli.py``'s argvs, but for
   JAX's ``platform`` and the port's ``device``.
-- Startup refusals, before any log, data or model: ``--num_target 1025``
-  on the card (``ops/nms.py::MAX_BOXES``); with no CUDA and no
-  ``--device`` a driver raises. ``--bf16`` and ``--f32_gridconv`` run:
-  tests/test_torch_bf16_cli.py.
+- Startup: with no CUDA and no ``--device`` a driver raises. No flag is
+  refused on the card: ``--bf16`` and ``--f32_gridconv`` run
+  (tests/test_torch_bf16_cli.py), and so does a ``--num_target`` past the
+  1,024 boxes of NMS's cluster path (``ops/nms.py::MAX_BOXES``):
+  ``driver_device`` accepts it on a mocked card, and the pretrain driver's
+  ``--eval`` at ``--cluster_sampling vote_fps --vote_factor 2`` with 1,025
+  and 2,048 proposals gives JAX's mAP and AR.
 - The chain ``run_pretrain_torch.sh`` -> ``run_train_torch.sh`` ->
   ``run_eval_opt_torch.sh`` on ``--synthetic --tiny --device cpu`` in
   ``tmp_path`` (``tests/test_cli.py:75``'s recipe): every file the drivers
@@ -69,23 +72,12 @@ def test_flag_types_and_choices_match(driver, monkeypatch):
     assert actions(port) == actions(jax_mod)
 
 
-@pytest.mark.parametrize("driver", [pretrain, train])
-@pytest.mark.parametrize("argv,match", [
-    (["--num_target", "1025"], "MAX_BOXES"), (["--num_target", "1025", "--tiny"], "MAX_BOXES")])
-def test_startup_refusals(tmp_path, driver, argv, match):
-    log_dir = tmp_path / "log"
-    with pytest.raises(SystemExit, match=match):
-        driver.main(["--log_dir", str(log_dir)] + argv)
-    assert not log_dir.exists()  # before any log, data or model
-
-
 def test_no_cuda_raises_without_device_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for driver in (pretrain, train):
         with pytest.raises(RuntimeError, match="--device cpu"):
             driver.main(["--log_dir", str(tmp_path / "log")] + TINY)
     assert common.driver_device(pretrain.parse_args(CPU)) == torch.device("cpu")
-    # accepted on the CPU: 1025 proposals are the card's NMS limit only
     assert common.driver_device(pretrain.parse_args(CPU + ["--num_target", "1025"])).type == "cpu"
 
 
@@ -249,3 +241,60 @@ def test_pretrain_eval_matches_jax(tmp_path, monkeypatch):
     assert set(got[0]) == set(want_means) | {"loss"}
     for k, v in want_means.items():
         assert got[0][k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+
+
+def _jax_exact_ball_query(monkeypatch):
+    """JAX's SA layers on the exact ball query the port runs (see
+    ``test_pretrain_eval_matches_jax``)."""
+    import iou3dmatch_tpu.models.pointnet2 as jax_pointnet2
+
+    exact = jax_pointnet2.ball_query
+    monkeypatch.setattr(jax_pointnet2, "ball_query",
+                        lambda *a, exact_query=exact, **k: exact_query(*a, **{**k, "exact": True}))
+
+
+@pytest.mark.parametrize("iou_nms", [False, True])
+@pytest.mark.parametrize("num_target", [1025, 2048])
+def test_num_target_past_the_cluster_path(tmp_path, monkeypatch, num_target, iou_nms):
+    """More proposals a scene than NMS's cluster path takes on the card
+    (MAX_BOXES, 1,024), which the drivers refused at startup until the NMS
+    kernel grew a global-matrix path: ``driver_device`` accepts the flag on a
+    mocked card for both drivers, and the pretrain driver's ``--eval`` at
+    ``--cluster_sampling vote_fps --vote_factor 2`` (the tiny model's 64
+    seeds give 128 votes, from which FPS draws every proposal) gives the
+    JAX driver's mAP and AR on the same checkpoint and scenes."""
+    import iou3dmatch_tpu.cli.common as jax_common
+
+    from iou3dmatch_tpu_torch.models.factory import build_votenet
+    from iou3dmatch_tpu_torch.ops.nms import MAX_BOXES
+    from iou3dmatch_tpu_torch.train import checkpoint
+    from iou3dmatch_tpu_torch.train.state import create_train_state
+
+    knobs = ["--cluster_sampling", "vote_fps", "--vote_factor", "2", "--num_target",
+             str(num_target)]
+    assert num_target > MAX_BOXES
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        for driver in (pretrain, train):
+            assert common.driver_device(driver.parse_args(knobs)) == torch.device("cuda", 0)
+
+    model, _ = build_votenet("scannet", tiny=True, device="cpu", sampling="vote_fps",
+                             vote_factor=2, num_proposal=num_target,
+                             generator=torch.Generator().manual_seed(5))
+    path = str(tmp_path / "checkpoint.tar")
+    checkpoint.save(path, create_train_state(model), epoch=0)
+    flags = ["--eval", "--checkpoint_path", path, "--batch_size", "4", "--synthetic",
+             "--synthetic_scenes", "16", "--tiny", "--num_point", "512", "--num_workers", "2"] \
+        + knobs + (["--use_iou_for_nms"] if iou_nms else [])
+    got = pretrain.main(["--log_dir", str(tmp_path / "port")] + flags + CPU)
+    _jax_exact_ball_query(monkeypatch)
+    want = []
+    real = jax_common.evaluate
+    monkeypatch.setattr(jax_common, "evaluate",
+                        lambda *a, **k: want.append(real(*a, **k)) or want[-1])
+    jax_pretrain.main(["--log_dir", str(tmp_path / "jax")] + flags)
+    (_, want_ap, want_sum), = want
+    for t in (0.25, 0.5):
+        for key in ("mAP", "AR"):
+            assert got[1][t][key] == want_ap[t][key], (t, key)
+    assert got[2] == want_sum

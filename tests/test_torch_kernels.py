@@ -24,10 +24,15 @@ GridConv's and FP's shapes, and the wrapper's refusals; greedy NMS
 exactly on every case of tests/nms_cases.py in its three box modes, both
 old_types and matrix mode, at the planned cluster size and at every size
 nms_plan can pick, K from 1 to 1,024 across the bit rows' words and the
-blocks' shares, 300 scenes, the plan's residency, the wrapper's refusals
-(K = 1,025), and parse_predictions on the card
-against the NumPy parse; and ``stage_batch`` staging batches back to back
-bit for bit. The file
+blocks' shares, 300 scenes, the plan's residency, past 1,024 on the
+global-matrix path (nms_cases.LARGE, K to 4,096, and K either side of the
+switch), the wrapper's refusals, and parse_predictions on the card
+against the NumPy parse; three_interpolate bit for bit at FP1's and FP2's
+shapes and on repeated, out-of-range and clamped indices, zero weights,
+one known row, ragged channels and a table off 16-byte alignment, its
+backward within the gather backward's f64 gate, its gradient through
+autograd, and the wrapper's refusals of other dtypes and devices; and
+``stage_batch`` staging batches back to back bit for bit. The file
 imports no JAX, so it runs on a machine with a card and without JAX; this
 repository's conftest imports JAX, so run it there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 Without a card every test skips.
@@ -39,6 +44,7 @@ from iou_cases import gap_pairs, random_boxes
 from lhs_cases import CASES as LHS_CASES
 from lhs_cases import clustered
 from nms_cases import CASES as NMS_CASES
+from nms_cases import LARGE as NMS_LARGE
 from nms_cases import clustered as nms_clustered
 from three_nn_cases import CASES as NN_CASES
 from three_nn_cases import grids, room_seeds
@@ -52,8 +58,12 @@ from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, Ga
                                                  ball_query, ball_query_plain, group_points,
                                                  group_points_backward, group_points_bitcast,
                                                  group_points_plain)
-from iou3dmatch_tpu_torch.ops.interpolate import NN_LAUNCHES, NnLaunch, three_nn, three_nn_plain
+from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, NnLaunch, three_interpolate,
+                                                  three_interpolate_backward,
+                                                  three_interpolate_backward_plain,
+                                                  three_interpolate_plain, three_nn, three_nn_plain)
 from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, SMALL_BOXES, lhs_3d_samecls
+from iou3dmatch_tpu_torch.ops.nms import GLOBAL_MAX_BOXES as NMS_GLOBAL_MAX_BOXES
 from iou3dmatch_tpu_torch.ops.nms import MAX_BOXES as NMS_MAX_BOXES
 from iou3dmatch_tpu_torch.ops.nms import NMS_CLUSTERS, nms_boxes, nms_masked
 from iou3dmatch_tpu_torch.ops.nms import max_active_clusters as nms_max_active_clusters
@@ -766,14 +776,17 @@ def test_nms_plan_on_the_card(cuda):
 
 
 def test_nms_kernel_refuses_bad_input(cuda):
+    """What the kernel cannot take, by name: a cluster size on the global
+    path, a K past the global path's shared memory; the cluster path's
+    sizes and the inputs' types, devices and layouts."""
     t = _nms_on(cuda, NMS_CASES["clustered_k37"]())
     mins, maxs, scores, cls = t["mins"], t["maxs"], t["scores"], t["cls"]
     big = torch.zeros((1, NMS_MAX_BOXES + 1, 3), device=cuda)
-    with pytest.raises(ValueError, match=f"at most {NMS_MAX_BOXES}"):
-        nms_boxes(big, big, big[..., 0].contiguous(), None, None, "3d", False, 0.25)
-    with pytest.raises(ValueError, match=f"at most {NMS_MAX_BOXES}"):
-        nms_masked(torch.zeros((1, NMS_MAX_BOXES + 1, NMS_MAX_BOXES + 1), device=cuda),
-                   big[..., 0].contiguous(), 0.25)
+    with pytest.raises(ValueError, match="cluster sizes"):
+        nms_boxes(big, big, big[..., 0].contiguous(), None, None, "3d", False, 0.25, cluster=8)
+    huge = torch.zeros((1, NMS_GLOBAL_MAX_BOXES + 1, 3), device=cuda)
+    with pytest.raises(ValueError, match=f"at most {NMS_GLOBAL_MAX_BOXES}"):
+        nms_boxes(huge, huge, huge[..., 0].contiguous(), None, None, "3d", False, 0.25)
     with pytest.raises(ValueError, match="cluster"):
         nms_boxes(mins, maxs, scores, None, None, "3d", False, 0.25, cluster=3)
     with pytest.raises(TypeError):
@@ -791,6 +804,43 @@ def test_nms_kernel_refuses_bad_input(cuda):
     # int32 classes are widened to int64 for the kernel
     assert torch.equal(nms_boxes(mins, maxs, scores, cls.int(), None, "3d_cls", False, 0.25),
                        nms_boxes(mins, maxs, scores, cls, None, "3d_cls", False, 0.25))
+
+
+@pytest.mark.parametrize("mode", ["2d", "3d", "3d_cls", "matrix"])
+@pytest.mark.parametrize("case", sorted(NMS_LARGE))
+def test_nms_kernel_global_path_matches_plain(cuda, case, mode):
+    """Past the cluster path's 1,024 boxes (K 1,025 to 4,096): the global
+    matrix's keep masks equal the plain version's on the card, one launch
+    a call."""
+    raw = NMS_LARGE[case]()
+    t = _nms_on(cuda, raw)
+    if mode == "matrix":
+        iou = nms_box_overlaps(t["mins"], t["maxs"], None, "3d", False).float().contiguous()
+        args, kernel = (iou, t["scores"], raw["thresh"], t["valid"]), nms_masked
+        want = nms_masked_plain(*args)
+    else:
+        args = (t["mins"], t["maxs"], t["scores"], t["cls"] if mode == "3d_cls" else None,
+                t["valid"], mode, False, raw["thresh"])
+        kernel, want = nms_boxes, nms_boxes_plain(*args)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == torch.bool and torch.equal(got, want)
+
+
+def test_nms_kernel_either_side_of_the_global_switch(cuda):
+    """K = 1,024 (the cluster path) and 1,025, 1,088 and 1,089 (the global
+    path, whole and ragged last words), 9 scenes, every mode."""
+    for k in (NMS_MAX_BOXES, NMS_MAX_BOXES + 1, NMS_MAX_BOXES + 64, NMS_MAX_BOXES + 65):
+        raw = nms_clustered(k, 9, k, 18)
+        t = _nms_on(cuda, raw)
+        for mode in ("2d", "3d", "3d_cls"):
+            args = (t["mins"], t["maxs"], t["scores"], t["cls"], None, mode, False, 0.25)
+            assert torch.equal(nms_boxes(*args), nms_boxes_plain(*args)), (k, mode)
+        iou = nms_box_overlaps(t["mins"], t["maxs"], None, "3d", False).float().contiguous()
+        assert torch.equal(nms_masked(iou, t["scores"], 0.25),
+                           nms_masked_plain(iou, t["scores"], 0.25)), k
 
 
 def test_parse_predictions_on_the_card_picks_what_the_numpy_parse_picks(cuda):
@@ -898,3 +948,99 @@ def test_bitcast_gather_backward_within_one_bf16_ulp(cuda, b, n, m, ns):
     got, want = grads
     ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
     assert ((got - want).abs() <= ulp).all()
+
+
+# ------------------------------------------------------------ three_interpolate
+
+def _interp_case(rng, b, m, n, c, device):
+    f = torch.from_numpy(rng.randn(b, m, c).astype(np.float32)).to(device)
+    idx = rng.randint(0, m, (b, n, 3)).astype(np.int32)
+    idx[:, ::3, 1] = idx[:, ::3, 0]  # a row twice in a query
+    idx[:, 1::5] = idx[:, :1]  # one triple shared by many queries
+    idx[:, 2::7, 0] = -3  # clamped to 0
+    idx[:, 3::11, 2] = m + 4  # clamped to m - 1
+    w = rng.uniform(0.01, 1.0, (b, n, 3)).astype(np.float32)
+    w[:, ::4, 2] = 0.0
+    w[:, 5::9, :] = 0.0  # every product zero, some -0
+    return f, torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
+
+
+@pytest.mark.parametrize("b,m,n,c", [(8, 256, 512, 256), (8, 512, 1024, 256), (12, 256, 512, 256),
+                                     (12, 512, 1024, 256), (3, 1, 77, 256), (2, 9, 50, 5),
+                                     (2, 33, 70, 3), (1, 40, 1, 4)])
+def test_three_interpolate_kernel_matches_plain(cuda, b, m, n, c):
+    """FP1's and FP2's shapes at 8 and 12 scenes, one known row, channels that
+    take single floats: bit for bit the plain version (the sign of zeros
+    included), one launch; the backward within 1e-5 x the sum of |g w|
+    added into each element of an f64 sum."""
+    rng = np.random.RandomState(b * m + c)
+    f, idx, w = _interp_case(rng, b, m, n, c, cuda)
+    before = three_interpolate.launches
+    got = three_interpolate(f, idx, w)
+    torch.cuda.synchronize()
+    assert three_interpolate.launches == before + 1
+    want = three_interpolate_plain(f, idx, w)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    g = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(cuda)
+    torch.full((b, m, c), float("nan"), device=cuda)  # the allocator's next block, not zeroed
+    before = three_interpolate_backward.launches
+    grad = three_interpolate_backward(g, idx, w, m)
+    torch.cuda.synchronize()
+    assert three_interpolate_backward.launches == before + 1
+    ref = three_interpolate_backward_plain(g.double(), idx, w.double(), m)
+    mag = three_interpolate_backward_plain(g.double().abs(), idx, w.double().abs(), m)
+    assert ((grad.double() - ref).abs() <= 1e-5 * mag).all()
+
+
+def test_three_interpolate_kernel_off_alignment(cuda):
+    """A contiguous table that starts 4 bytes past 16-byte alignment takes
+    single floats; equal all the same."""
+    rng = np.random.RandomState(3)
+    flat = torch.from_numpy(rng.randn(1 + 2 * 64 * 256).astype(np.float32)).to(cuda)
+    f = flat[1:].view(2, 64, 256)
+    assert f.is_contiguous() and f.data_ptr() % 16
+    _, idx, w = _interp_case(rng, 2, 64, 128, 256, cuda)
+    assert torch.equal(three_interpolate(f, idx, w), three_interpolate_plain(f, idx, w))
+
+
+def test_three_interpolate_gradient_on_the_card(cuda):
+    """Through the autograd Function at FP2's shape: the forward kernel, then
+    the backward kernel, each once; the features' gradient against the
+    plain f64 backward; no gradient for the weights."""
+    rng = np.random.RandomState(8)
+    f, idx, w = _interp_case(rng, 8, 512, 1024, 256, cuda)
+    f.requires_grad_()
+    w.requires_grad_()
+    g = torch.randn(8, 1024, 256, device=cuda)
+    counts = (three_interpolate.launches, three_interpolate_backward.launches)
+    got_f, got_w = torch.autograd.grad(three_interpolate(f, idx, w), (f, w), g, allow_unused=True)
+    assert (three_interpolate.launches, three_interpolate_backward.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert got_w is None
+    ref = three_interpolate_backward_plain(g.double(), idx, w.detach().double(), 512)
+    mag = three_interpolate_backward_plain(g.double().abs(), idx, w.detach().double(), 512)
+    assert ((got_f.double() - ref).abs() <= 1e-5 * mag).all()
+
+
+def test_three_interpolate_kernel_refuses_bad_input(cuda):
+    """Other dtypes and devices, by name: the features are f32 on every path
+    (FP's interpolation stays f32 under bf16); nothing falls back."""
+    rng = np.random.RandomState(4)
+    f, idx, w = _interp_case(rng, 2, 16, 20, 8, cuda)
+    for bad in (f.double(), f.to(torch.bfloat16), f.half()):
+        with pytest.raises(TypeError, match="f32 features"):
+            three_interpolate(bad, idx, w)
+    with pytest.raises(TypeError):
+        three_interpolate(f, idx.long(), w)
+    with pytest.raises(TypeError):
+        three_interpolate(f, idx, w.double())
+    with pytest.raises(ValueError):
+        three_interpolate(f, idx.cpu(), w)
+    with pytest.raises(ValueError):
+        three_interpolate(f.transpose(1, 2).contiguous().transpose(1, 2), idx, w)
+    with pytest.raises(ValueError):
+        three_interpolate(f, idx[..., :2].contiguous(), w[..., :2].contiguous())
+    with pytest.raises(ValueError):
+        three_interpolate_backward(torch.randn(2, 21, 8, device=cuda), idx, w, 16)
+    with pytest.raises(TypeError):
+        three_interpolate_backward(torch.randn(2, 20, 8, device=cuda).double(), idx, w, 16)

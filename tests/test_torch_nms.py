@@ -18,22 +18,29 @@ kernel against the plain version, on the CPU.
   without dividing, the leader's scan a 64-position word at a time with the
   all -inf rule of matrix mode), equals the plain version bit for bit at
   every cluster size ``nms_plan`` can pick; ``nms_plan`` keeps its rules.
-- Every K runs on the CPU: K from 257 to 1,025 gives the JAX package's picks.
+  Past MAX_BOXES it models the global-matrix path: the order of all K
+  keys, the 64 x 64 tiles on and above the diagonal below nv (rows past nv
+  zero), the scan a word at a time with each later word ORing its
+  winners' rows, on ``nms_cases.LARGE`` (K = 1,025 to 4,096).
+- Every K runs on the CPU: K from 257 to 4,096 gives the JAX package's
+  picks (``LARGE`` in each box mode against its NumPy NMS, and matrix mode
+  against ``_nms_jax``).
 - The port's NumPy ``lhs_3d_faster_samecls``, ``nms_2d`` and
   ``nms_crnr_dist`` equal the JAX package's.
 """
 import numpy as np
 import pytest
 import torch
-from nms_cases import CASES, has_ties
+from nms_cases import CASES, LARGE, has_ties
 from nms_cases import clustered as nms_clustered
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from iou3dmatch_tpu_torch.geometry import nms as pnms  # noqa: E402
-from iou3dmatch_tpu_torch.ops.nms import (MAX_BOXES, MIN_ROWS, MODE_IDS, NMS_CLUSTERS,  # noqa: E402
-                                          nms_boxes, nms_masked, nms_plan)
+from iou3dmatch_tpu_torch.ops.nms import (GLOBAL_MAX_BOXES, MAX_BOXES, MIN_ROWS,  # noqa: E402
+                                          MODE_IDS, NMS_CLUSTERS, SMEM_MAX, nms_boxes,
+                                          nms_masked, nms_plan)
 
 MODES = ("2d", "3d", "3d_cls")
 
@@ -184,22 +191,28 @@ def order_key(s: np.ndarray, low: np.ndarray) -> np.ndarray:
 NEG_INF_HIGH = 0x007FFFFF  # order_key's high word of -inf
 
 
-def _overlap_rows(lo, hi, area, label, gated, dtype, old_type, thresh):
+def _overlap_rows(lo, hi, area, label, gated, dtype, old_type, thresh, chunk=512):
     """(n, n) bool by position: whether row r suppresses column c, each
     overlap in the kernel's order of operations and ``dtype``, times the
     class gate where ``gated``; a zero intersection is tested without
-    dividing."""
+    dividing. ``chunk`` rows at a time, to bound the temporaries."""
+    out = np.zeros((lo.shape[0], lo.shape[0]), bool)
     with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
-        side = np.maximum(dtype(0), np.minimum(hi[:, None], hi[None]) - np.maximum(lo[:, None], lo[None]))
-        inter = side[..., 0] * side[..., 1]
-        if side.shape[-1] == 3:
-            inter = inter * side[..., 2]
-        den = np.broadcast_to(area[None], inter.shape) if old_type else (area[:, None] + area[None]) - inter
-        o = inter / den
-        if gated:
-            o = o * (label[:, None] == label[None]).astype(dtype)
-        return np.where(inter == 0, (den != 0) & (den == den) & (dtype(0) > dtype(thresh)),
-                        o > dtype(thresh))
+        for r0 in range(0, lo.shape[0], chunk):
+            r = slice(r0, r0 + chunk)
+            side = np.maximum(dtype(0), np.minimum(hi[r, None], hi[None])
+                              - np.maximum(lo[r, None], lo[None]))
+            inter = side[..., 0] * side[..., 1]
+            if side.shape[-1] == 3:
+                inter = inter * side[..., 2]
+            den = (np.broadcast_to(area[None], inter.shape) if old_type
+                   else (area[r, None] + area[None]) - inter)
+            o = inter / den
+            if gated:
+                o = o * (label[r, None] == label[None]).astype(dtype)
+            out[r] = np.where(inter == 0, (den != 0) & (den == den) & (dtype(0) > dtype(thresh)),
+                              o > dtype(thresh))
+    return out
 
 
 def _words(bits: np.ndarray, words: int) -> list:
@@ -232,6 +245,13 @@ def kernel_model(case, mode, old_type):
       cut at the first winner scoring -inf other than the first valid box,
       which wins.
 
+    Past MAX_BOXES, the global-matrix path: the order over all K keys (no
+    cluster shares); the tiles (row word, column word) on and above the
+    diagonal and below nv write every row of their words, rows past nv as
+    zeros (the other words hold random bits, which must change nothing);
+    the scan decides each word's winners from its diagonal words, then a
+    warp for each later word ORs the winners' rows into it.
+
     Returns (keep (B, K) bool, overlaps computed, overlaps skipped)."""
     scores, thresh = case["scores"], case["thresh"]
     b, k = scores.shape
@@ -240,6 +260,7 @@ def kernel_model(case, mode, old_type):
     matrix = mode == "matrix"
     iou = _iou_3d(case).numpy() if matrix else None
     skip = mode == "3d_cls" and not thresh < 0
+    glob = k > MAX_BOXES
     words = -(-k // 64)
     computed = skipped = 0
     for s in range(b):
@@ -248,7 +269,7 @@ def kernel_model(case, mode, old_type):
         label = case["cls"][s]
         n = int((key != 0).sum())
         pos_of = np.where(key != 0, (key[None, :] > key[:, None]).sum(1), -1)
-        for cluster in NMS_CLUSTERS:  # each block's share of the order covers every box once
+        for cluster in () if glob else NMS_CLUSTERS:  # each block's share covers every box once
             share = k if k <= LOCAL_ORDER else -(-k // cluster)
             owners = [list(range(r * share, min(k, (r + 1) * share)))
                       for r in range(cluster if share < k else 1)]
@@ -274,14 +295,15 @@ def kernel_model(case, mode, old_type):
         computed += int(cand.sum())
         skipped += int((later & ~cand).sum())
         # the words of the leader's matrix the kernel writes: row q's from
-        # q // 64 on. Every other word keeps whatever the memory held: here,
-        # random bits, which must change nothing
+        # q // 64 on (the global path's tiles: every row of their words,
+        # rows past n zero). Every other word keeps whatever the memory
+        # held: here, random bits, which must change nothing
         words_n = -(-n // 64)
         halves = np.random.RandomState(s).randint(0, 2 ** 32, (64 * words, 2 * words), dtype=np.uint64)
         if n:
-            exact = np.packbits(np.pad(rows, ((0, 0), (0, 64 * words - n))), axis=1,
+            exact = np.packbits(np.pad(rows, ((0, 64 * words - n), (0, 64 * words - n))), axis=1,
                                 bitorder="little").view("<u4").astype(np.uint64)
-            for q in range(n):
+            for q in range(64 * words_n if glob else n):
                 halves[q, 2 * (q // 64):2 * words_n] = exact[q, 2 * (q // 64):2 * words_n]
         mat = [[int(halves[q, 2 * v]) | int(halves[q, 2 * v + 1]) << 32 for v in range(words)]
                for q in range(64 * words)]
@@ -289,7 +311,7 @@ def kernel_model(case, mode, old_type):
         first = np.flatnonzero(valid[s])
         pf = int(pos_of[first[0]]) if first.size else 0
         wide = 2 if wn <= 2 else 4 if wn <= 4 else 8 if wn <= 8 else 16  # the kernel's S
-        removed, won = [0] * 16, [0] * wn
+        removed, won = [0] * max(16, wn), [0] * wn
         for w in range(wn):
             mine, rem = 0, removed[w]
             for bit_at in range(min(64, n - 64 * w)):  # lane w, the diagonal block
@@ -298,6 +320,13 @@ def kernel_model(case, mode, old_type):
                     rem |= mat[q][w]
                     mine |= bit
             removed[w] = rem
+            if glob:  # a warp a later word: the OR of the winners' rows
+                for v in range(w + 1, wn):
+                    for b in range(64):
+                        if mine >> b & 1:
+                            removed[v] |= mat[64 * w + b][v]
+                won[w] = mine
+                continue
             share = 64 * wide // 32  # lanes l with l % wide == v split the winners
             for v in range(w + 1, wn):
                 parts = [0] * (32 // wide)
@@ -341,6 +370,53 @@ def test_kernel_model_matches_plain(name, mode, old_type):
         assert skipped > 0
 
 
+@pytest.mark.parametrize("mode", MODES + ("matrix",))
+@pytest.mark.parametrize("name", sorted(LARGE))
+def test_large_k_plain_matches_jax(name, mode, monkeypatch):
+    """Past the cluster path (K = 1,025 to 4,096): the plain versions pick
+    what the JAX package's NumPy NMS (each box mode, as parse_predictions
+    applies it) and ``_nms_jax`` (matrix mode) pick, and the wrappers take
+    the plain versions on the CPU."""
+    case = LARGE[name]()
+    if mode == "matrix":
+        iou = _iou_3d(case)
+        got = pnms.nms_masked_plain(iou, _t(case["scores"]), case["thresh"], _t(case["valid"]))
+        want = _jax_masked(iou.numpy(), case["scores"], case["valid"], case["thresh"])
+        wrapped = nms_masked(iou, _t(case["scores"]), case["thresh"], _t(case["valid"]))
+    else:
+        got = _plain_boxes(case, mode, False)
+        with monkeypatch.context() as m:
+            if has_ties(case):
+                _stable_argsort(m)
+            want = _jax_numpy_keep(case, mode, False)
+        wrapped = nms_boxes(_t(case["mins"]), _t(case["maxs"]), _t(case["scores"]),
+                            _t(case["cls"]), _t(case["valid"]), mode, False, case["thresh"])
+    np.testing.assert_array_equal(np.asarray(got), want)
+    np.testing.assert_array_equal(wrapped.numpy(), want)
+
+
+@pytest.mark.parametrize("mode,old_type", [("2d", False), ("3d", True), ("3d_cls", False),
+                                           ("3d_cls", True), ("matrix", False)])
+@pytest.mark.parametrize("name", sorted(LARGE))
+def test_kernel_model_global_path_matches_plain(name, mode, old_type):
+    """The model of the global-matrix path equals the plain version bit for
+    bit past MAX_BOXES; the class skip computes only same-class pairs."""
+    case = LARGE[name]()
+    assert case["scores"].shape[1] > MAX_BOXES
+    if mode == "matrix":
+        want = pnms.nms_masked_plain(_iou_3d(case), _t(case["scores"]), case["thresh"],
+                                     _t(case["valid"])).numpy()
+    else:
+        want = _plain_boxes(case, mode, old_type)
+    got, computed, skipped = kernel_model(case, mode, old_type)
+    np.testing.assert_array_equal(got, want)
+    assert computed > 0
+    if mode == "3d_cls" and case["thresh"] >= 0 and len(np.unique(case["cls"])) > 1:
+        assert skipped > 0
+    else:
+        assert skipped == 0
+
+
 def test_nms_plan():
     """Clusters fill the SMs at serving's 8 scenes, a block holds at least
     MIN_ROWS rows, clusters the card cannot hold at once are not taken, and
@@ -368,6 +444,12 @@ def test_kernel_source_matches_wrapper():
     src = (Path(pnms.__file__).parents[1] / "csrc" / "nms.cu").read_text()
     assert f"constexpr int kMaxBoxes = {MAX_BOXES};" in src
     assert f"constexpr int kMaxCluster = {max(NMS_CLUSTERS)};" in src
+    # the global path: its entries, and the shared memory that bounds its K
+    assert f"constexpr int kSmemMax = {SMEM_MAX};" in src
+    assert "return 8 + 64 * 8 + 3LL * words * 8;" in src  # rounds_smem, as GLOBAL_MAX_BOXES counts
+    assert GLOBAL_MAX_BOXES % 64 == 0 and (GLOBAL_MAX_BOXES // 64) ** 2 < 2 ** 31
+    for entry in ("nms_boxes_global_launch", "nms_matrix_global_launch"):
+        assert f'extern "C" int {entry}(' in src
     for mode, i in MODE_IDS.items():
         name = {"2d": "k2D", "3d": "k3D", "3d_cls": "k3DCls", "matrix": "kMatrix"}[mode]
         assert f"{name} = {i}" in src
@@ -407,7 +489,8 @@ def test_wrappers_refuse_bad_input():
     with pytest.raises(ValueError, match="3d_cls needs cls"):
         nms_boxes(*args[:3], None, None, "3d_cls", False, 0.25)
     # the CPU takes any K, as the JAX package does: past the card's old 256
-    # and at MAX_BOXES + 1, the plain versions pick what the JAX package picks
+    # and at MAX_BOXES + 1, the plain versions pick what the JAX package
+    # picks (to 4,096: test_large_k_plain_matches_jax)
     for name in ("clustered_k257", "k1025"):
         case = CASES["clustered_k257"]() if name == "clustered_k257" else nms_clustered(22, 1, MAX_BOXES + 1, 18)
         got = nms_boxes(*(_t(case[k]) for k in ("mins", "maxs", "scores", "cls")), None, "3d_cls",
