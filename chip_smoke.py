@@ -17,8 +17,12 @@ reported on its own line; a failed check raises and the exit code is not 0:
    clustered boxes (with the cycles of each step, ``lhs_phases``),
    three_nn at GridConv's grids of serving, the pretrain step and the SSL
    step and at FP1 and FP2 of 8 and 12 scenes, three_interpolate's forward
-   (bit for bit) and backward (the gather backward's f64 gate) at FP1 and
-   FP2 of 8 and 12 scenes, greedy NMS at serving's
+   with FP's skip features and without (bit for bit; ``embedding_bag``
+   beside the latter) and backward on FP's strided cotangent (bit for bit
+   the plain version on the CPU, the same over two runs, and the f64 gate)
+   at FP1 and FP2 of 8 and 12 scenes, FP1 and FP2 profiled for a
+   concatenation or copy (``fp_no_copy``, there must be none), greedy NMS
+   at serving's
    (8, 128) class-aware boxes in float64 (off every path: its float32 3D
    and 2D branches, tied scores, K = 256, 512 and 1,024 and matrix mode on
    a rotated BEV IoU, each with its planned cluster size and its cycles a
@@ -38,13 +42,14 @@ reported on its own line; a failed check raises and the exit code is not 0:
    the main path,
    with CUDA-event timings of kernel, plain version and library call, the
    launch floor (a one-element ``zero_()`` timed the same way), and the
-   launch plans of FPS, the ball query, the gather's backward and
-   three_nn; FPS, the
-   ball query, the gather, LHS, three_nn, three_interpolate and NMS must be
-   exactly equal, the gather's backward and three_interpolate's within
-   1e-5 x the sum of |g| (|g w|) of each element of an f64 sum, the IoU
-   within atol 1e-5; it fails if a planned FPS variant spills, or three_nn,
-   LHS, NMS, three_interpolate or the gather backward's sum kernel spills;
+   launch plans of FPS, the ball query, the gather's backward, three_nn
+   and three_interpolate's backward; FPS, the
+   ball query, the gather, LHS, three_nn, three_interpolate (both ways)
+   and NMS must be exactly equal, the gather's backward within 1e-5 x the
+   sum of |g| of each element of an f64 sum, the IoU within atol 1e-5; it
+   fails if a planned FPS variant spills, or three_nn, LHS, NMS,
+   three_interpolate (forward or backward) or the gather backward's sum
+   kernel spills;
 4. the whole forward on the card against the CPU on one 40,000-point scene,
    for the default model, two built with the samplings the drivers'
    ``--cluster_sampling`` reaches (FORWARD_KNOBS: vote_fps; random at given
@@ -237,7 +242,8 @@ of its seven shapes; ``--nn-counts`` three_nn's counters (a build with
 cycles staging, scanning, merging and writing, means a warp) at its seven
 shapes, with the planned launch and with a thread a query (S = Q = 1);
 ``--nms-sweep`` NMS at every cluster size of NMS_CLUSTERS at each of its
-rows.
+rows; ``--ibwd-sweep`` three_interpolate's backward at every (ranges,
+slices) of IBWD_SWEEP at each of its shapes.
 
 The model is the full-width ScanNet VoteNet (128 proposals, height channel,
 SA 2048/1024/512/256) with random weights from a fixed seed. Scenes are
@@ -308,7 +314,9 @@ from iou3dmatch_tpu_torch.ops.ball_query import (BallQueryLaunch, GatherBwdLaunc
 from iou3dmatch_tpu_torch.ops.fps import (fps_plan, fps_variant, furthest_point_sample,
                                           furthest_point_sample_plain)
 from iou3dmatch_tpu_torch.ops import interpolate as interpolate_mod
-from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, NnLaunch, three_interpolate,
+from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, InterpBwdLaunch, NnLaunch,
+                                                  check_interp_bwd_launch, interp_bwd_plan,
+                                                  three_interpolate,
                                                   three_interpolate_backward,
                                                   three_interpolate_backward_plain,
                                                   three_interpolate_plain, three_nn, three_nn_plain,
@@ -412,13 +420,15 @@ REPLACES = {
     "three_interpolate_bwd": "iou3dmatch_tpu/ops/interpolate.py:137",
 }
 # the source of a kernel named otherwise: three_interpolate's backward is
-# csrc/gather_bwd.cu's weighted sum
-KERNEL_SOURCES = {"three_interpolate_bwd": "gather_bwd"}
-# three_interpolate's forward has no single PyTorch call: the plain version
-# is an index gather, a product and a sum (three calls and a (B, n, 3, C)
-# intermediate)
-INTERP_NO_LIBRARY = ("no single PyTorch call computes a weighted sum of three gathered rows: "
-                     "the plain version is an index gather, a product and a sum")
+# csrc/three_interpolate.cu's backward kernel
+KERNEL_SOURCES = {"three_interpolate_bwd": "three_interpolate"}
+# three_interpolate's forward is one embedding_bag over the flattened table
+# with per-sample weights (its library_ms); FP's fused forward, which also
+# writes the skip features after the interpolated ones, takes two calls
+INTERP_FUSED_NO_LIBRARY = ("no single PyTorch call writes [interpolated | skip]: "
+                           "embedding_bag, then cat")
+# the backward's (ranges, slices) that --ibwd-sweep times at each of its shapes
+IBWD_SWEEP = [(r, s) for r in (4, 8, 11, 12, 16, 17, 22, 33) for s in (1, 2, 4)]
 # three_interpolate's operations: a product a neighbour and a channel, and
 # three sums from the identity (forward); a product and a sum a slot and a
 # channel (backward)
@@ -435,8 +445,10 @@ NO_SPILL = {"three_nn": tuple(f"three_nn_kernelILi{s}ELi{q}EE" for s, q in NN_LA
             "nms": tuple(f"nms_kernelILi{mode}EE" for mode in range(4))
             + ("nms_order_kernel",) + tuple(f"nms_tile_kernelILi{mode}EE" for mode in range(4))
             + ("nms_rounds_kernelILb0EE", "nms_rounds_kernelILb1EE"),
-            "three_interpolate": ("three_interpolate_kernelILi1EE", "three_interpolate_kernelILi4EE"),
-            "gather_bwd": ("gather_bwd_sum_kernelILb0EE", "gather_bwd_sum_kernelILb1EE")}
+            "three_interpolate": tuple(f"three_interpolate_kernelILi{v}ELb{k}EE"
+                                       for v in (1, 4) for k in (0, 1))
+            + ("three_interpolate_bwd_kernelILi1EE", "three_interpolate_bwd_kernelILi4EE"),
+            "gather_bwd": ("gather_bwd_sum_kernel",)}
 NN_COUNTS = ("warps", "group_steps", "insert_steps", "stage_cycles", "scan_cycles",
              "merge_cycles", "write_cycles")  # csrc/three_nn.cu nn_counts
 SSL_NL, SSL_NU = 4, 8  # run_train.sh: 4 labeled + 8 unlabeled scenes a step
@@ -684,7 +696,8 @@ def launch_floor_ms() -> float:
 
 def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool = False,
                   gbwd_sweep_on: bool = False, nn_sweep_on: bool = False,
-                  nn_counts_on: bool = False, nms_sweep_on: bool = False) -> dict:
+                  nn_counts_on: bool = False, nms_sweep_on: bool = False,
+                  ibwd_sweep_on: bool = False) -> dict:
     pc = torch.from_numpy(make_scenes(1, B, N)).to(dev)
     rows = {}
     floor = launch_floor_ms()
@@ -908,7 +921,8 @@ def phase_kernels(dev, ops_per_s, fps_sweep_on: bool = False, bq_sweep_on: bool 
     # ctr: SA1's centers of the SSL step's 12 clouds
     three_nn_rows(ops_per_s, rows, sa1_xyz, ctr, floor, nn_sweep_on, nn_counts_on,
                   votes.contiguous())
-    three_interpolate_rows(ops_per_s, rows, sa1_xyz, ctr)
+    three_interpolate_rows(ops_per_s, rows, sa1_xyz, ctr, ibwd_sweep_on)
+    fp_no_copy(sa1_xyz)
     return rows
 
 
@@ -1034,23 +1048,36 @@ def three_nn_rows(ops_per_s, rows, sa1_8, sa1_12, floor: float, sweep_on: bool =
             votes, main=False)
 
 
-def three_interpolate_rows(ops_per_s, rows, sa1_8, sa1_12):
+def three_interpolate_rows(ops_per_s, rows, sa1_8, sa1_12, sweep_on: bool = False):
     """three_interpolate's forward and backward at FP1 ((B, 256, 256) onto
     512 queries) and FP2 ((B, 512, 256) onto 1,024) of B and SSL_B scenes,
     the queries and known points the FPS-ordered prefixes of SA1's centres
     as SA2-SA4 give them, the indices and weights FP's (three_nn, inverse
-    distances normalised), the features and the cotangent N(0, 1). The
-    forward is held to the plain version bit for bit (the sign of zeros
-    included); the backward, and the plain backward, within 1e-5 x (the sum
-    of |g w| added into each element) of an f64 sum, the gather backward's
-    gate. Bounds count the rows the indices name, the indices, the weights
-    and the output once (forward), and the cotangent, the indices, the
-    weights and the output once (backward). library_ms: the backward's
-    ``index_add_`` of the precomputed g w rows; the forward's is None
-    (INTERP_NO_LIBRARY)."""
+    distances normalised), the features, the skip features and the
+    cotangent N(0, 1). The forward, as FP runs it, writes [interpolated |
+    skip] (256 + 256 channels); without the skip (off the path, the
+    function JAX's three_interpolate computes) it is timed beside
+    ``embedding_bag``. Both are
+    held to the plain version bit for bit (the sign of zeros included). The
+    backward reads the interpolated columns of a (B, n, 512) cotangent in
+    place, as FP's gradient gives them, and is held bit for bit to the plain
+    version run on the CPU on the same inputs, to itself over a second run,
+    and, as the plain version on the card, within 1e-5 x (the sum of |g w|
+    added into each element) of an f64 sum. Bounds count the rows the
+    indices name, the indices, the weights, the skip rows and the output
+    once (forward), and the cotangent's columns, the indices, the weights
+    and the output once (backward). library_ms: the forward's
+    ``embedding_bag`` over the flattened table with per-sample weights, the
+    fused forward's null (INTERP_FUSED_NO_LIBRARY), the backward's
+    ``index_add_`` of the precomputed g w rows. Beside them, what FP ran
+    without the fusion: the forward without skip then ``torch.cat``
+    (``unfused_ms``), and ``g.contiguous()`` before the backward
+    (``contiguous_ms``). With ``sweep_on``, the backward at every launch of
+    IBWD_SWEEP the kernel takes."""
     dev = sa1_8.device
     gen = torch.Generator(device=dev).manual_seed(17)
     c = 256
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for pts in (sa1_8, sa1_12):
         b = pts.shape[0]
         for name, n, m in (("fp1", 512, 256), ("fp2", 1024, 512)):
@@ -1059,42 +1086,133 @@ def three_interpolate_rows(ops_per_s, rows, sa1_8, sa1_12):
             recip = 1.0 / (dist + 1e-8)
             w = (recip / recip.sum(dim=2, keepdim=True)).contiguous()
             f = torch.randn((b, m, c), generator=gen, device=dev)
+            skip = torch.randn((b, n, c), generator=gen, device=dev)
             rows_read = sum(int(torch.unique(idx[i].long()).numel()) for i in range(b))
+            bits = lambda got, want: torch.equal(got.view(torch.int32), want.view(torch.int32))  # noqa: E731
+            flat = (idx.long() + m * torch.arange(b, device=dev)[:, None, None]).reshape(-1, 3)
+            table, per_sample = f.view(-1, c), w.view(-1, 3)
+            bag = lambda *_: F.embedding_bag(flat, table, per_sample_weights=per_sample,  # noqa: E731
+                                             mode="sum")
             nbytes = rows_read * c * 4 + 2 * b * n * 3 * 4 + b * n * c * 4
             _, r = check_kernel(
                 "three_interpolate", f"{name} ({b},{m},{c})->({b},{n},{c})", three_interpolate,
-                three_interpolate_plain, None, (f, idx, w), nbytes,
-                lambda _: b * n * c * INTERP_OPS, ops_per_s, 10,
-                agree=lambda got, want: torch.equal(got.view(torch.int32), want.view(torch.int32)))
-            r["library_null"] = INTERP_NO_LIBRARY
+                three_interpolate_plain, bag, (f, idx, w), nbytes,
+                lambda _: b * n * c * INTERP_OPS, ops_per_s, 10, main=False, agree=bits)
+            r["library"] = "embedding_bag(mode='sum', per_sample_weights=w)"
+            r["library_err"] = max_err(bag().view(b, n, c), three_interpolate_plain(f, idx, w))
+            rows.setdefault("three_interpolate", []).append(r)
+            nbytes += b * n * c * 4 * 2  # the skip rows read, and written after the interpolation
+            _, r = check_kernel(
+                "three_interpolate", f"{name} +skip ({b},{m},{c})+({b},{n},{c})->({b},{n},{2 * c})",
+                three_interpolate, three_interpolate_plain, None, (f, idx, w, skip), nbytes,
+                lambda _: b * n * c * INTERP_OPS, ops_per_s, 10, agree=bits)
+            r["library_null"] = INTERP_FUSED_NO_LIBRARY
+            # what FP ran before the kernel wrote the skip: the interpolation, then a cat
+            r["unfused_ms"] = cuda_ms(lambda: torch.cat([three_interpolate(f, idx, w), skip], -1), 10)
             rows.setdefault("three_interpolate", []).append(r)
 
-            g = torch.randn((b, n, c), generator=gen, device=dev)
-            flat = (idx.long() + m * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
+            g = torch.randn((b, n, 2 * c), generator=gen, device=dev)[..., :c]  # FP's cotangent
+            cpu = three_interpolate_backward_plain(g.cpu(), idx.cpu(), w.cpu(), m)
             gw = (g[:, :, None, :] * w[..., None]).reshape(-1, c)
             ref = torch.zeros(b * m, c, dtype=torch.float64, device=dev).index_add_(
-                0, flat, gw.double())
+                0, flat.reshape(-1), gw.double())
             mag = torch.zeros(b * m, c, dtype=torch.float64, device=dev).index_add_(
-                0, flat, gw.double().abs())
+                0, flat.reshape(-1), gw.double().abs())
             errs = []
 
-            def agree(got, want):
+            def agree(got, want, launch=None):
                 offs = [(t.double().reshape(b * m, c) - ref).abs() for t in (got, want)]
                 errs.extend(float(o.max()) for o in offs)
-                return all(bool((o <= 1e-5 * mag).all()) for o in offs)
+                again = three_interpolate_backward(g, idx, w, m, launch)
+                return (bits(got.cpu(), cpu) and bits(again, got)
+                        and all(bool((o <= 1e-5 * mag).all()) for o in offs))
 
             out = torch.zeros(b * m, c, device=dev)
-            library = lambda *_: out.zero_().index_add_(0, flat, gw)  # noqa: E731
+            library = lambda *_: out.zero_().index_add_(0, flat.reshape(-1), gw)  # noqa: E731
             nbytes = (b * n * c + 2 * b * n * 3 + b * m * c) * 4
-            _, r = check_kernel(
-                "three_interpolate_bwd", f"{name} ({b},{n},{c})->({b},{m},{c})",
-                three_interpolate_backward, three_interpolate_backward_plain, library,
-                (g, idx, w, m), nbytes, lambda _: b * n * 3 * c * INTERP_BWD_OPS, ops_per_s, 10,
-                agree=agree)
+            label = f"{name} ({b},{n},{c})->({b},{m},{c})"
+            got, r = check_kernel(
+                "three_interpolate_bwd", label, three_interpolate_backward,
+                three_interpolate_backward_plain, library, (g, idx, w, m), nbytes,
+                lambda _: b * n * 3 * c * INTERP_BWD_OPS, ops_per_s, 10, agree=agree)
             r["max_abs_err_f64"] = {"kernel": errs[0], "plain": errs[1]}
-            r["plan"] = list(gather_bwd_plan(
-                b, 3 * n, m, c, torch.cuda.get_device_properties(dev).multi_processor_count))
+            r["bit_for_bit_cpu"] = r["repeatable"] = True  # agree held both
+            r["g_strides"] = list(g.stride())
+            r["contiguous_ms"] = cuda_ms(lambda: g.contiguous(), 10)  # the copy it reads g without
+            r["plan"] = list(interp_bwd_plan(b, n, m, c, n_sm))
+            r["blocks"] = InterpBwdLaunch(*r["plan"]).blocks(b)
             rows.setdefault("three_interpolate_bwd", []).append(r)
+            if sweep_on:
+                ibwd_sweep(label, (g, idx, w, m), lambda t, launch: agree(t, got, launch))
+
+
+def ibwd_sweep(label, args, agree):
+    """The backward at every (ranges, slices) of IBWD_SWEEP the kernel takes
+    at this shape, each held to the CPU plain version bit for bit and to a
+    second run; times only, nothing counted."""
+    g, _, _, m = args
+    b, c = g.shape[0], g.shape[2]
+    rows = []
+    for launch in map(InterpBwdLaunch._make, IBWD_SWEEP):
+        try:
+            check_interp_bwd_launch(launch, m, c)
+        except ValueError:  # a launch the kernel does not take at this shape
+            continue
+        ok = bool(agree(three_interpolate_backward(*args, launch), launch))
+        ms = cuda_ms(lambda: three_interpolate_backward(*args, launch), 10, 5)
+        rows.append({"plan": list(launch), "blocks": launch.blocks(b), "ok": ok, "ms": ms})
+        if not ok:
+            raise AssertionError(f"three_interpolate backward at {label} with {launch} differs")
+    say(phase="ibwd_sweep", shape=label, rows=rows)
+
+
+def fp_no_copy(sa1_8):
+    """FP1 and FP2 as the backbone runs them (train mode, 8 scenes, the
+    known points and queries prefixes of SA1's centres, 256 + 256 channels)
+    forward and backward under torch.profiler: no ``aten::cat`` nor copy
+    (``aten::copy_``, ``aten::clone``), and no concatenation or copy kernel
+    (``CatArrayBatchedCopy``, ``direct_copy_kernel``) on the card; the
+    interpolation's kernels once each. Returns each module's CUDA kernels
+    by name and count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = sa1_8.device
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for name, n, m in (("fp1", 512, 256), ("fp2", 1024, 512)):
+        fp = pointnet2.PointnetFPModule((512, 256, 256), torch.Generator().manual_seed(0)).to(dev)
+        fp.train()
+        set_bn_momentum(fp, 0.5)
+        b = sa1_8.shape[0]
+        known_feats = torch.randn((b, m, 256), generator=gen, device=dev, requires_grad=True)
+        # the skip features an SA layer's output, as in the backbone: not a
+        # leaf, whose gradient autograd would copy into the leaf's layout
+        src = torch.randn((b, n, 256), generator=gen, device=dev, requires_grad=True)
+        args = (sa1_8[:, :n].contiguous(), sa1_8[:, :m].contiguous(), src * 2.0, known_feats)
+        fp(*args).sum().backward()  # warm
+        torch.cuda.synchronize()
+        known_feats.grad = src.grad = None
+        args = args[:2] + (src * 2.0,) + args[3:]
+        launches = (three_interpolate.launches, three_interpolate_backward.launches)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fp(*args).sum().backward()
+            torch.cuda.synchronize()
+        counts = (three_interpolate.launches - launches[0],
+                  three_interpolate_backward.launches - launches[1])
+        ops = prof.key_averages()
+        host = {e.key: e.count for e in ops if e.device_type == DeviceType.CPU}
+        kern = {e.key[:90]: e.count for e in ops if e.device_type == DeviceType.CUDA}
+        copies = {k: v for k, v in host.items() if k in ("aten::cat", "aten::copy_", "aten::clone")}
+        copy_kernels = {k: v for k, v in kern.items()
+                        if "CatArrayBatchedCopy" in k or "direct_copy_kernel" in k}
+        out[name] = {"kernels": kern, "copies": copies, "copy_kernels": copy_kernels,
+                     "launches": counts}
+        say(phase="fp_no_copy", module=name, **out[name])
+        if copies or copy_kernels or counts != (1, 1):
+            raise AssertionError(f"{name} concatenates or copies, or misses its kernels: "
+                                 f"{copies} {copy_kernels} {counts}")
+    return out
 
 
 @contextlib.contextmanager
@@ -4569,6 +4687,9 @@ def main() -> int:
                     help="also run three_nn's -DTHREE_NN_COUNTS build at each of its shapes")
     ap.add_argument("--nms-sweep", action="store_true",
                     help="also time NMS at every cluster size of NMS_CLUSTERS at each of its rows")
+    ap.add_argument("--ibwd-sweep", action="store_true",
+                    help="also time three_interpolate's backward at every launch of IBWD_SWEEP "
+                         "at each of its shapes")
     ap.add_argument("--parallel-rank", choices=("a", "b"), help=argparse.SUPPRESS)
     ap.add_argument("--parallel-dir", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4608,7 +4729,7 @@ def main() -> int:
                 raise AssertionError(f"{entry} of {name}.cu spills or is missing: {r}")
 
     rows = phase_kernels(dev, ops_per_s, args.fps_sweep, args.bq_sweep, args.gbwd_sweep,
-                         args.nn_sweep, args.nn_counts, args.nms_sweep)
+                         args.nn_sweep, args.nn_counts, args.nms_sweep, args.ibwd_sweep)
     for r in rows["fps"]:  # the planned variants keep their share on chip, without spills
         key = (r["launch"]["threads"], r["launch"]["ppt"])
         if key not in fps_regs or fps_regs[key][1:] != (0, 0):

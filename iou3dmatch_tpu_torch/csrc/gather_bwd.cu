@@ -38,16 +38,6 @@
 //    load whose result a select then zeroes makes the next load wait for it,
 //    which serialized an earlier version.
 //
-// The same two kernels serve the backward of three_interpolate (FP1, FP2;
-// iou3dmatch_tpu/ops/interpolate.py::_interp_bwd, :137, again a one-hot
-// segment sum of ops/scatter.py): grad_f[b, clamp(idx[b, s], 0, m - 1), :]
-// += g[b, s / 3, :] * w[b, s] over the 3 n slots s of the (b, n, 3) indices.
-// The list kernel sorts those slots as it sorts the gather's; the sum
-// kernel's kWeighted instantiation reads slot s's cotangent row s / 3 and
-// adds its product with w[s], the product rounded on its own (__fmul_rn,
-// which no add contracts), as the plain version's index_add_ of g w. The
-// gather's own instantiation (kWeighted false) is the kernel it was.
-//
 // Designs measured before this one on the H100 (PERF.md): blocks that
 // own a slab of rows in shared memory and add with shared f32 atomicAdd,
 // which Hopper runs as a compare-and-swap loop, spun on the hot rows; warps
@@ -56,6 +46,8 @@
 // block a scene, or one cluster of 8, took 7 to 30 us. Slots are summed in
 // the order the sort's atomics gave them, so the last bits of a sum may
 // change from run to run. Offsets into g and the output are 64-bit.
+// three_interpolate's backward, another segment sum, has a one-launch kernel
+// of its own with a fixed sum order (csrc/three_interpolate.cu).
 #include <cuda_runtime.h>
 
 namespace {
@@ -67,7 +59,6 @@ constexpr int kSumThreads = 256;
 constexpr int kSumWarps = kSumThreads / 32;  // runs a sum block
 constexpr int kChunks = 3;  // 32-channel chunks a sum warp holds: C split in groups of 96
 constexpr int kEntries = 8;  // sorted slots whose loads a sum warp has in flight at once
-constexpr int kSlots = 3;  // three_interpolate: the neighbours of a query, slots of a g row
 
 // The sum of v over the block; every thread gets it after the barrier inside.
 __device__ int block_sum(int v, int* red) {
@@ -216,15 +207,11 @@ gather_bwd_list_kernel(const int* __restrict__ idx, int* __restrict__ perm, int*
   }
 }
 
-// A warp a (run, group of kChunks 32-channel chunks). kWeighted: slot s
-// reads g row s / kSlots scaled by w[s] (three_interpolate's backward); its
-// weights need registers that 4 blocks an SM (64 a thread) leave only by
-// spilling, and the plan gives an SM GBWD_BLOCKS_PER_SM = 3 blocks.
-template <bool kWeighted>
-__global__ void __launch_bounds__(kSumThreads, kWeighted ? 3 : 4)
-gather_bwd_sum_kernel(const float* __restrict__ g, const float* __restrict__ w,
-                      const int* __restrict__ perm, const int* __restrict__ erow,
-                      const int* __restrict__ wrow, const int* __restrict__ went,
+// A warp a (run, group of kChunks 32-channel chunks).
+__global__ void __launch_bounds__(kSumThreads, 4)
+gather_bwd_sum_kernel(const float* __restrict__ g, const int* __restrict__ perm,
+                      const int* __restrict__ erow, const int* __restrict__ wrow,
+                      const int* __restrict__ went,
                       float* __restrict__ out, int n, int u, int c, int parts, int splits) {
   const int lane = static_cast<int>(threadIdx.x) & 31, warp = static_cast<int>(threadIdx.x) >> 5;
   const int runs = parts * kSumWarps;
@@ -237,8 +224,7 @@ gather_bwd_sum_kernel(const float* __restrict__ g, const float* __restrict__ w,
   if (r_lo >= r_hi) return;  // a run of no rows
   const int* perm_b = perm + b * u;
   const int* erow_b = erow + b * u;
-  const float* g_b = g + b * (kWeighted ? u / kSlots : u) * c;
-  const float* w_b = kWeighted ? w + b * u : nullptr;
+  const float* g_b = g + b * u * c;
   float* out_b = out + b * n * c;
 
   int col[kChunks];  // this lane's channel of each chunk, clamped into the row
@@ -265,24 +251,14 @@ gather_bwd_sum_kernel(const float* __restrict__ g, const float* __restrict__ w,
     const int batch = min(32, e_hi - eb);
     const int my_slot = perm_b[min(eb + lane, e_hi - 1)];
     const int my_row = erow_b[min(eb + lane, e_hi - 1)];
-    float my_w = 0.f;
-    if constexpr (kWeighted) my_w = w_b[my_slot];
     for (int i = 0; i < batch; i += kEntries) {
       float v[kEntries][kChunks];
 #pragma unroll
       for (int a = 0; a < kEntries; ++a) {
         const int slot = __shfl_sync(0xffffffffu, my_slot, (i + a) & 31);
-        const float* src = g_b + static_cast<long long>(kWeighted ? slot / kSlots : slot) * c;
+        const float* src = g_b + static_cast<long long>(slot) * c;
 #pragma unroll
         for (int q = 0; q < kChunks; ++q) v[a][q] = src[col[q]];
-      }
-      if constexpr (kWeighted) {  // each slot's row times its weight, rounded on its own
-#pragma unroll
-        for (int a = 0; a < kEntries; ++a) {
-          const float wa = __shfl_sync(0xffffffffu, my_w, (i + a) & 31);
-#pragma unroll
-          for (int q = 0; q < kChunks; ++q) v[a][q] = __fmul_rn(v[a][q], wa);
-        }
       }
 #pragma unroll
       for (int a = 0; a < kEntries; ++a) {
@@ -301,10 +277,15 @@ gather_bwd_sum_kernel(const float* __restrict__ g, const float* __restrict__ w,
   flush(r_hi);
 }
 
-// The list kernel, then the sum kernel: w null for the gather's backward.
-template <bool kWeighted>
-int launch(const float* g, const float* w, const int* idx, float* out, int* scratch, int b, int n,
-           int u, int c, int parts, int lists, cudaStream_t stream) {
+}  // namespace
+
+// g: (b, u, c) f32; idx: (b, u) i32; out: (b, n, c) f32, every element
+// written here; scratch: 2 b u + 2 b (8 parts + 1) i32. The list kernel
+// runs `lists` blocks a scene, each owning at most kListRows rows; the sum
+// kernel `parts` blocks of 8 runs a scene for each group of 96 channels.
+// Returns cudaErrorInvalidValue for a launch that cannot run.
+extern "C" int gather_bwd_launch(const float* g, const int* idx, float* out, int* scratch, int b,
+                                 int n, int u, int c, int parts, int lists, cudaStream_t stream) {
   const int splits = ((c + 31) / 32 + kChunks - 1) / kChunks;
   if (b < 1 || n < 1 || u < 1 || c < 1 || parts < 1 || parts >= (1 << 26) || lists < 1 ||
       lists > n || (n + lists - 1) / lists > kListRows ||
@@ -322,30 +303,8 @@ int launch(const float* g, const float* w, const int* idx, float* out, int* scra
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>(static_cast<long long>(b) * parts * splits);
-  gather_bwd_sum_kernel<kWeighted><<<blocks, kSumThreads, 0, stream>>>(
-      g, w, perm, erow, wrow, went, out, n, u, c, parts, splits);
+  gather_bwd_sum_kernel<<<blocks, kSumThreads, 0, stream>>>(g, perm, erow, wrow, went, out, n, u,
+                                                             c, parts, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// g: (b, u, c) f32; idx: (b, u) i32; out: (b, n, c) f32, every element
-// written here; scratch: 2 b u + 2 b (8 parts + 1) i32. The list kernel
-// runs `lists` blocks a scene, each owning at most kListRows rows; the sum
-// kernel `parts` blocks of 8 runs a scene for each group of 96 channels.
-// Returns cudaErrorInvalidValue for a launch that cannot run.
-extern "C" int gather_bwd_launch(const float* g, const int* idx, float* out, int* scratch, int b,
-                                 int n, int u, int c, int parts, int lists, cudaStream_t stream) {
-  return launch<false>(g, nullptr, idx, out, scratch, b, n, u, c, parts, lists, stream);
-}
-
-// three_interpolate's backward into the features: g: (b, q, c) f32, the
-// cotangent of the output; idx, w: (b, q, 3) i32 and f32; out: (b, m, c)
-// f32, every element written here; scratch: 2 b (3 q) + 2 b (8 parts + 1)
-// i32. The launch is the gather backward's over the 3 q slots into m rows.
-extern "C" int three_interpolate_bwd_launch(const float* g, const int* idx, const float* w,
-                                            float* out, int* scratch, int b, int m, int q, int c,
-                                            int parts, int lists, cudaStream_t stream) {
-  if (q < 1 || q > (1 << 30) / kSlots) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true>(g, w, idx, out, scratch, b, m, kSlots * q, c, parts, lists, stream);
-}

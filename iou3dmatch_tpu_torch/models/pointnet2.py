@@ -186,7 +186,9 @@ class PointnetSAModuleVotes(nn.Module):
 class PointnetFPModule(nn.Module):
     """Feature propagation: 3-NN inverse-distance interpolation, concat
     [interpolated, skip], shared MLP (in ``dtype``; the interpolation in
-    f32)."""
+    f32). The interpolation writes the concatenation itself
+    (``three_interpolate(..., skip=)``), so the card runs no concat kernel
+    and its backward no copy."""
 
     def __init__(self, mlp, generator: torch.Generator, dtype=None):
         super().__init__()
@@ -196,10 +198,7 @@ class PointnetFPModule(nn.Module):
         dist, idx = three_nn(unknown, known)
         dist_recip = 1.0 / (dist + 1e-8)
         weight = dist_recip / dist_recip.sum(dim=2, keepdim=True)
-        new = three_interpolate(known_feats, idx, weight)
-        if unknown_feats is not None:
-            new = torch.cat([new, unknown_feats], dim=-1)
-        return self.mlp(new)
+        return self.mlp(three_interpolate(known_feats, idx, weight, unknown_feats))
 
 
 class QueryAndGroup(nn.Module):

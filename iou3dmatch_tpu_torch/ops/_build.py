@@ -154,5 +154,6 @@ def require(t: torch.Tensor, dtype: torch.dtype, name: str, device=None) -> None
 
 VP = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
 DOUBLE = ctypes.c_double

@@ -29,9 +29,13 @@ global-matrix path (nms_cases.LARGE, K to 4,096, and K either side of the
 switch), the wrapper's refusals, and parse_predictions on the card
 against the NumPy parse; three_interpolate bit for bit at FP1's and FP2's
 shapes and on repeated, out-of-range and clamped indices, zero weights,
-one known row, ragged channels and a table off 16-byte alignment, its
-backward within the gather backward's f64 gate, its gradient through
-autograd, and the wrapper's refusals of other dtypes and devices; and
+one known row, ragged channels and a table off 16-byte alignment, with
+FP's skip features written after the interpolation and without; its
+backward bit for bit the plain version on the CPU and the same over two
+runs, on contiguous and strided cotangents, under every launch the
+kernel takes, over several windows of slots and more rows than a block
+holds; its gradient through autograd into the features and the skip, and
+the wrapper's refusals of other dtypes and devices; and
 ``stage_batch`` staging batches back to back bit for bit. The file
 imports no JAX, so it runs on a machine with a card and without JAX; this
 repository's conftest imports JAX, so run it there as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
@@ -58,7 +62,8 @@ from iou3dmatch_tpu_torch.ops.ball_query import (BQ_CENTERS, BallQueryLaunch, Ga
                                                  ball_query, ball_query_plain, group_points,
                                                  group_points_backward, group_points_bitcast,
                                                  group_points_plain)
-from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, NnLaunch, three_interpolate,
+from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, InterpBwdLaunch, NnLaunch,
+                                                  three_interpolate,
                                                   three_interpolate_backward,
                                                   three_interpolate_backward_plain,
                                                   three_interpolate_plain, three_nn, three_nn_plain)
@@ -965,31 +970,80 @@ def _interp_case(rng, b, m, n, c, device):
     return f, torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
 
 
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32).cpu(), b.contiguous().view(torch.int32).cpu())
+
+
+def _check_interp_bwd(g, idx, w, m, launch=None):
+    """The backward kernel, launched once and counted, bit for bit the plain
+    version on the CPU and itself over a second run."""
+    torch.full((g.shape[0], m, g.shape[2]), float("nan"), device=g.device)  # the next block, dirty
+    before = three_interpolate_backward.launches
+    grad = three_interpolate_backward(g, idx, w, m, launch)
+    torch.cuda.synchronize()
+    assert three_interpolate_backward.launches == before + 1
+    want = three_interpolate_backward_plain(g.cpu(), idx.cpu(), w.cpu(), m)
+    assert _same_bits(grad, want)
+    assert _same_bits(three_interpolate_backward(g, idx, w, m, launch), grad)
+
+
 @pytest.mark.parametrize("b,m,n,c", [(8, 256, 512, 256), (8, 512, 1024, 256), (12, 256, 512, 256),
                                      (12, 512, 1024, 256), (3, 1, 77, 256), (2, 9, 50, 5),
                                      (2, 33, 70, 3), (1, 40, 1, 4)])
 def test_three_interpolate_kernel_matches_plain(cuda, b, m, n, c):
     """FP1's and FP2's shapes at 8 and 12 scenes, one known row, channels that
     take single floats: bit for bit the plain version (the sign of zeros
-    included), one launch; the backward within 1e-5 x the sum of |g w|
-    added into each element of an f64 sum."""
+    included), one launch, without skip features and with them ([interpolated
+    | skip], skip widths of 256, 6 and 0); the backward bit for bit the plain
+    version on the CPU and the same over two runs."""
     rng = np.random.RandomState(b * m + c)
     f, idx, w = _interp_case(rng, b, m, n, c, cuda)
-    before = three_interpolate.launches
-    got = three_interpolate(f, idx, w)
-    torch.cuda.synchronize()
-    assert three_interpolate.launches == before + 1
-    want = three_interpolate_plain(f, idx, w)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for cs in (None, 256, 6, 0):
+        skip = None if cs is None else torch.from_numpy(rng.randn(b, n, cs).astype(np.float32)).to(cuda)
+        before = three_interpolate.launches
+        got = three_interpolate(f, idx, w, skip)
+        torch.cuda.synchronize()
+        assert three_interpolate.launches == before + 1
+        assert _same_bits(got, three_interpolate_plain(f, idx, w, skip))
     g = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(cuda)
-    torch.full((b, m, c), float("nan"), device=cuda)  # the allocator's next block, not zeroed
-    before = three_interpolate_backward.launches
-    grad = three_interpolate_backward(g, idx, w, m)
-    torch.cuda.synchronize()
-    assert three_interpolate_backward.launches == before + 1
-    ref = three_interpolate_backward_plain(g.double(), idx, w.double(), m)
-    mag = three_interpolate_backward_plain(g.double().abs(), idx, w.double().abs(), m)
-    assert ((grad.double() - ref).abs() <= 1e-5 * mag).all()
+    _check_interp_bwd(g, idx, w, m)
+
+
+@pytest.mark.parametrize("b,m,n,c", [(8, 512, 1024, 256), (2, 9, 50, 5), (3, 40, 77, 8)])
+def test_three_interpolate_backward_of_a_strided_cotangent(cuda, b, m, n, c):
+    """The interpolated columns of FP's (B, n, C + Cs) cotangent, read in
+    place: bit for bit the CPU plain version and the contiguous copy's
+    backward."""
+    rng = np.random.RandomState(m + n)
+    _, idx, w = _interp_case(rng, b, m, n, c, cuda)
+    wide = torch.from_numpy(rng.randn(b, n, c + 7).astype(np.float32)).to(cuda)
+    for g in (wide[..., :c], wide[..., 7:]):
+        assert not g.is_contiguous()
+        _check_interp_bwd(g, idx, w, m)
+        assert _same_bits(three_interpolate_backward(g, idx, w, m),
+                     three_interpolate_backward(g.contiguous(), idx, w, m))
+
+
+@pytest.mark.parametrize("launch", [(1, 1), (1, 4), (5, 4), (3, 8), (16, 2), (512, 1), (2, 64)])
+def test_three_interpolate_backward_every_launch(cuda, launch):
+    """FP2's shape at 8 scenes under launches the plan does not pick: one
+    block a scene, a row a range, every piece a slice of its own."""
+    rng = np.random.RandomState(sum(launch))
+    _, idx, w = _interp_case(rng, 8, 512, 1024, 256, cuda)
+    g = torch.from_numpy(rng.randn(8, 1024, 256).astype(np.float32)).to(cuda)
+    _check_interp_bwd(g, idx, w, 512, InterpBwdLaunch(*launch))
+
+
+@pytest.mark.parametrize("b,m,n,c", [(2, 512, 4000, 64), (1, 2000, 3000, 16), (2, 3, 1025, 5),
+                                     (1, 1, 20000, 4)])
+def test_three_interpolate_backward_many_windows_and_rows(cuda, b, m, n, c):
+    """More than one window of 3,072 slots (a row's sum carried from one
+    window to the next), more rows than a block holds, all slots on one
+    row: bit for bit the CPU plain version."""
+    rng = np.random.RandomState(n)
+    _, idx, w = _interp_case(rng, b, m, n, c, cuda)
+    g = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(cuda)
+    _check_interp_bwd(g, idx, w, m)
 
 
 def test_three_interpolate_kernel_off_alignment(cuda):
@@ -1004,22 +1058,26 @@ def test_three_interpolate_kernel_off_alignment(cuda):
 
 
 def test_three_interpolate_gradient_on_the_card(cuda):
-    """Through the autograd Function at FP2's shape: the forward kernel, then
-    the backward kernel, each once; the features' gradient against the
-    plain f64 backward; no gradient for the weights."""
+    """Through the autograd Function at FP2's shape, with FP's skip features:
+    the forward kernel, then the backward kernel, each once; the features'
+    gradient bit for bit the CPU plain backward of the cotangent's
+    interpolated columns, the skip's those of its skip columns; no gradient
+    for the weights."""
     rng = np.random.RandomState(8)
     f, idx, w = _interp_case(rng, 8, 512, 1024, 256, cuda)
     f.requires_grad_()
     w.requires_grad_()
-    g = torch.randn(8, 1024, 256, device=cuda)
+    skip = torch.randn(8, 1024, 256, device=cuda, requires_grad=True)
+    g = torch.randn(8, 1024, 512, device=cuda)
     counts = (three_interpolate.launches, three_interpolate_backward.launches)
-    got_f, got_w = torch.autograd.grad(three_interpolate(f, idx, w), (f, w), g, allow_unused=True)
+    got_f, got_w, got_s = torch.autograd.grad(three_interpolate(f, idx, w, skip), (f, w, skip), g,
+                                              allow_unused=True)
     assert (three_interpolate.launches, three_interpolate_backward.launches) == (
         counts[0] + 1, counts[1] + 1)
     assert got_w is None
-    ref = three_interpolate_backward_plain(g.double(), idx, w.detach().double(), 512)
-    mag = three_interpolate_backward_plain(g.double().abs(), idx, w.detach().double(), 512)
-    assert ((got_f.double() - ref).abs() <= 1e-5 * mag).all()
+    assert torch.equal(got_s, g[..., 256:])
+    want = three_interpolate_backward_plain(g[..., :256].cpu(), idx.cpu(), w.detach().cpu(), 512)
+    assert _same_bits(got_f, want)
 
 
 def test_three_interpolate_kernel_refuses_bad_input(cuda):
@@ -1040,6 +1098,20 @@ def test_three_interpolate_kernel_refuses_bad_input(cuda):
         three_interpolate(f.transpose(1, 2).contiguous().transpose(1, 2), idx, w)
     with pytest.raises(ValueError):
         three_interpolate(f, idx[..., :2].contiguous(), w[..., :2].contiguous())
+    skip = torch.randn(2, 20, 4, device=cuda)
+    with pytest.raises(TypeError):
+        three_interpolate(f, idx, w, skip.double())
+    with pytest.raises(ValueError):
+        three_interpolate(f, idx, w, skip[:, :19])
+    with pytest.raises(ValueError):
+        three_interpolate(f, idx, w, skip.cpu())
+    with pytest.raises(ValueError):
+        three_interpolate(f, idx, w, skip.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="no backward launch"):
+        three_interpolate_backward(torch.randn(2, 20, 8, device=cuda), idx, w, 16,
+                                   InterpBwdLaunch(17, 1))
+    with pytest.raises(ValueError, match="channels must be contiguous"):
+        three_interpolate_backward(torch.randn(2, 8, 20, device=cuda).transpose(1, 2), idx, w, 16)
     with pytest.raises(ValueError):
         three_interpolate_backward(torch.randn(2, 21, 8, device=cuda), idx, w, 16)
     with pytest.raises(TypeError):
