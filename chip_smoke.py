@@ -27,8 +27,11 @@ reported on its own line; a failed check raises and the exit code is not 0:
    and 2D branches, tied scores, K = 256, 512 and 1,024 and matrix mode on
    a rotated BEV IoU, each with its planned cluster size and its cycles a
    step for the leader block and the others, and the overlaps computed and
-   skipped; class-aware float64 and matrix mode at K = 2,048 and 4,096,
-   the global-matrix path; the ball query on surface scenes, the rotated
+   skipped; class-aware float64 and matrix mode at K = 2,048 and 4,096
+   and class-aware with one class holding 40 % of 4,096, the global-matrix
+   path, each with its device time a launch (torch.profiler,
+   ``nms_launch_split``), and class-aware its segments and largest
+   segment; the ball query on surface scenes, the rotated
    IoU on rotated boxes), FPS also at ``--cluster_sampling vote_fps``'s shapes (over
    1,024 and 2,048 votes) and at ``fps_prefix=False``'s (SA2-SA4 and
    ``seed_fps`` over FPS-ordered sets, which must give back their
@@ -242,7 +245,12 @@ of its seven shapes; ``--nn-counts`` three_nn's counters (a build with
 cycles staging, scanning, merging and writing, means a warp) at its seven
 shapes, with the planned launch and with a thread a query (S = Q = 1);
 ``--nms-sweep`` NMS at every cluster size of NMS_CLUSTERS at each of its
-rows; ``--ibwd-sweep`` three_interpolate's backward at every (ranges,
+cluster-path rows, and past 1,024 boxes at every tile-block count of
+GLOBAL_TILE_BLOCKS (box modes) or rows a block of GLOBAL_ROWS_PER_BLOCK
+(matrix mode); ``--nms-only`` builds csrc/nms.cu alone and runs only the
+NMS rows of phase 3 (no spill check), also from the root of another
+checkout, so that two versions of NMS are timed in turns on one card;
+``--ibwd-sweep`` three_interpolate's backward at every (ranges,
 slices) of IBWD_SWEEP at each of its shapes.
 
 The model is the full-width ScanNet VoteNet (128 proposals, height channel,
@@ -386,7 +394,9 @@ LHS_RANK_OPS = 4
 # gate's select and product (3d_cls); the compare. A box's area: its sides'
 # subtractions and products. Matrix mode reads a given IoU: a compare a
 # pair. The pairs the function needs are each round's winner against the
-# boxes still remaining (nms_pairs, a replay of the rounds); ordering K
+# boxes still remaining (nms_pairs, a replay of the rounds), in 3d_cls at
+# thresh >= 0 only those of the winner's class (the gate zeroes the
+# others, which then suppress nothing); ordering K
 # keys needs K ceil(log2 K) compares. 3d_cls's float64 operations issue at
 # SMs x FP64_LANES_PER_SM x the top clock, half the float32 rate, and are
 # counted as two instructions each.
@@ -443,8 +453,9 @@ NN_YARDSTICK = "torch.cdist + topk(3, largest=False): two calls, matmul-form dis
 NO_SPILL = {"three_nn": tuple(f"three_nn_kernelILi{s}ELi{q}EE" for s, q in NN_LAUNCHES),
             "lhs": ("lhs_small_kernel", "lhs_kernel"),
             "nms": tuple(f"nms_kernelILi{mode}EE" for mode in range(4))
-            + ("nms_order_kernel",) + tuple(f"nms_tile_kernelILi{mode}EE" for mode in range(4))
-            + ("nms_rounds_kernelILb0EE", "nms_rounds_kernelILb1EE"),
+            + tuple(f"nms_sort_kernelILi{mode}EE" for mode in range(4))
+            + tuple(f"nms_tiles_kernelILi{mode}EE" for mode in range(3))
+            + ("nms_rows_kernel", "nms_chain_kernelILb0EE", "nms_chain_kernelILb1EE"),
             "three_interpolate": tuple(f"three_interpolate_kernelILi{v}ELb{k}EE"
                                        for v in (1, 4) for k in (0, 1))
             + ("three_interpolate_bwd_kernelILi1EE", "three_interpolate_bwd_kernelILi4EE"),
@@ -1308,15 +1319,19 @@ def iou_rows(dev, ops_per_s, rows):
         rows.setdefault("iou3d", []).append(r)
 
 
-def make_lhs_input(seed: int, b: int, k: int, cfg=None) -> tuple:
+def make_lhs_input(seed: int, b: int, k: int, cfg=None, skew: float = 0.0) -> tuple:
     """LHS's input at the SSL step's shape: (b, k) axis-aligned bounds of
     boxes of ScanNet's (or ``cfg``'s) classes in the room, half of them
     copies of others moved by N(0, 0.1) m with the same class, as a
-    teacher's clusters of near-duplicate proposals; scores uniform."""
+    teacher's clusters of near-duplicate proposals; scores uniform. With
+    ``skew`` > 0 each box's class is redrawn as class 2 (ScanNet's chair)
+    with that probability, before the copies take their sources' classes."""
     cfg = cfg or get_config("scannet")
     rng = np.random.RandomState(seed)
     box = make_boxes(rng, b, k, False, cfg)
     cls = rng.randint(0, cfg.num_class, (b, k))
+    if skew:
+        cls = np.where(rng.rand(b, k) < skew, 2, cls)
     src = np.where(rng.rand(b, k) < 0.5, rng.randint(0, k, (b, k)), np.arange(k))
     box = np.take_along_axis(box, src[..., None], 1)
     box[..., 0:3] += rng.normal(0, 0.1, (b, k, 3))
@@ -1382,12 +1397,17 @@ def lhs_rows(dev, ops_per_s, rows, thresh: float = 0.25, cfg=None, seed: int = 4
     rows.setdefault("lhs", []).append(r)
 
 
-def nms_pairs(over: torch.Tensor, scores: torch.Tensor, higher_index_first: bool) -> int:
+def nms_pairs(over: torch.Tensor, scores: torch.Tensor, higher_index_first: bool,
+              cls=None) -> int:
     """The overlaps greedy NMS needs on these inputs: each round's winner
     against the boxes still remaining after it, summed over the rounds and
     scenes, from a replay of the rounds on the host with the plain
-    version's suppression matrix ``over`` (B, K, K) and its pick order."""
+    version's suppression matrix ``over`` (B, K, K) and its pick order.
+    With ``cls`` (B, K) (class-aware NMS at thresh >= 0) only the remaining
+    boxes of the winner's class: the class gate makes every other pair 0,
+    which suppresses nothing, so the function needs none of them."""
     over, scores = over.cpu().numpy(), scores.cpu()
+    cls = None if cls is None else cls.cpu().numpy()
     total = 0
     for s in range(scores.shape[0]):
         sc = scores[s].tolist()
@@ -1396,7 +1416,7 @@ def nms_pairs(over: torch.Tensor, scores: torch.Tensor, higher_index_first: bool
         left = np.array(order, np.int64)
         while left.size:
             w, rest = left[0], left[1:]
-            total += rest.size
+            total += rest.size if cls is None else int((cls[s, rest] == cls[s, w]).sum())
             left = rest[~over[s, w, rest]]
     return int(total)
 
@@ -1407,8 +1427,8 @@ def nms_row(dev, ops_per_s, rows, floor: float, label: str, mode: str, tensors, 
     ``tensors`` (mins, maxs, scores, classes; in matrix mode the boxes
     (B, K, 7) in place of mins), its bound from a replay of the rounds, its
     planned cluster and its cycles a step; past NMS_MAX_BOXES the global
-    path, which has neither (and the plain version, K rounds each waiting on
-    the card, is timed 3 times)."""
+    path, with each launch's device time in place of the last two (and the
+    plain version, K rounds each waiting on the card, timed 3 times)."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     f64_ratio = LANES_PER_SM / FP64_LANES_PER_SM  # float32 instructions a float64 one costs
     mins, maxs, scores, cls = tensors
@@ -1425,7 +1445,8 @@ def nms_row(dev, ops_per_s, rows, floor: float, label: str, mode: str, tensors, 
         dtype = torch.float64 if mode == "3d_cls" else torch.float32
         over = box_overlaps(mins, maxs, cls, mode, False) > torch.tensor(thresh, dtype=dtype)
         nbytes = b * k * (12 + 12 + 4 + (8 if mode == "3d_cls" else 0) + 1)
-    pairs = nms_pairs(over, scores, mode != "matrix")
+    pairs = nms_pairs(over, scores, mode != "matrix",
+                      cls if mode == "3d_cls" and thresh >= 0 else None)
     scale = f64_ratio if mode == "3d_cls" else 1.0
     ops = (pairs * NMS_PAIR_OPS[mode] + b * k * NMS_AREA_OPS[mode]) * scale \
         + b * k * int(np.ceil(np.log2(max(k, 2))))
@@ -1436,10 +1457,18 @@ def nms_row(dev, ops_per_s, rows, floor: float, label: str, mode: str, tensors, 
              of_floor=r["ms"] / floor, plain_rounds="K masked rounds in PyTorch")
     rows.setdefault("nms", []).append(r)
     if glob:
-        r.update(path="global matrix: order, 64 x 64 tiles, rounds (three launches)",
-                 matrix_bytes=b * (-(-k // 64)) ** 2 * 64 * 8)
+        r.update(matrix_bytes=b * (-(-k // 64)) ** 2 * 64 * 8, split=nms_launch_split(kernel, args),
+                 cycles=nms_global_phases(args, got))
+        if sweep_on:
+            nms_global_sweep(label, kernel, args, got, mode == "matrix")
+        if mode == "3d_cls":  # the class segments: a class's boxes a scene
+            sizes = [np.unique(c, return_counts=True)[1] for c in cls.cpu().numpy()]
+            r.update(segments=sum(len(z) for z in sizes) / b,
+                     largest_segment=int(max(z.max() for z in sizes)))
         say(phase="nms_work", shape=label, mode=mode, pairs=pairs, ops=ops, kept=r["kept"],
-            of_floor=r["of_floor"], path=r["path"], matrix_bytes=r["matrix_bytes"])
+            of_floor=r["of_floor"], matrix_bytes=r["matrix_bytes"], split=r["split"],
+            cycles=r["cycles"], segments=r.get("segments"),
+            largest_segment=r.get("largest_segment"))
         return
     cluster = planned_cluster(dev, b, k, mode)
     answers = {c: nms_max_active(dev, mode, k, c) for c in NMS_CLUSTERS[1:]}
@@ -1458,20 +1487,25 @@ def nms_rows(dev, ops_per_s, rows, floor: float, sweep_on: bool = False):
     shape), the 3D and 2D float32 branches, tied scores, K = 256, 512 and
     1,024 (the most the cluster path takes), and matrix mode on the
     rotated BEV IoU of (B, K) boxes (nms_rotated's); past the cluster path,
-    class-aware float64 and matrix mode at K = 2,048 and 4,096 (the global
+    class-aware float64 and matrix mode at K = 2,048 and 4,096, and
+    class-aware at 4,096 with 40 % of each scene one class (the global
     matrix). Each cluster-path row names its
     planned cluster size, the card's cudaOccupancyMaxActiveClusters answers
-    it was planned from, and its cycles a step (``nms_phases``);
-    ``sweep_on`` also times every cluster size.
+    it was planned from, and its cycles a step (``nms_phases``); each
+    global row its device time a launch (``nms_launch_split``), and
+    class-aware its segments a scene and its largest; ``sweep_on`` also
+    times every cluster size, or the global path's knobs
+    (``nms_global_sweep``).
     The boxes are ``make_lhs_input``'s clusters of near-duplicates. The
     bound counts each input and output byte once, the overlaps the rounds
-    need (``nms_pairs``, NMS_PAIR_OPS each) with each box's area, and a
+    need (``nms_pairs``, NMS_PAIR_OPS each; class-aware, only pairs of one
+    class) with each box's area, and a
     sort of the keys; its time lies under any launch's, so each row also
     gives its time over the launch floor ``floor``."""
     one = functools.partial(nms_row, dev, ops_per_s, rows, floor, sweep_on=sweep_on)
 
-    def boxes(seed, k, tied=False):
-        mins, maxs, scores, cls = make_lhs_input(seed, B, k)
+    def boxes(seed, k, tied=False, skew=0.0):
+        mins, maxs, scores, cls = make_lhs_input(seed, B, k, skew=skew)
         if tied:
             scores = (np.round(scores * 4) / 4).astype(np.float32)
         return [torch.from_numpy(x).to(dev) for x in (mins, maxs, scores, cls)]
@@ -1496,6 +1530,39 @@ def nms_rows(dev, ops_per_s, rows, floor: float, sweep_on: bool = False):
         scores = torch.from_numpy(np.random.RandomState(seed).rand(B, k).astype(np.float32)).to(dev)
         one(f"matrix ({B},{k}) rotated BEV IoU, IoU > 0.1, global matrix", "matrix",
             (rot, None, scores, None), 0.1, False)
+    # one class holding ~40 % of each scene, as chairs do in ScanNet: its
+    # segment is past the cluster path's 1,024 boxes
+    one(f"({B},4096) 3d_cls float64, 40 % one class, global matrix", "3d_cls",
+        boxes(86, 4096, skew=0.4), 0.25, False)
+
+
+NMS_KERNEL = re.compile(r"nms_(\w+?)_kernel")  # a kernel of csrc/nms.cu, by its step
+
+
+def nms_launch_split(kernel, args, reps: int = 10) -> dict:
+    """Device µs a call of each kernel one NMS call launches (the global
+    path's steps apart), from torch.profiler's CUDA kernel records over
+    ``reps`` calls, keyed by the name between ``nms_`` and ``_kernel``;
+    beside them the kernels' sum and their launches a call. None where
+    the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kernel(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel(*args)
+        torch.cuda.synchronize()
+    us, count = {}, 0
+    for e in prof.key_averages():
+        m = NMS_KERNEL.search(e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            us[m.group(1)] = us.get(m.group(1), 0.0) + e.self_device_time_total / reps
+            count += e.count
+    if not us or not sum(us.values()):
+        return None
+    return {"us": us, "sum_us": sum(us.values()), "launches_a_call": count / reps}
 
 
 # csrc/nms.cu's NMS_STAMP 0-8: the steps between them ("order_barrier" and
@@ -1549,6 +1616,80 @@ def nms_phases(args, want, cluster: int) -> dict:
         roles["others"] = dict(zip(NMS_PHASES[:-2], steps[~leader, :-2].mean(0).tolist()))
     return {"cluster": cluster, "cycles": roles, "overlaps_computed": int(out[:, stamps].sum()),
             "overlaps_skipped": int(out[:, stamps + 1].sum())}
+
+
+def nms_global_sweep(label, kernel, args, want, matrix: bool):
+    """The global path on one NMS input at every GLOBAL_TILE_BLOCKS (box
+    modes) or GLOBAL_ROWS_PER_BLOCK (matrix mode) of ops/nms.py through
+    ``global_run``, beside the planned launch, each checked equal to the
+    plain result and to itself over two runs; times only, nothing counted."""
+    from iou3dmatch_tpu_torch.ops.nms import (GLOBAL_ROWS_PER_BLOCK, GLOBAL_TILE_BLOCKS,
+                                              global_blocks, global_run)
+
+    scores = args[1] if matrix else args[2]
+    n_sm = torch.cuda.get_device_properties(scores.device).multi_processor_count
+    planned = global_blocks(scores.shape[0], n_sm, matrix)
+    knob = "rows_per_block" if matrix else "tile_blocks"
+    out = []
+    for value in (GLOBAL_ROWS_PER_BLOCK if matrix else GLOBAL_TILE_BLOCKS):
+        run = functools.partial(global_run, kernel, args, value)
+        ok = same(run(), want) and same(run(), want)
+        out.append({knob: value, "ok": ok, "ms": cuda_ms(run, 10, 5)})
+        if not ok:
+            raise AssertionError(f"NMS at {label} with {knob} {value} differs")
+    say(phase="nms_global_sweep", shape=label, planned={knob: planned}, rows=out)
+
+
+NMS_PHASE_BLOCKS = 4096  # csrc/nms.cu kPhaseBlocks
+# csrc/nms.cu's global kernels under -DNMS_PHASES: the sort's SORT_STAMP
+# 0-5, and the slots the tiles and the chain sum their cycles in
+NMS_SORT_STEPS = ("keys_and_runs", "merges", "positions", "segments", "tile_list")
+NMS_TILE_STEPS = ("tile_list_staged", "boxes", "overlaps", "wait")  # slot 4: tiles
+NMS_CHAIN_STEPS = ("loads", "scan", "fold_next", "barrier")  # slot 4: words, 5: helpers, 6: segments
+
+
+def nms_global_phases(args, want):
+    """Cycles of the global path's steps on ``args`` (the arguments of
+    ``nms_boxes``, or of ``nms_masked``) at the planned launch, from a
+    build with -DNMS_PHASES launched through ``ops/nms.py::global_run``;
+    its keep mask must equal ``want``. The sort's
+    steps as means over the scenes; the tiles' steps summed over a block's
+    tiles, means over the blocks that had tiles, with their tiles; the
+    chain's steps a word (warp 0: the diagonal block's loads, the scan, the
+    fold into the next word, the barrier; a helper warp's folds beside
+    them), over the blocks that had segments, with the words and segments.
+    None where the build has no such stamps (another checkout's csrc/nms.cu
+    timed in turns). Times only: the stamps cost a few instructions."""
+    lib = _variant("nms", "NMS_PHASES")
+    if not hasattr(lib, "nms_global_phases_read"):
+        return None
+    from iou3dmatch_tpu_torch.ops.nms import global_blocks, global_run
+    kernel = nms_masked if len(args) == 3 else nms_boxes
+    scores = args[1] if kernel is nms_masked else args[2]
+    b = scores.shape[0]
+    n_sm = torch.cuda.get_device_properties(scores.device).multi_processor_count
+    knob = "rows_per_block" if kernel is nms_masked else "tile_blocks"
+    for _ in range(2):
+        _build.check(lib.nms_global_phases_clear(), "nms_global_phases_clear")
+        keep = global_run(kernel, args, lib=lib)
+    torch.cuda.synchronize()
+    if not torch.equal(keep, want):
+        raise AssertionError("the NMS_PHASES build keeps other boxes than the kernel")
+    out = np.zeros((3, NMS_PHASE_BLOCKS, 8), np.int64)
+    _build.check(lib.nms_global_phases_read(out.ctypes.data), "nms_global_phases_read")
+    sort = dict(zip(NMS_SORT_STEPS, np.diff(out[0, :b, :6], axis=1).mean(0).tolist()))
+    res = {"plan": {knob: global_blocks(b, n_sm, kernel is nms_masked)}, "sort": sort}
+    tiles = out[1][out[1][:, 4] > 0]
+    if len(tiles):
+        res["tiles"] = dict(zip(NMS_TILE_STEPS, tiles[:, :4].mean(0).tolist()),
+                            blocks=len(tiles), tiles_a_block=float(tiles[:, 4].mean()))
+    chain = out[2][out[2][:, 4] > 0]
+    n_words = chain[:, 4].sum()
+    res["chain_a_word"] = dict(zip(NMS_CHAIN_STEPS, (chain[:, :4].sum(0) / n_words).tolist()),
+                               helper=float(chain[:, 5].sum() / n_words), words=int(n_words),
+                               segments=int(chain[:, 6].sum()), blocks=len(chain))
+    say(phase="nms_global_phases", shape=list(scores.shape), **res)
+    return res
 
 
 def nms_sweep(label, kernel, args, want):
@@ -4686,7 +4827,11 @@ def main() -> int:
     ap.add_argument("--nn-counts", action="store_true",
                     help="also run three_nn's -DTHREE_NN_COUNTS build at each of its shapes")
     ap.add_argument("--nms-sweep", action="store_true",
-                    help="also time NMS at every cluster size of NMS_CLUSTERS at each of its rows")
+                    help="also time NMS at every cluster size of NMS_CLUSTERS at each of its "
+                         "rows, and the global path's at every knob of GLOBAL_TILE_BLOCKS or "
+                         "GLOBAL_ROWS_PER_BLOCK")
+    ap.add_argument("--nms-only", action="store_true",
+                    help="build csrc/nms.cu only, then check and time the NMS rows only")
     ap.add_argument("--ibwd-sweep", action="store_true",
                     help="also time three_interpolate's backward at every launch of IBWD_SWEEP "
                          "at each of its shapes")
@@ -4713,6 +4858,11 @@ def main() -> int:
     if any(flags.values()):
         raise AssertionError(f"TF32 is on: {flags}")
 
+    if args.nms_only:  # timings of the NMS rows alone, no spill check
+        _build.build(("nms",))
+        rows = {}
+        nms_rows(dev, ops_per_s, rows, launch_floor_ms(), args.nms_sweep)
+        return 0
     t = time.perf_counter()
     built = sorted(_build.build())
     seconds = time.perf_counter() - t

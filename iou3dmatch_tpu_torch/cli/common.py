@@ -25,6 +25,7 @@ from ..data.staging import stage_batch
 from ..data.synthetic import SyntheticDataset
 from ..eval.ap_helper import APCalculator, parse_groundtruths, parse_predictions
 from ..eval.iou_opt import iou_optimize
+from ..ops.nms import GLOBAL_MAX_BOXES
 from ..parallel import distributed
 from ..train import checkpoint
 from ..train.schedules import get_bn_momentum, get_lr
@@ -219,15 +220,20 @@ def evaluate(model, cfg, eval_loader, config_dict, logger, eval_loss,
 
 
 def driver_device(args) -> torch.device:
-    """The drivers' startup checks, before any data or model: the device
-    ``--device`` names, the card's first by default. Raises when CUDA is
-    asked for and absent: nothing falls back to the CPU. Every flag of the
-    JAX drivers runs on the card, ``--num_target`` at any count (NMS past
-    1,024 proposals a scene takes its global-matrix path, ``ops/nms.py``).
-    Under torchrun (``WORLD_SIZE`` > 1) it joins the process group
-    (``parallel/distributed.py``) and returns the rank's device, of
-    ``--device``'s type."""
+    """The drivers' startup checks, before any data or model: raises
+    ``SystemExit``, on the card, for a ``--num_target`` above the most
+    proposals a scene its NMS takes (``ops/nms.py::GLOBAL_MAX_BOXES``: NMS
+    past 1,024 takes the global-matrix path, whose sort holds a scene in
+    one block); then the device ``--device`` names, the card's first by
+    default. Raises when CUDA is asked for and absent: nothing falls back
+    to the CPU, which takes any count. Every other flag of the JAX drivers
+    runs on the card. Under torchrun (``WORLD_SIZE`` > 1) it joins the
+    process group (``parallel/distributed.py``) and returns the rank's
+    device, of ``--device``'s type."""
     dev = torch.device(args.device)
+    if dev.type == "cuda" and (args.num_target or 0) > GLOBAL_MAX_BOXES:
+        raise SystemExit(f"--num_target {args.num_target}: NMS on the card takes at most "
+                         f"{GLOBAL_MAX_BOXES} proposals a scene (ops/nms.py GLOBAL_MAX_BOXES)")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")

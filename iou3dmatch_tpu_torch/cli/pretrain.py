@@ -11,7 +11,7 @@ Where it differs from the JAX driver (ROADMAP Queue 3):
 
 - ``--device`` (default ``cuda``, the first card) takes the place of
   ``--platform``. Without CUDA it raises unless ``--device cpu`` is given.
-- On the card, ``--num_target`` above ``ops/nms.py::MAX_BOXES`` is refused
+- On the card, ``--num_target`` above ``ops/nms.py::GLOBAL_MAX_BOXES`` (14,016) is refused
   at startup.
 - ``--profile_steps`` writes a ``torch.profiler`` Chrome trace.
 - One process, as JAX's pretrain driver has no mesh: under torchrun with

@@ -21,7 +21,7 @@ Where it differs from the JAX driver (ROADMAP Queue 3):
   normalisers of the global batch (``parallel/``). Rank 0 alone logs,
   saves and evaluates, over the whole eval set at JAX's global eval batch.
   Run alone, the driver uses one card, the first by default.
-- On the card, ``--num_target`` above ``ops/nms.py::MAX_BOXES`` is refused
+- On the card, ``--num_target`` above ``ops/nms.py::GLOBAL_MAX_BOXES`` (14,016) is refused
   at startup.
 - ``--profile_steps`` writes a ``torch.profiler`` Chrome trace.
 

@@ -72,31 +72,46 @@
 //
 // Past kMaxBoxes the K x K bit matrix no longer fits one block's shared
 // memory, and a second path (nms_boxes_global_launch,
-// nms_matrix_global_launch) keeps it in device memory, in three launches:
+// nms_matrix_global_launch), up to kGlobalMaxBoxes boxes, keeps it in device
+// memory, in three launches:
 //
-// a. nms_order_kernel, a block per (scene, kOrderThreads boxes): a box's
-//    position counts the larger keys of its scene (the same order_key, read
-//    through shared memory kOrderTile keys at a time); box_at[p] is the box
-//    at position p, and each scene's first block writes its count of valid
-//    boxes, nv.
-// b. nms_tile_kernel, a block per (scene, 64 x 64 tile of positions) on and
-//    above the diagonal and below nv: the tile's 64 row and 64 column boxes
-//    in shared memory, each pair's overlap by the same device functions,
-//    float64 class-aware, float32 otherwise, the class queue at thresh >= 0
-//    (a warp's candidate pairs over its 8 rows queued 32 at a time), a
-//    ballot a 32-column group otherwise; the tile's 64 row words written
-//    coalesced into mat[scene][word][position], (B, W, 64 W) u64 with W =
-//    ceil(K / 64) from the caller's allocator. A box with a NaN bound
-//    takes the NaN-carrying min and max within its tiles: a pair's overlap
-//    depends on its own two boxes only, so this equals the scene-wide rule.
-// c. nms_rounds_kernel, a block a scene: for each word w below ceil(nv /
-//    64), 64 threads stage its diagonal words, thread 0 decides its winners
-//    serially, then a warp per later word ORs the winners' rows into that
-//    word of the removed mask (W words in shared memory, kept there whole);
-//    matrix mode's all -inf rule as in step 4; then every keep flag.
+// a. nms_sort_kernel, a block a scene: the scene's 8-byte keys sorted in
+//    shared memory (runs of 8 in registers, then merged by merge path: K
+//    log K, where counting each box's larger keys took K^2 compares and
+//    22-43 us at (8, 2,048) / (8, 4,096), and a bitonic network over
+//    16-byte keys 42-95 us: PERF.md §6); box_at[p], the box at position p,
+//    and the valid count nv. In class-aware mode at thresh >= 0 the key
+//    leads with a hash of the class: a pair of two classes suppresses
+//    nothing (step 3), so greedy NMS over the scene is greedy NMS over each
+//    class's boxes in the same order, and the scene is cut into segments,
+//    each decided on its own (two classes of one hash share a segment,
+//    their pairs 0 all the same). The other modes have one segment, [0,
+//    nv). The sort also writes the list of tiles the segments need. (It
+//    writes no bounds by position: one SM's gather of them, a scattered
+//    sector a cycle, cost more than the tiles gathering their boxes through
+//    box_at on every SM: PERF.md §6.)
+// b. The bit matrix, mat[scene][word][position], (B, W, 64 W) u64 with W =
+//    ceil(K / 64), from the caller's allocator:
+//    - box modes, nms_tiles_kernel: a block walks its scene's list of 64 x
+//      64 tiles of positions, those on and above the diagonal that lie
+//      within one segment's words (75 of 528 a scene at 2,048 boxes of
+//      ScanNet's 18 classes), each pair's overlap by the same device
+//      functions, float64 class-aware, float32 otherwise;
+//    - matrix mode, nms_rows_kernel: a warp a row of the IoU matrix in box
+//      order, every byte of it read once in 16-byte loads (the tiles read a
+//      4-byte element a 32-byte sector), each element over thresh setting
+//      the bit of its column's position in a row of bits in shared memory.
+// c. nms_chain_kernel, a block a segment: the rounds a 64-position word at a
+//    time, warp 0 alone on the chain (the diagonal scan, then the winners'
+//    rows into the next word) with the next word's loads in flight, the
+//    other warps folding the previous word's winners into the later words
+//    meanwhile; matrix mode's all -inf rule as in step 4; then the keep
+//    flags of the segment's boxes (the sort writes those outside `valid`).
 //
-// Rows past nv in the last word are written as zeros, so they remove
-// nothing. The picks are the cluster path's and the plain version's.
+// Words a segment shares with its neighbours start with the neighbours'
+// positions removed, so that they neither win nor suppress; tiles outside
+// every segment are never written and never read. The picks are the
+// cluster path's and the plain version's.
 //
 // Exactness against NumPy, JAX and the plain versions (geometry/nms.py::
 // nms_boxes_plain, nms_masked_plain): each side is max(0, min(hi_i, hi_r) -
@@ -117,6 +132,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <algorithm>
+#include <cstdint>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -132,8 +149,33 @@ constexpr int kStamps = 9;
 __device__ long long nms_phase_clock[kPhaseBlocks][kStamps + 2];  // stamps, computed, skipped
 #define NMS_STAMP(n) \
   if (threadIdx.x == 0 && blockIdx.x < kPhaseBlocks) nms_phase_clock[blockIdx.x][n] = clock64()
+// The global path's kernels, a row of kCycleSlots a block (blockIdx.y *
+// gridDim.x + blockIdx.x): the sort's thread 0 stamps clock64() at its start
+// and after each step (SORT_STAMP); the tiles' thread 0 and the chain's
+// threads 0 and 32 sum the cycles of their steps over their tiles and words
+// (CYCLES_FROM, CYCLES_ADD), and write the sums at their end
+// (CYCLES_WRITE); read back by nms_global_phases_read.
+constexpr int kCycleSlots = 8;
+__device__ long long nms_global_clock[3][kPhaseBlocks][kCycleSlots];  // sort, tiles, chain
+#define GLOBAL_BLOCK (blockIdx.y * gridDim.x + blockIdx.x)
+#define SORT_STAMP(n) \
+  if (threadIdx.x == 0 && blockIdx.x < kPhaseBlocks) nms_global_clock[0][blockIdx.x][n] = clock64()
+#define CYCLES_DECL long long cycles[kCycleSlots] = {}, cycles_from = clock64()
+#define CYCLES_FROM() cycles_from = clock64()
+#define CYCLES_ADD(slot) cycles[slot] += clock64() - cycles_from
+#define CYCLES_COUNT(slot) ++cycles[slot]
+#define CYCLES_WRITE(kernel, first, last)                                       \
+  if (GLOBAL_BLOCK < kPhaseBlocks) {                                             \
+    for (int i = first; i <= last; ++i) nms_global_clock[kernel][GLOBAL_BLOCK][i] = cycles[i]; \
+  }
 #else
 #define NMS_STAMP(n)
+#define SORT_STAMP(n)
+#define CYCLES_DECL
+#define CYCLES_FROM()
+#define CYCLES_ADD(slot)
+#define CYCLES_COUNT(slot)
+#define CYCLES_WRITE(kernel, first, last)
 #endif
 
 namespace {
@@ -645,115 +687,360 @@ bool bad_shape(int b, int k) { return b < 1 || k < 1 || k > kMaxBoxes; }
 
 // ------------------------------------------------- past kMaxBoxes: the global matrix
 
-constexpr int kOrderThreads = 256;  // boxes an order block places
-constexpr int kOrderTile = 2048;  // keys an order block stages in shared memory at a time
+constexpr int kSortThreads = 1024;
+constexpr int kSortRun = 8;  // keys a thread sorts in registers, and places a merge level
+constexpr int kLowBits = 14;  // a box's index in its sort key
+constexpr unsigned long long kLowMask = (1ull << kLowBits) - 1ull;
 constexpr int kTileThreads = 256;
 constexpr int kTileWarps = kTileThreads / 32;  // a warp's rows of a tile: 64 / kTileWarps
-constexpr int kRoundsThreads = 512;
-constexpr int kRoundsWarps = kRoundsThreads / 32;
+constexpr int kRowsThreads = 256;
+constexpr int kRowsWarps = kRowsThreads / 32;
+constexpr int kChainThreads = 512;
+constexpr int kChainWarps = kChainThreads / 32;  // warp 0 the chain, the others the later words
+constexpr int kFoldBatch = 4;  // later words a helper warp holds the rows of, loaded a word ahead
+constexpr int kChainBlocksPerSm = 2;  // the rounds' blocks an SM, spread over the scenes' segments
 constexpr int kSmemMax = 232448;  // the H100's largest dynamic shared memory a block
+// the sort holds a scene's 8-byte keys twice (the merges' source and
+// destination) in one block's shared memory, a pad word after every 32 keys
+constexpr int kGlobalMaxBoxes = 14016;
+constexpr int kGlobalMaxWords = (kGlobalMaxBoxes + 63) / 64;
+constexpr int kSortStatic = 256;  // the sort's static shared memory, at most
+__host__ __device__ constexpr int sort_slots(int k) { return k + (k >> 5) + 1; }
+static_assert(16 * sort_slots(kGlobalMaxBoxes) + kSortStatic <= kSmemMax,
+              "the sort's keys fit one block");
+static_assert(kGlobalMaxBoxes <= (1 << kLowBits), "a box's index fits its key");
+static_assert(kGlobalMaxWords <= kSortThreads, "a thread counts a row word's tiles");
+constexpr unsigned long long kSign = 1ull << 63;
+constexpr int kSegShift = 46;  // a key's bits from here on: its segment (and the invalid flag)
 
-// the order key of box i, as nms_kernel's load computes it
-__device__ __forceinline__ unsigned long long box_key(const float* scores, const bool* valid,
-                                                      long long base, int i, int k, bool matrix) {
-  const bool ok = valid == nullptr || valid[base + i];
-  const int low = matrix ? k - 1 - i : i;
-  return ok ? order_key(scores[base + i], low) : kInvalidKey | static_cast<unsigned int>(low);
+// The global path's scratch in device memory, byte offsets from its start
+struct Scratch {
+  long long box_at, pos_of, nv, nseg, seg_start, tile_off, bytes;
+
+  Scratch(int b, int k) {
+    const long long words = (k + 63) / 64;
+    long long at = 0;
+    auto take = [&at](long long n) {
+      const long long here = at;
+      at += (n + 15) / 16 * 16;
+      return here;
+    };
+    box_at = take(4LL * b * k);  // the box at each position
+    pos_of = take(4LL * b * k);  // each box's position (matrix mode)
+    nv = take(4LL * b);  // the valid boxes
+    nseg = take(4LL * b);  // the segments
+    seg_start = take(4LL * b * (k + 1));  // each segment's first position, then nv
+    tile_off = take(4LL * b * (words + 1));  // each row word's first tile, then the tiles
+    bytes = at;
+  }
+};
+
+struct SortOut {
+  int* box_at;
+  int* pos_of;
+  int* nv;
+  int* nseg;
+  int* seg_start;
+  int* tile_off;
+};
+
+// the exclusive prefix sum of v over the kSortThreads threads of a block,
+// and the total; `sums` 32 ints of shared memory; every thread calls it
+__device__ __forceinline__ int block_scan(int v, int* sums, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < kSortThreads / 32 ? sums[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, s, off);
+      if (lane >= off) s += y;
+    }
+    sums[lane] = s;
+  }
+  __syncthreads();
+  total = sums[kSortThreads / 32 - 1];
+  const int before = (warp ? sums[warp - 1] : 0) + x - v;
+  __syncthreads();  // sums is free again
+  return before;
 }
 
-// (a) box_at[p] = the box at position p; nv[scene] = the valid boxes
-__global__ void __launch_bounds__(kOrderThreads)
-nms_order_kernel(const float* __restrict__ scores, const bool* __restrict__ valid,
-                 int* __restrict__ box_at, int* __restrict__ nv_out, int k, int matrix) {
-  __shared__ unsigned long long keys[kOrderTile];
-  __shared__ int n_ok;
-  const int scene = blockIdx.y, t = threadIdx.x;
+// a box's sort key, ascending: a box outside `valid` sets the top bit; at
+// class-aware thresh >= 0 bits 46-62 hash its class (the top 17 bits of
+// class x 2^64 / phi), so that a class's boxes are contiguous; then the
+// complement of order_key's high word (the larger score first, NaN before
+// all) and of the index's (`low`, < 2^14), the tie rule. Two classes of one
+// hash share a segment: their pairs are 0 in the bit matrix all the same
+__device__ __forceinline__ unsigned long long sort_key(float s, int low, bool ok,
+                                                       long long cls, bool segments) {
+  const unsigned int o = static_cast<unsigned int>(order_key(s, 0) >> 32);
+  const unsigned long long h =
+      segments && ok ? (static_cast<unsigned long long>(cls) * 0x9E3779B97F4A7C15ull) >> 47 : 0ull;
+  return (ok ? 0ull : kSign) | h << kSegShift | static_cast<unsigned long long>(~o) << kLowBits |
+         (kLowMask - static_cast<unsigned long long>(low));
+}
+
+// the sum of v over the kSortThreads threads of a block; every thread
+// calls it
+__device__ __forceinline__ int block_sum(int v, int* sums) {
+  int total;
+  block_scan(v, sums, total);
+  return total;
+}
+
+// key i's slot in the sort's shared memory: a pad word after every 32, so
+// that the threads' runs, kSortRun keys apart, fall on different banks
+__device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
+
+// (a) a block a scene: each box's sort_key, sorted ascending in shared
+// memory: each thread sorts a run of kSortRun keys in registers (a bitonic
+// network), then the runs are merged pairwise, each thread placing
+// kSortRun keys of the merged run after a binary search for its start (the
+// merge path), one barrier a level. Then box_at (and pos_of in matrix
+// mode), nv, the keep flag false of every box outside `valid`, the
+// segments (a class hash's positions at class-aware thresh >= 0, else [0,
+// nv)) and, for the tiles, each row word's tiles: the column words from it
+// to the end of the segment of its last valid position.
+template <int kMode>
+__global__ void __launch_bounds__(kSortThreads, 1)
+nms_sort_kernel(const float* __restrict__ scores, const long long* __restrict__ cls,
+                const bool* __restrict__ valid, bool* __restrict__ keep_out, SortOut out, int k,
+                int words, int segments) {
+  constexpr bool kMatrixMode = kMode == kMatrix;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* src = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* dst = src + sort_slots(k);
+  __shared__ int sums[32];
+  const int scene = blockIdx.x, t = threadIdx.x;
   const long long base = static_cast<long long>(scene) * k;
-  const int i = blockIdx.x * kOrderThreads + t;
-  const unsigned long long mine = i < k ? box_key(scores, valid, base, i, k, matrix) : 0ull;
-  int pos = 0;
-  for (int j0 = 0; j0 < k; j0 += kOrderTile) {
-    const int len = min(kOrderTile, k - j0);
-    for (int j = t; j < len; j += kOrderThreads) keys[j] = box_key(scores, valid, base, j0 + j, k, matrix);
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < len; ++j) pos += keys[j] > mine;
-    __syncthreads();
+  SORT_STAMP(0);
+  // the keys, coalesced, into shared memory in box order
+  int ok_count = 0;
+  for (int i = t; i < k; i += kSortThreads) {
+    const bool ok = valid == nullptr || valid[base + i];
+    dst[slot(i)] = sort_key(scores[base + i], kMatrixMode ? k - 1 - i : i, ok,
+                            segments ? cls[base + i] : 0, segments);
+    ok_count += ok;
   }
-  if (i < k) box_at[base + pos] = i;
-  if (blockIdx.x == 0) {  // the scene's valid boxes, by its first block
-    if (t == 0) n_ok = 0;
-    __syncthreads();
-    int ok = 0;
-    for (int j = t; j < k; j += kOrderThreads) ok += valid == nullptr || valid[base + j];
-    atomicAdd(&n_ok, ok);
-    __syncthreads();
-    if (t == 0) nv_out[scene] = n_ok;
+  const int nv = block_sum(ok_count, sums);  // its barriers also publish the keys
+  // each run of kSortRun keys sorted in registers (a bitonic network);
+  // padding keys (~0) sort last
+  for (int d0 = t * kSortRun; d0 < k; d0 += kSortThreads * kSortRun) {
+    unsigned long long r[kSortRun];
+#pragma unroll
+    for (int e = 0; e < kSortRun; ++e) r[e] = d0 + e < k ? dst[slot(d0 + e)] : ~0ull;
+#pragma unroll
+    for (int size = 2; size <= kSortRun; size <<= 1) {
+#pragma unroll
+      for (int half = size >> 1; half > 0; half >>= 1) {
+#pragma unroll
+        for (int m = 0; m < kSortRun / 2; ++m) {
+          const int x = m % half, at = m / half * 2 * half;
+          const int i = at + x, j = half == size >> 1 ? at + size - 1 - x : i + half;
+          const unsigned long long lo = r[i] < r[j] ? r[i] : r[j], hi = r[i] < r[j] ? r[j] : r[i];
+          r[i] = lo;
+          r[j] = hi;
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kSortRun; ++e) {
+      if (d0 + e < k) src[slot(d0 + e)] = r[e];
+    }
   }
+  SORT_STAMP(1);
+  // the merges: runs of len into runs of 2 len; a thread places kSortRun
+  // keys from the start the merge path gives, one load a key and no branch
+  for (int len = kSortRun; len < k; len <<= 1) {
+    __syncthreads();
+    for (int d0 = t * kSortRun; d0 < k; d0 += kSortThreads * kSortRun) {
+      const int at = d0 & ~(2 * len - 1);
+      const int a_end = min(at + len, k), b_end = min(at + 2 * len, k);
+      const int la = a_end - at, lb = b_end - a_end, d = d0 - at;
+      int i = max(0, d - lb), top = min(d, la);  // keys of a among the first d
+      while (i < top) {
+        const int mid = (i + top) >> 1;
+        if (src[slot(at + mid)] < src[slot(a_end + d - 1 - mid)]) {
+          i = mid + 1;
+        } else {
+          top = mid;
+        }
+      }
+      int j = d - i;
+      unsigned long long va = i < la ? src[slot(at + i)] : ~0ull;
+      unsigned long long vb = j < lb ? src[slot(a_end + j)] : ~0ull;
+#pragma unroll
+      for (int e = 0; e < kSortRun; ++e) {
+        const bool take_a = va < vb;
+        if (d0 + e < b_end) dst[slot(d0 + e)] = take_a ? va : vb;
+        i += take_a;
+        j += !take_a;
+        const bool more = take_a ? i < la : j < lb;
+        const unsigned long long next = more ? src[slot(take_a ? at + i : a_end + j)] : ~0ull;
+        va = take_a ? next : va;
+        vb = take_a ? vb : next;
+      }
+    }
+    unsigned long long* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  __syncthreads();
+  SORT_STAMP(2);
+  // the positions
+  for (int p = t; p < k; p += kSortThreads) {
+    const int low = static_cast<int>(kLowMask - (src[slot(p)] & kLowMask));
+    const int box = kMatrixMode ? k - 1 - low : low;
+    out.box_at[base + p] = box;
+    if constexpr (kMatrixMode) out.pos_of[base + box] = p;
+    if (p >= nv) keep_out[base + box] = false;
+  }
+  SORT_STAMP(3);
+  // the segments: a thread's run of positions, its heads counted, then placed
+  auto seg_of = [&](int p) { return src[slot(p)] >> kSegShift; };
+  auto head = [&](int p) { return p == 0 || seg_of(p) != seg_of(p - 1); };
+  const int run = (nv + kSortThreads - 1) / kSortThreads;
+  const int p0 = min(t * run, nv), p1 = min(p0 + run, nv);
+  int heads = 0;
+  for (int p = p0; p < p1; ++p) heads += head(p);
+  int nseg;
+  int at = block_scan(heads, sums, nseg);
+  int* seg = out.seg_start + static_cast<long long>(scene) * (k + 1);
+  for (int p = p0; p < p1; ++p) {
+    if (head(p)) seg[at++] = p;
+  }
+  if (t == 0) {
+    seg[nseg] = nv;
+    out.nseg[scene] = nseg;
+    out.nv[scene] = nv;
+  }
+  SORT_STAMP(4);
+  if constexpr (!kMatrixMode) {
+    const int wn = (nv + 63) / 64;
+    int count = 0;
+    if (t < wn) {
+      const int last = min(64 * t + 63, nv - 1);
+      const unsigned long long mine = seg_of(last);
+      int a = last + 1, b = nv;  // the end of last's segment: the first later head
+      while (a < b) {
+        const int mid = (a + b) >> 1;
+        if (seg_of(mid) == mine) {
+          a = mid + 1;
+        } else {
+          b = mid;
+        }
+      }
+      count = (a - 1) / 64 - t + 1;
+    }
+    int total;
+    const int first = block_scan(count, sums, total);
+    int* tiles = out.tile_off + static_cast<long long>(scene) * (words + 1);
+    if (t < wn) tiles[t] = first;
+    if (t == 0) tiles[wn] = total;
+  }
+  SORT_STAMP(5);
 }
 
-// (b) the 64 x 64 tile (row word rw, column word cw) of a scene's matrix
+// (b) box modes: a block walks its scene's tiles (row word rw, column word
+// cw) from the sort's list (staged in shared memory), gridDim.x blocks a
+// scene. The tile's 64 row and 64 column boxes come through box_at (a
+// scattered read of each box's bounds, on every SM); each pair's overlap by
+// the cluster path's device functions, float64 class-aware, float32
+// otherwise. Only the live pairs (later positions below nv; at class-aware
+// thresh >= 0 of one class, whose gate is 1: the others stay 0) are queued,
+// a warp's over its 8 rows, 32 at a time, a lane a pair; at thresh >= 0
+// only the pairs whose bounds overlap on every axis (an exact float32 test:
+// elsewhere a side is 0, or NaN, so the intersection is 0 or NaN and the
+// pair sets no bit). Their bits by atomicOr; the tile's 64 row words
+// written coalesced into mat[scene][cw][position]. A box with a NaN bound
+// takes the NaN-carrying min and max within its tiles: a pair's overlap
+// depends on its own two boxes only, so this equals the scene-wide rule.
 template <int kMode>
 __global__ void __launch_bounds__(kTileThreads)
-nms_tile_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
-                const float* __restrict__ iou, const long long* __restrict__ cls,
-                const int* __restrict__ box_at, const int* __restrict__ nv_in,
-                unsigned long long* __restrict__ mat, int k, int words, double thresh,
-                int old_type) {
+nms_tiles_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
+                 const long long* __restrict__ cls, const int* __restrict__ box_at,
+                 const int* __restrict__ nv_in, const int* __restrict__ tile_off,
+                 unsigned long long* __restrict__ mat, int k, int words, double thresh,
+                 int old_type) {
   using T = typename Traits<kMode>::T;
   constexpr int kAxes = Traits<kMode>::kAxes;
   constexpr int kSlots = 128;  // the tile's 64 row boxes, then its 64 column boxes
-  const int scene = blockIdx.y;
-  const int rw = blockIdx.x / words, cw = blockIdx.x % words;
-  const int nv = nv_in[scene];
-  const int q0 = 64 * rw, c0 = 64 * cw;
-  if (cw < rw || q0 >= nv || c0 >= nv) return;  // block-uniform: no tile the rounds read
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int scene = blockIdx.y, t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const long long base = static_cast<long long>(scene) * k;
+  const int nv = nv_in[scene], wn = (nv + 63) / 64;
+  CYCLES_DECL;
   __shared__ float lo[kAxes * kSlots], hi[kAxes * kSlots];
   __shared__ T area[kSlots];
   __shared__ long long label[kSlots];
-  __shared__ int box[kSlots];
   __shared__ unsigned int bits32[128];  // the tile's 64 rows, two 32-bit halves each
-  __shared__ int queue_s[kTileWarps][64];
-  bool has_nan = false;
-  if (t < kSlots) {
-    const int p = t < 64 ? q0 + t : c0 + t - 64;
-    const int r = box_at[base + min(p, nv - 1)];  // a dead slot computes on a live box
-    box[t] = r;
-    if constexpr (Traits<kMode>::kBoxes) {
+  __shared__ int queue_s[kTileWarps][64];  // a warp's live pairs, (row << 6 | column)
+  __shared__ int tiles[kGlobalMaxWords + 1];
+  for (int v = t; v <= wn; v += kTileThreads) {
+    tiles[v] = tile_off[static_cast<long long>(scene) * (words + 1) + v];
+  }
+  __syncthreads();
+  CYCLES_ADD(0);  // the tile list staged
+  const int ntiles = tiles[wn];
+  const bool same_class = Traits<kMode>::kGated && !(thresh < 0.0);
+  const bool meeting = !(thresh < 0.0);  // only pairs that intersect can set a bit
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    CYCLES_FROM();
+    CYCLES_COUNT(4);
+    int rw = 0, top = wn - 1;  // the last row word whose first tile is at most `tile`
+    while (rw < top) {
+      const int mid = (rw + top + 1) >> 1;
+      if (tiles[mid] <= tile) {
+        rw = mid;
+      } else {
+        top = mid - 1;
+      }
+    }
+    const int cw = rw + tile - tiles[rw];
+    const int q0 = 64 * rw, c0 = 64 * cw;
+    bool has_nan = false;
+    if (t < kSlots) {
+      const int p = min(t < 64 ? q0 + t : c0 + t - 64, nv - 1);  // a dead slot computes on a live box
+      const long long box = base + box_at[base + p];
       T d[kAxes];
 #pragma unroll
       for (int a = 0; a < kAxes; ++a) {
         const int axis = kAxes == 2 && a == 1 ? 2 : a;
-        const float l = mins[(base + r) * 3 + axis], h = maxs[(base + r) * 3 + axis];
+        const float l = mins[box * 3 + axis], h = maxs[box * 3 + axis];
         lo[a * kSlots + t] = l;
         hi[a * kSlots + t] = h;
         d[a] = sub(static_cast<T>(h), static_cast<T>(l));
-        has_nan = has_nan || (p < nv && d[a] != d[a]);
+        has_nan = has_nan || d[a] != d[a];
       }
       T ar = mul(d[0], d[1]);
       if constexpr (kAxes == 3) ar = mul(ar, d[2]);
       area[t] = ar;
-      if constexpr (Traits<kMode>::kGated) label[t] = cls[base + r];
+      if constexpr (Traits<kMode>::kGated) label[t] = cls[box];
+      bits32[t] = 0u;
     }
-  }
-  if (t < 128) bits32[t] = 0u;
-  const bool any_nan = __syncthreads_or(has_nan);
-  const bool skip = Traits<kMode>::kGated && !(thresh < 0.0);
-  const float thresh_f = static_cast<float>(thresh);
-  auto fill = [&](auto nan_tag) {
-    constexpr bool kNan = decltype(nan_tag)::value;
-    const Boxes<kMode> bx{lo, hi, area, label, kSlots};
-    if (skip) {
-      // same-class pairs only, queued (row << 6 | column) 32 at a time, a lane
-      // a pair; their bits by atomicOr
+    const bool any_nan = __syncthreads_or(has_nan);
+    CYCLES_ADD(1);  // the boxes loaded
+    CYCLES_FROM();
+    auto fill = [&](auto nan_tag) {
+      constexpr bool kNan = decltype(nan_tag)::value;
+      const Boxes<kMode> bx{lo, hi, area, label, kSlots};
       int* queue = queue_s[warp];
       int queued = 0;
-      auto test = [&](bool live) {
+      auto test = [&](bool live) {  // every lane, a dead one on the first pair
         const int pr = queue[live ? lane : 0];
         const int r = pr >> 6, cc = pr & 63;
-        const bool over = suppresses<kMode, kNan, true>(bx, r, 64 + cc, old_type, thresh);
+        bool over;
+        if (Traits<kMode>::kGated && same_class) {
+          over = suppresses<kMode, kNan, true>(bx, r, 64 + cc, old_type, thresh);
+        } else {
+          over = suppresses<kMode, kNan>(bx, r, 64 + cc, old_type, thresh);
+        }
         if (live && over) atomicOr(&bits32[2 * r + (cc >> 5)], 1u << (cc & 31));
       };
       for (int r = warp; r < 64; r += kTileWarps) {
@@ -761,9 +1048,18 @@ nms_tile_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
 #pragma unroll
         for (int g = 0; g < 2; ++g) {
           const int cc = 32 * g + lane, c = c0 + cc;
-          const bool cand = (q < nv) & (c > q) & (c < nv) & (label[r] == label[64 + cc]);
-          const unsigned int m = __ballot_sync(kFull, cand);
-          if (cand) queue[queued + __popc(m & ((1u << lane) - 1u))] = r << 6 | cc;
+          // & and |, not && and ||: every load issued at once, no branch
+          bool live = (q < nv) & (c > q) & (c < nv);
+          if constexpr (Traits<kMode>::kGated) live &= !same_class | (label[r] == label[64 + cc]);
+          if (meeting) {
+#pragma unroll
+            for (int a = 0; a < kAxes; ++a) {
+              live &= (hi[a * kSlots + r] > lo[a * kSlots + 64 + cc]) &
+                      (hi[a * kSlots + 64 + cc] > lo[a * kSlots + r]);
+            }
+          }
+          const unsigned int m = __ballot_sync(kFull, live);
+          if (live) queue[queued + __popc(m & ((1u << lane) - 1u))] = r << 6 | cc;
           queued += __popc(m);
           if (queued >= 32) {
             __syncwarp();
@@ -777,166 +1073,351 @@ nms_tile_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
       }
       __syncwarp();
       if (queued > 0) test(lane < queued);
-    } else {  // every pair: a ballot a 32-column group
-      for (int r = warp; r < 64; r += kTileWarps) {
-        const int q = q0 + r;
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          const int cc = 32 * g + lane, c = c0 + cc;
-          const bool live = (q < nv) & (c > q) & (c < nv);
-          bool over;
-          if constexpr (kMode == kMatrix) {
-            over = iou[(base + box[r]) * k + box[64 + cc]] > thresh_f;
-          } else {
-            over = suppresses<kMode, kNan>(bx, r, 64 + cc, old_type, thresh);
-          }
-          const unsigned int bits = __ballot_sync(kFull, live && over);
-          if (lane == 0) bits32[2 * r + g] = bits;
-        }
-      }
+    };
+    if (any_nan) {
+      fill(std::true_type{});
+    } else {
+      fill(std::false_type{});
     }
-  };
-  if (kMode != kMatrix && any_nan) {
-    fill(std::true_type{});
-  } else {
-    fill(std::false_type{});
+    CYCLES_ADD(2);  // warp 0's overlaps
+    CYCLES_FROM();
+    __syncthreads();
+    CYCLES_ADD(3);  // waiting for the other warps'
+    if (t < 64) {
+      const long long at = (static_cast<long long>(scene) * words + cw) * (64LL * words) + q0 + t;
+      mat[at] = static_cast<unsigned long long>(bits32[2 * t + 1]) << 32 | bits32[2 * t];
+    }
+    __syncthreads();  // the next tile's boxes
   }
-  __syncthreads();
-  if (t < 64) {
-    const long long at = (static_cast<long long>(scene) * words + cw) * (64LL * words) + q0 + t;
-    mat[at] = static_cast<unsigned long long>(bits32[2 * t + 1]) << 32 | bits32[2 * t];
+  if (t == 0) {
+    CYCLES_WRITE(1, 0, 4);
   }
 }
 
-// the rounds kernel's shared memory, all of it dynamic: matrix mode's first
-// valid box, a diagonal block, and the removed, won and -inf masks of `words`
-// words
-__host__ __device__ inline long long rounds_smem(int words) { return 8 + 64 * 8 + 3LL * words * 8; }
+// the rows kernel's dynamic shared memory: every box's position, then a
+// row of `words` words a warp
+__host__ __device__ inline int rows_smem(int k, int words) {
+  return (4 * k + 15) / 16 * 16 + kRowsWarps * words * 8;
+}
 
-// (c) the rounds of a scene, then its keep flags
-template <bool kMatrixMode>
-__global__ void __launch_bounds__(kRoundsThreads)
-nms_rounds_kernel(const float* __restrict__ scores, const int* __restrict__ box_at,
-                  const int* __restrict__ nv_in, const unsigned long long* __restrict__ mat,
-                  bool* __restrict__ keep_out, int k, int words) {
+// (b) matrix mode: a warp a row of the IoU matrix, rows_per_block rows a
+// block, in box order, so that each byte of the matrix is read once, in
+// 16-byte loads, streamed (evict-first) past the L2: each element over
+// thresh sets, in the warp's row of bits in shared memory, the bit of its
+// column's position when that lies after the row's (pos_of through shared
+// memory); the row's words from its position's on are written as row
+// pos(row) of mat[scene][word][position]. Rows of boxes outside `valid` are
+// not read.
+__global__ void __launch_bounds__(kRowsThreads)
+nms_rows_kernel(const float* __restrict__ iou, const int* __restrict__ pos_of,
+                const int* __restrict__ nv_in, unsigned long long* __restrict__ mat, int k,
+                int words, int rows_per_block, float thresh) {
   extern __shared__ __align__(16) unsigned char smem[];
-  long long& first_s = *reinterpret_cast<long long*>(smem);
-  unsigned long long* diag = reinterpret_cast<unsigned long long*>(smem) + 1;
-  unsigned long long* removed = diag + 64;
-  unsigned long long* won = removed + words;
-  unsigned long long* ninf = won + words;
-  const int scene = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int* pos = reinterpret_cast<int*>(smem);
+  const int scene = blockIdx.y, t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const long long base = static_cast<long long>(scene) * k;
-  const unsigned long long* mat_s = mat + static_cast<long long>(scene) * words * (64LL * words);
-  const int nv = nv_in[scene];
-  const int wn = (nv + 63) / 64;
-  for (int v = t; v < wn; v += kRoundsThreads) removed[v] = 0ull;
-  if constexpr (kMatrixMode) {
-    // the -inf positions, and the position of the first valid box (pf)
-    for (int g = warp; g * 32 < nv; g += kRoundsWarps) {
-      const int q = g * 32 + lane;
-      const bool neg = q < nv &&
-          static_cast<unsigned int>(order_key(scores[base + box_at[base + q]], 0) >> 32) ==
-              kNegInfHigh;
-      const unsigned int bits = __ballot_sync(kFull, neg);
-      if (lane == 0) reinterpret_cast<unsigned int*>(ninf)[g] = bits;
-    }
-    long long first = static_cast<long long>(k) * k;  // (box, position), packed
-    for (int p = t; p < nv; p += kRoundsThreads) {
-      first = min(first, static_cast<long long>(box_at[base + p]) * k + p);
-    }
-    for (int off = 16; off; off >>= 1) first = min(first, __shfl_xor_sync(kFull, first, off));
-    if (t == 0) first_s = static_cast<long long>(k) * k;
-    __syncthreads();
-    if (lane == 0) atomicMin(&first_s, first);
-  }
+  const int nv = nv_in[scene], wn = (nv + 63) / 64;
+  const int first = blockIdx.x * rows_per_block, last = min(k, first + rows_per_block);
+  unsigned long long* row = reinterpret_cast<unsigned long long*>(smem + (4 * k + 15) / 16 * 16) +
+                            warp * words;
+  unsigned int* row32 = reinterpret_cast<unsigned int*>(row);
+  for (int i = t; i < k; i += kRowsThreads) pos[i] = pos_of[base + i];
   __syncthreads();
-  for (int w = 0; w < wn; ++w) {
-    const unsigned long long* word_w = mat_s + static_cast<long long>(w) * (64LL * words);
-    if (t < 64) diag[t] = word_w[64 * w + t];
-    __syncthreads();
-    if (t == 0) {  // a position not yet removed when the scan reaches it wins
-      unsigned long long rem = removed[w], mine = 0ull;
+  for (int i = first + warp; i < last; i += kRowsWarps) {
+    const int p = pos[i];
+    if (p >= nv) continue;  // warp-uniform
+    const int v0 = p >> 6;
+    for (int v = v0 + lane; v < wn; v += 32) row[v] = 0ull;
+    __syncwarp();
+    // the row from the 16-byte boundary at or before it: the loads' other
+    // elements are masked, and an aligned 16 bytes never crosses a page
+    const float* src = iou + (base + i) * k;
+    const float4* src4 =
+        reinterpret_cast<const float4*>(reinterpret_cast<uintptr_t>(src) & ~uintptr_t(15));
+    const int off = static_cast<int>(src - reinterpret_cast<const float*>(src4));
+    const int n4 = (off + k + 3) >> 2;
+    for (int c0 = lane; c0 < n4; c0 += 4 * 32) {
+      float4 x[4];
 #pragma unroll
-      for (int b = 0; b < 64; ++b) {
-        const bool wins = (rem >> b & 1ull) == 0ull;
-        rem |= wins ? diag[b] : 0ull;
-        mine |= wins ? 1ull << b : 0ull;
+      for (int u = 0; u < 4; ++u) {  // four loads in flight a lane
+        const int c = c0 + 32 * u;
+        x[u] = c < n4 ? __ldcs(src4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      removed[w] = rem;
-      won[w] = mine;
-    }
-    __syncthreads();
-    const unsigned long long mine = won[w];
-    for (int v = w + 1 + warp; v < wn; v += kRoundsWarps) {  // the winners' rows into word v
-      const unsigned long long* word_v = mat_s + static_cast<long long>(v) * (64LL * words) + 64 * w;
-      unsigned long long acc = (mine >> lane & 1ull ? word_v[lane] : 0ull) |
-                               (mine >> (lane + 32) & 1ull ? word_v[lane + 32] : 0ull);
 #pragma unroll
-      for (int off = 16; off; off >>= 1) acc |= __shfl_xor_sync(kFull, acc, off);
-      if (lane == 0) removed[v] |= acc;
-    }
-    __syncthreads();
-  }
-  if constexpr (kMatrixMode) {
-    // _nms_jax's all -inf rule, as step 4 applies it
-    if (t == 0) {
-      const int pf = static_cast<int>(first_s % k);
-      bool stuck = false;
-      for (int w = 0; w < wn; ++w) {
-        const int len = min(64, nv - 64 * w);
-        unsigned long long hit = won[w] & ninf[w] & (len == 64 ? ~0ull : (1ull << len) - 1ull);
-        if (pf >> 6 == w) hit &= ~(1ull << (pf & 63));
-        if (stuck) {
-          won[w] = 0ull;
-        } else if (hit) {
-          won[w] &= (hit & (0ull - hit)) - 1ull;  // the positions before it
-          stuck = true;
+      for (int u = 0; u < 4; ++u) {
+        const float e[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int j = 4 * (c0 + 32 * u) + h - off;
+          if (e[h] > thresh && j >= 0 && j < k) {
+            const int pj = pos[j];
+            if (pj > p && pj < nv) atomicOr(&row32[pj >> 5], 1u << (pj & 31));
+          }
         }
       }
-      if (stuck) won[pf >> 6] |= 1ull << (pf & 63);
+    }
+    __syncwarp();
+    for (int v = v0 + lane; v < wn; v += 32) {
+      mat[(static_cast<long long>(scene) * words + v) * (64LL * words) + p] = row[v];
+    }
+    __syncwarp();
+  }
+}
+
+// a word's winners from its diagonal block in shared memory: a position
+// not yet removed when the scan reaches it wins, and its row joins the
+// mask. A row's bits lie past its position, so a winner is only ever
+// removed before its turn, and only winners whose rows hold a bit (`nz`)
+// change the mask: the scan visits those alone, in order, a step each
+// (each row masked to its later positions), and the winners are the
+// positions the mask never took
+__device__ __forceinline__ unsigned long long scan_word(const unsigned long long* diag,
+                                                        unsigned long long removed,
+                                                        unsigned long long nz) {
+  unsigned long long visit = ~removed & nz;
+  while (visit) {
+    const int b = __ffsll(static_cast<long long>(visit)) - 1;
+    const unsigned long long later = ~1ull << b;
+    removed |= diag[b] & later;
+    visit = ~removed & nz & later;
+  }
+  return ~removed;
+}
+
+// the rows of `mine`'s positions (lane and lane + 32 of a word's 64) ORed
+// over the warp, a warp reduction a half: every lane gets the sum
+__device__ __forceinline__ unsigned long long or_rows(unsigned long long mine, int lane,
+                                                      unsigned long long r0,
+                                                      unsigned long long r1) {
+  const unsigned long long acc =
+      (mine >> lane & 1ull ? r0 : 0ull) | (mine >> (lane + 32) & 1ull ? r1 : 0ull);
+  const unsigned int hi = __reduce_or_sync(kFull, static_cast<unsigned int>(acc >> 32));
+  return static_cast<unsigned long long>(hi) << 32 |
+         __reduce_or_sync(kFull, static_cast<unsigned int>(acc));
+}
+
+// (c) the rounds of each segment [s0, s1), gridDim.x blocks a scene each
+// taking every gridDim.x-th segment, then its keep flags. Positions of the
+// segment's first and last words outside it start removed, so that they
+// neither win nor suppress (a pair of two segments is 0 anyway). For word w
+// warp 0 keeps the chain: lane 0 scans the diagonal block, and the warp ORs
+// the winners' rows into word w + 1 (kept in a register for its scan) from
+// registers loaded during the last word, while it loads word w + 1's
+// diagonal block and the next word of its rows; the other warps fold word
+// w - 1's winners into the words after w + 1 meanwhile, a warp per word,
+// the rows of its first kFoldBatch words loaded during the word before; one
+// barrier a word. Matrix mode's all -inf rule after the scan, as step 4
+// applies it (a single segment, [0, nv)).
+template <bool kMatrixMode>
+__global__ void __launch_bounds__(kChainThreads)
+nms_chain_kernel(const float* __restrict__ scores, const int* __restrict__ box_at,
+                 const int* __restrict__ nv_in, const int* __restrict__ nseg_in,
+                 const int* __restrict__ seg_start, const unsigned long long* __restrict__ mat,
+                 bool* __restrict__ keep_out, int k, int words) {
+  __shared__ unsigned long long removed[kGlobalMaxWords], won[kGlobalMaxWords];
+  __shared__ unsigned long long ninf[kMatrixMode ? kGlobalMaxWords : 1];  // the -inf positions
+  __shared__ unsigned long long diag[64];
+  __shared__ long long first_s;
+  const int scene = blockIdx.y, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long base = static_cast<long long>(scene) * k;
+  const long long stride = 64LL * words;  // a word's rows
+  const unsigned long long* mat_s = mat + static_cast<long long>(scene) * words * stride;
+  const int nv = nv_in[scene], nseg = nseg_in[scene];
+  const int* seg = seg_start + static_cast<long long>(scene) * (k + 1);
+  CYCLES_DECL;
+  for (int s = blockIdx.x; s < nseg; s += gridDim.x) {
+    const int s0 = seg[s], s1 = seg[s + 1];
+    const int a = s0 >> 6, z = (s1 - 1) >> 6, nw = z - a + 1;
+    CYCLES_COUNT(6);
+    for (int v = t; v < nw; v += kChainThreads) {
+      const int e = s1 - 64 * (a + v);  // the segment's positions of the word: [.., e)
+      removed[v] = (v == 0 ? (1ull << (s0 & 63)) - 1ull : 0ull) |
+                   (e < 64 ? ~((1ull << e) - 1ull) : 0ull);
+    }
+    if constexpr (kMatrixMode) {  // the -inf positions, and the first valid box's (pf)
+      for (int g = warp; g * 32 < nv; g += kChainWarps) {
+        const int q = g * 32 + lane;
+        const bool neg = q < nv &&
+            static_cast<unsigned int>(order_key(scores[base + box_at[base + q]], 0) >> 32) ==
+                kNegInfHigh;
+        const unsigned int bits = __ballot_sync(kFull, neg);
+        if (lane == 0) reinterpret_cast<unsigned int*>(ninf)[g] = bits;
+      }
+      long long first = static_cast<long long>(k) * k;  // (box, position), packed
+      for (int p = t; p < nv; p += kChainThreads) {
+        first = min(first, static_cast<long long>(box_at[base + p]) * k + p);
+      }
+      for (int off = 16; off; off >>= 1) first = min(first, __shfl_xor_sync(kFull, first, off));
+      if (t == 0) first_s = static_cast<long long>(k) * k;
+      __syncthreads();
+      if (lane == 0) atomicMin(&first_s, first);
+    }
+    const int helpers = kChainWarps - 1;
+    // a helper's rows of word w_rows at its words v_first + u helpers
+    unsigned long long h0[kFoldBatch], h1[kFoldBatch];
+    auto helper_rows = [&](int w_rows, int v_first) {
+#pragma unroll
+      for (int u = 0; u < kFoldBatch; ++u) {
+        const int v = v_first + u * helpers;
+        const unsigned long long* rows = mat_s + v * stride + 64 * w_rows;
+        h0[u] = v <= z ? rows[lane] : 0ull;
+        h1[u] = v <= z ? rows[lane + 32] : 0ull;
+      }
+    };
+    unsigned long long d0 = 0ull, d1 = 0ull, n0 = 0ull, n1 = 0ull;  // warp 0's loads for word a
+    if (warp == 0) {
+      const unsigned long long* rows = mat_s + a * stride + 64 * a;
+      d0 = rows[lane];
+      d1 = rows[lane + 32];
+      if (a < z) {
+        n0 = rows[stride + lane];
+        n1 = rows[stride + lane + 32];
+      }
+    } else {
+      helper_rows(a, a + 1 + warp);
     }
     __syncthreads();
+    unsigned long long carry = 0ull;  // warp 0: the last word's winners' rows in this word
+    for (int w = a; w <= z; ++w) {
+      CYCLES_FROM();
+      CYCLES_COUNT(4);
+      if (warp == 0) {
+        diag[lane] = d0;
+        diag[lane + 32] = d1;
+        const unsigned long long nz =
+            static_cast<unsigned long long>(__ballot_sync(kFull, d1 != 0ull)) << 32 |
+            __ballot_sync(kFull, d0 != 0ull);
+        const unsigned long long next0 = n0, next1 = n1;
+        if (w < z) {  // word w + 1's loads, in flight during this word
+          const unsigned long long* rows = mat_s + (w + 1) * stride + 64 * (w + 1);
+          d0 = rows[lane];
+          d1 = rows[lane + 32];
+          if (w + 1 < z) {
+            n0 = rows[stride + lane];
+            n1 = rows[stride + lane + 32];
+          }
+        }
+        __syncwarp();
+        CYCLES_ADD(0);  // the diagonal block's loads
+        CYCLES_FROM();
+        unsigned long long mine = lane == 0 ? scan_word(diag, removed[w - a] | carry, nz) : 0ull;
+        mine = __shfl_sync(kFull, mine, 0);
+        CYCLES_ADD(1);  // the scan
+        CYCLES_FROM();
+        if (w < z) carry = or_rows(mine, lane, next0, next1);
+        if (lane == 0) won[w - a] = mine;
+        CYCLES_ADD(2);  // the next word's fold
+      } else {
+        if (w > a) {  // word w - 1's winners into the words after w + 1
+          const unsigned long long prev = won[w - 1 - a];
+#pragma unroll
+          for (int u = 0; u < kFoldBatch; ++u) {  // the rows loaded during the last word
+            // a word has one writer a step (warp 0 keeps its own in a register)
+            const int v = w + warp + u * helpers;
+            const unsigned long long acc = or_rows(prev, lane, h0[u], h1[u]);
+            if (lane == 0 && v <= z) removed[v - a] |= acc;
+          }
+          for (int v = w + warp + kFoldBatch * helpers; v <= z; v += helpers) {  // past them
+            const unsigned long long* rows = mat_s + v * stride + 64 * (w - 1);
+            const unsigned long long acc = or_rows(prev, lane, rows[lane], rows[lane + 32]);
+            if (lane == 0) removed[v - a] |= acc;
+          }
+        }
+        if (w < z) helper_rows(w, w + 1 + warp);  // for the next word
+        CYCLES_ADD(5);  // a helper's folds
+      }
+      CYCLES_FROM();
+      __syncthreads();
+      CYCLES_ADD(3);  // the barrier
+    }
+    if constexpr (kMatrixMode) {
+      // _nms_jax's all -inf rule, as step 4 applies it: the segment is [0, nv)
+      if (t == 0) {
+        const int pf = static_cast<int>(first_s % k);
+        bool stuck = false;
+        for (int w = 0; w < nw; ++w) {
+          unsigned long long hit = won[w] & ninf[w];
+          if (pf >> 6 == w) hit &= ~(1ull << (pf & 63));
+          if (stuck) {
+            won[w] = 0ull;
+          } else if (hit) {
+            won[w] &= (hit & (0ull - hit)) - 1ull;  // the positions before it
+            stuck = true;
+          }
+        }
+        if (stuck) won[pf >> 6] |= 1ull << (pf & 63);
+      }
+      __syncthreads();
+    }
+    for (int p = s0 + t; p < s1; p += kChainThreads) {
+      keep_out[base + box_at[base + p]] = won[(p >> 6) - a] >> (p & 63) & 1ull;
+    }
+    __syncthreads();  // the next segment's masks
   }
-  for (int p = t; p < k; p += kRoundsThreads) {
-    keep_out[base + box_at[base + p]] = p < nv && (won[p >> 6] >> (p & 63) & 1ull);
+  if (t == 0) {
+    CYCLES_WRITE(2, 0, 4);
+    CYCLES_WRITE(2, 6, 6);
+  } else if (t == 32) {
+    CYCLES_WRITE(2, 5, 5);
   }
 }
 
 // whether the global path can launch b scenes of k boxes
-bool bad_global_shape(int b, int k) {
-  if (b < 1 || b > 65535 || k < 1) return true;
-  const long long words = (k + 63LL) / 64;
-  return words * words >= (1LL << 31) || rounds_smem(static_cast<int>(words)) > kSmemMax;
+bool bad_global_shape(int b, int k) { return b < 1 || b > 65535 || k < 1 || k > kGlobalMaxBoxes; }
+
+template <typename F>
+cudaError_t allow_smem(F* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int kMode>
 int launch_global(const float* mins, const float* maxs, const float* iou, const float* scores,
-                  const long long* cls, const bool* valid, bool* keep, int* scratch,
-                  unsigned long long* mat, int b, int k, double thresh, int old_type,
+                  const long long* cls, const bool* valid, bool* keep, unsigned char* scratch,
+                  unsigned long long* mat, int b, int k, double thresh, int old_type, int blocks,
                   cudaStream_t stream) {
   constexpr bool kMatrixMode = kMode == kMatrix;
-  const int words = (k + 63) / 64;
-  int* box_at = scratch;
-  int* nv = scratch + static_cast<long long>(b) * k;
-  nms_order_kernel<<<dim3((k + kOrderThreads - 1) / kOrderThreads, b), kOrderThreads, 0, stream>>>(
-      scores, valid, box_at, nv, k, kMatrixMode);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  nms_tile_kernel<kMode><<<dim3(words * words, b), kTileThreads, 0, stream>>>(
-      mins, maxs, iou, cls, box_at, nv, mat, k, words, thresh, old_type);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int smem = static_cast<int>(rounds_smem(words));
-  static bool ready = false;  // the attribute once a process, at the largest size
+  static bool ready = false;  // the attributes once a process, at the largest sizes
   if (!ready) {
-    e = cudaFuncSetAttribute(nms_rounds_kernel<kMatrixMode>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    cudaError_t e = allow_smem(nms_sort_kernel<kMode>, 16 * sort_slots(kGlobalMaxBoxes));
+    if (e == cudaSuccess && kMatrixMode) {
+      e = allow_smem(nms_rows_kernel, rows_smem(kGlobalMaxBoxes, kGlobalMaxWords));
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
     ready = true;
   }
-  nms_rounds_kernel<kMatrixMode><<<b, kRoundsThreads, smem, stream>>>(scores, box_at, nv, mat,
-                                                                      keep, k, words);
+  if (blocks < 1 || blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int words = (k + 63) / 64;
+  const Scratch lay(b, k);
+  SortOut out{reinterpret_cast<int*>(scratch + lay.box_at),
+              reinterpret_cast<int*>(scratch + lay.pos_of),
+              reinterpret_cast<int*>(scratch + lay.nv), reinterpret_cast<int*>(scratch + lay.nseg),
+              reinterpret_cast<int*>(scratch + lay.seg_start),
+              reinterpret_cast<int*>(scratch + lay.tile_off)};
+  const int segments = Traits<kMode>::kGated && !(thresh < 0.0);
+  int chain_blocks = 1;  // the class segments': one wave of rounds blocks over the scenes
+  if (segments) {
+    int device = 0, n_sm = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    chain_blocks = std::max(1, std::min(65535, (n_sm * kChainBlocksPerSm + b - 1) / b));
+  }
+  nms_sort_kernel<kMode><<<b, kSortThreads, 16 * sort_slots(k), stream>>>(
+      scores, cls, valid, keep, out, k, words, segments);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if constexpr (kMatrixMode) {  // blocks: rows a block
+    nms_rows_kernel<<<dim3((k + blocks - 1) / blocks, b), kRowsThreads, rows_smem(k, words),
+                      stream>>>(iou, out.pos_of, out.nv, mat, k, words, blocks,
+                                static_cast<float>(thresh));
+  } else {  // blocks: tile blocks a scene
+    nms_tiles_kernel<kMode><<<dim3(blocks, b), kTileThreads, 0, stream>>>(
+        mins, maxs, cls, out.box_at, out.nv, out.tile_off, mat, k, words, thresh, old_type);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  nms_chain_kernel<kMatrixMode><<<dim3(chain_blocks, b), kChainThreads, 0, stream>>>(
+      scores, out.box_at, out.nv, out.nseg, out.seg_start, mat, keep, k, words);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -971,32 +1452,43 @@ extern "C" int nms_matrix_launch(const float* iou, const float* scores, const bo
                          cluster, stream);
 }
 
-// Past kMaxBoxes, any K the card holds: the same masks through the global
-// matrix. scratch: b k + b i32 (box_at, nv); mat: (b, W, 64 W) u64, W =
-// ceil(k / 64), neither read before it is written here. Box mode's other
-// arguments are nms_boxes_launch's; matrix mode's nms_matrix_launch's.
+// Past kMaxBoxes, up to kGlobalMaxBoxes: the same masks through the global
+// matrix. scratch: nms_global_scratch_bytes(b, k) bytes; mat: (b, W, 64 W)
+// u64, W = ceil(k / 64); neither is read before it is written here. Box
+// mode's other arguments are nms_boxes_launch's, with tile_blocks the tile
+// kernel's blocks a scene; matrix mode's nms_matrix_launch's, with
+// rows_per_block the rows kernel's matrix rows a block. The rounds take
+// kChainBlocksPerSm blocks an SM over the scenes where class-aware mode at
+// thresh >= 0 cuts them into class segments, else one a scene.
+extern "C" int nms_global_scratch_bytes(int b, int k, long long* bytes) {
+  if (bad_global_shape(b, k)) return static_cast<int>(cudaErrorInvalidValue);
+  *bytes = Scratch(b, k).bytes;
+  return 0;
+}
+
 extern "C" int nms_boxes_global_launch(const float* mins, const float* maxs, const float* scores,
                                        const long long* cls, const bool* valid, bool* keep,
-                                       int* scratch, unsigned long long* mat, int b, int k,
-                                       int mode, int old_type, double thresh,
-                                       cudaStream_t stream) {
+                                       unsigned char* scratch, unsigned long long* mat, int b,
+                                       int k, int mode, int old_type, double thresh,
+                                       int tile_blocks, cudaStream_t stream) {
   if (bad_global_shape(b, k) || (mode == k3DCls && cls == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (mode) {
-    case k2D: return launch_global<k2D>(mins, maxs, nullptr, scores, cls, valid, keep, scratch, mat, b, k, thresh, old_type, stream);
-    case k3D: return launch_global<k3D>(mins, maxs, nullptr, scores, cls, valid, keep, scratch, mat, b, k, thresh, old_type, stream);
-    case k3DCls: return launch_global<k3DCls>(mins, maxs, nullptr, scores, cls, valid, keep, scratch, mat, b, k, thresh, old_type, stream);
+    case k2D: return launch_global<k2D>(mins, maxs, nullptr, scores, cls, valid, keep, scratch, mat, b, k, thresh, old_type, tile_blocks, stream);
+    case k3D: return launch_global<k3D>(mins, maxs, nullptr, scores, cls, valid, keep, scratch, mat, b, k, thresh, old_type, tile_blocks, stream);
+    case k3DCls: return launch_global<k3DCls>(mins, maxs, nullptr, scores, cls, valid, keep, scratch, mat, b, k, thresh, old_type, tile_blocks, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 extern "C" int nms_matrix_global_launch(const float* iou, const float* scores, const bool* valid,
-                                        bool* keep, int* scratch, unsigned long long* mat, int b,
-                                        int k, float thresh, cudaStream_t stream) {
+                                        bool* keep, unsigned char* scratch,
+                                        unsigned long long* mat, int b, int k, float thresh,
+                                        int rows_per_block, cudaStream_t stream) {
   if (bad_global_shape(b, k)) return static_cast<int>(cudaErrorInvalidValue);
   return launch_global<kMatrix>(nullptr, nullptr, iou, scores, nullptr, valid, keep, scratch, mat,
-                                b, k, thresh, 0, stream);
+                                b, k, thresh, 0, rows_per_block, stream);
 }
 
 // cudaOccupancyMaxActiveClusters for a launch of `mode` (0-2 box modes, 3
@@ -1019,6 +1511,17 @@ extern "C" int nms_max_active_clusters(int mode, int k, int cluster, int* count)
 extern "C" int nms_phases_read(long long* out, int blocks) {
   return static_cast<int>(
       cudaMemcpyFromSymbol(out, nms_phase_clock, blocks * (kStamps + 2) * sizeof(long long)));
+}
+
+// the global path's (sort, tiles, chain) x kPhaseBlocks x kCycleSlots
+// stamps and sums, zeroed by nms_global_phases_clear
+extern "C" int nms_global_phases_read(long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, nms_global_clock, sizeof(nms_global_clock)));
+}
+
+extern "C" int nms_global_phases_clear() {
+  static long long zeros[3][kPhaseBlocks][kCycleSlots];
+  return static_cast<int>(cudaMemcpyToSymbol(nms_global_clock, zeros, sizeof(zeros)));
 }
 #endif
 

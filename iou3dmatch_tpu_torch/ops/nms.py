@@ -4,11 +4,14 @@
 ``nms_masked`` (greedy NMS over an IoU matrix, ``_nms_jax``) launch
 ``csrc/nms.cu`` on CUDA tensors: up to MAX_BOXES boxes a scene every scene
 of a request in one launch, a thread-block cluster of ``nms_plan``'s size a
-scene, the bit matrix in the leader block's shared memory; past it three
-launches with the bit matrix in device memory (``_global``). On CPU tensors
+scene, the bit matrix in the leader block's shared memory; past it, up to
+GLOBAL_MAX_BOXES, three launches with the bit matrix in device memory
+(``_global``: a sort, the matrix, the rounds of each class segment or
+scene, launched as ``global_blocks`` says; ``global_run`` sets it for tests
+and sweeps); past GLOBAL_MAX_BOXES they raise by name. On CPU tensors
 they run their plain PyTorch versions, ``geometry/nms.py::nms_boxes_plain``
-and ``nms_masked_plain``. Any K on either device, as the JAX package's
-host NumPy NMS (``iou3dmatch_tpu/eval/ap_helper.py:95-135``) and
+and ``nms_masked_plain``, at any K, as the JAX package's host NumPy NMS
+(``iou3dmatch_tpu/eval/ap_helper.py:95-135``) and
 ``iou3dmatch_tpu/geometry/nms.py::_nms_jax`` (``:170-191``) take.
 """
 import ctypes
@@ -23,12 +26,11 @@ from . import _build
 # K x K bit matrix in shared memory up to it; past it the global path
 MAX_BOXES = 1024
 MODE_IDS = {"2d": 0, "3d": 1, "3d_cls": 2, "matrix": 3}  # csrc/nms.cu Mode
-# csrc/nms.cu kSmemMax: the global path's rounds kernel keeps a scene's
-# removed, won and -inf masks (3 words of 8 bytes a 64 boxes) beside a
-# diagonal block (512 bytes) and a first-box slot (8) in one block's
-# shared memory, which bounds K there
+# csrc/nms.cu kSmemMax and kGlobalMaxBoxes: the global path's sort holds a
+# scene's 8-byte keys twice (and a pad word every 32) in one block's shared
+# memory, which bounds K there
 SMEM_MAX = 232448
-GLOBAL_MAX_BOXES = (SMEM_MAX - 8 - 64 * 8) // (3 * 8) * 64
+GLOBAL_MAX_BOXES = 14016
 NMS_CLUSTERS = (1, 2, 4, 8, 16)  # blocks a scene; 16 is the H100's non-portable largest
 MIN_ROWS = 16  # rows of the bit matrix a block fills, at least: one a warp
 
@@ -82,24 +84,59 @@ def _launch_cluster(b: int, k: int, mode: str, device, cluster: Optional[int]) -
     return cluster
 
 
+TILE_BLOCKS_PER_SM = 8  # csrc/nms.cu nms_tiles_kernel: 256 threads, ~9 KB, 8 blocks an SM
+ROW_WARPS = 8  # csrc/nms.cu kRowsWarps: a warp a row
+# the values global_run's blocks takes in the card tests and chip_smoke.py's
+# --nms-sweep besides the planned one
+GLOBAL_TILE_BLOCKS = (16, 33, 66, 132, 264)
+GLOBAL_ROWS_PER_BLOCK = (8, 16, 32, 64, 128)
+
+
+def global_blocks(b: int, n_sm: int, matrix: bool) -> int:
+    """The global path's launch for B scenes on a card of ``n_sm`` SMs: in
+    matrix mode the rows kernel's matrix rows a block, a row a warp (the
+    fastest of GLOBAL_ROWS_PER_BLOCK at 2,048 and 4,096 boxes, PERF.md §6);
+    in the box modes the tile kernel's blocks a scene, one wave of resident
+    tile blocks spread over the scenes. (The rounds' blocks, csrc/nms.cu
+    kChainBlocksPerSm an SM over the scenes, are planned in the launch.)"""
+    if matrix:
+        return ROW_WARPS
+    return max(1, min(65535, -(-(n_sm * TILE_BLOCKS_PER_SM) // b)))
+
+
 def _no_cluster(cluster: Optional[int], k: int) -> None:
     if cluster is not None:
         raise ValueError(f"cluster sizes are the cluster path's, up to {MAX_BOXES} boxes; "
                          f"{k} boxes take the global path")
 
 
-def _global(b: int, k: int, device, launch) -> torch.Tensor:
-    """The global path past MAX_BOXES: its scratch (each box's position and
-    the valid count) and the (B, W, 64 W) u64 bit matrix, W = ceil(K / 64),
-    from the caching allocator, then ``launch(keep, scratch, mat)``, which
-    returns the C entry's code. Raises, by name, for a K the path cannot
-    launch or a matrix the card cannot allocate."""
+def _entry(lib, symbol: str, argtypes):
+    """The C entry ``symbol`` of csrc/nms.cu: the wrapper's library, or
+    ``lib`` (another build of the same source) where given."""
+    if lib is None:
+        return _build.kernel("nms", symbol, argtypes)
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
+
+
+def _global(b: int, k: int, device, lib, launch) -> torch.Tensor:
+    """The global path past MAX_BOXES: its scratch (positions, segments,
+    the tile list; ``nms_global_scratch_bytes``)
+    and the (B, W, 64 W) u64 bit matrix, W = ceil(K / 64), from the caching
+    allocator, then ``launch(keep, scratch, mat)``, which returns the C
+    entry's code. Raises, by name, for a K the path cannot launch or a
+    matrix the card cannot allocate."""
     if b > 65535 or k > GLOBAL_MAX_BOXES:
         raise ValueError(f"NMS on the card takes at most {GLOBAL_MAX_BOXES} boxes a scene and "
                          f"65,535 scenes a launch past {MAX_BOXES} boxes, got ({b}, {k})")
     words = -(-k // 64)
     keep = torch.empty((b, k), dtype=torch.bool, device=device)
-    scratch = torch.empty(b * k + b, dtype=torch.int32, device=device)
+    size = _entry(lib, "nms_global_scratch_bytes",
+                  (_build.INT, _build.INT, ctypes.POINTER(ctypes.c_longlong)))
+    nbytes = ctypes.c_longlong(0)
+    _build.check(size(b, k, ctypes.byref(nbytes)), "nms scratch size")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=device)
     try:
         mat = torch.empty((b, words, 64 * words), dtype=torch.int64, device=device)
     except torch.cuda.OutOfMemoryError as e:
@@ -107,6 +144,16 @@ def _global(b: int, k: int, device, launch) -> torch.Tensor:
                           f"bit matrix, which the card cannot allocate") from e
     _build.check(launch(keep, scratch, mat), "nms (global matrix)")
     return keep
+
+
+def _global_only(k: int, blocks: Optional[int], lib) -> None:
+    """Raises for ``global_run``'s settings where the cluster path runs or
+    for a ``blocks`` the launch does not take."""
+    if k <= MAX_BOXES and (blocks is not None or lib is not None):
+        raise ValueError(f"blocks and lib are the global path's, past {MAX_BOXES} boxes; "
+                         f"{k} boxes take the cluster path")
+    if blocks is not None and not 1 <= blocks <= 65535:
+        raise ValueError(f"global path blocks {blocks} out of range")
 
 
 def _valid_ptr(valid, shape, device) -> int:
@@ -125,8 +172,12 @@ def nms_boxes(mins: torch.Tensor, maxs: torch.Tensor, scores: torch.Tensor, cls,
     classes for ``3d_cls`` (else None), valid (B, K) bool or None -> (B, K)
     bool keep mask (see ``nms_boxes_plain``). On the card up to MAX_BOXES
     boxes take the cluster path, ``cluster`` overriding the planned cluster
-    size (for tests and sweeps); past it the global path, which takes no
-    cluster size."""
+    size (for tests and sweeps); past it the global path."""
+    return _boxes(mins, maxs, scores, cls, valid, mode, old_type, thresh, cluster)
+
+
+def _boxes(mins, maxs, scores, cls, valid, mode, old_type, thresh, cluster=None, blocks=None,
+           lib=None):
     if mode not in BOX_MODES:
         raise ValueError(f"unknown NMS mode {mode!r}; one of {sorted(BOX_MODES)}")
     if mins.dim() != 3 or mins.shape[2] != 3 or maxs.shape != mins.shape \
@@ -139,6 +190,7 @@ def nms_boxes(mins: torch.Tensor, maxs: torch.Tensor, scores: torch.Tensor, cls,
         if cls.is_floating_point():
             raise TypeError(f"cls must hold integer classes, got {cls.dtype}")
     b, k = scores.shape
+    _global_only(k, blocks, lib)
     if mins.device.type == "cpu":
         return nms_boxes_plain(mins, maxs, scores, cls, valid, mode, old_type, thresh)
     _build.require(mins, torch.float32, "mins")
@@ -154,12 +206,15 @@ def nms_boxes(mins: torch.Tensor, maxs: torch.Tensor, scores: torch.Tensor, cls,
         return torch.empty((b, k), dtype=torch.bool, device=mins.device)
     if k > MAX_BOXES:
         _no_cluster(cluster, k)
-        fn = _build.kernel("nms", "nms_boxes_global_launch", (_build.VP,) * 8 + (_build.INT,) * 4
-                           + (_build.DOUBLE, _build.VP))
-        keep = _global(b, k, mins.device, lambda keep, scratch, mat: fn(
+        if blocks is None:
+            n_sm = torch.cuda.get_device_properties(mins.device).multi_processor_count
+            blocks = global_blocks(b, n_sm, False)
+        fn = _entry(lib, "nms_boxes_global_launch", (_build.VP,) * 8 + (_build.INT,) * 4
+                    + (_build.DOUBLE, _build.INT, _build.VP))
+        keep = _global(b, k, mins.device, lib, lambda keep, scratch, mat: fn(
             mins.data_ptr(), maxs.data_ptr(), scores.data_ptr(), cls_ptr, valid_ptr,
             keep.data_ptr(), scratch.data_ptr(), mat.data_ptr(), b, k, MODE_IDS[mode],
-            int(bool(old_type)), float(thresh), _build.stream(mins)))
+            int(bool(old_type)), float(thresh), blocks, _build.stream(mins)))
         nms_boxes.launches += 1
         return keep
     keep = torch.empty((b, k), dtype=torch.bool, device=mins.device)
@@ -182,10 +237,15 @@ def nms_masked(iou: torch.Tensor, scores: torch.Tensor, thresh: float, valid=Non
     (B, K) bool keep mask (see ``nms_masked_plain``). On the card past
     MAX_BOXES the global path; ``cluster`` overrides the planned cluster
     size below it."""
+    return _masked(iou, scores, thresh, valid, cluster)
+
+
+def _masked(iou, scores, thresh, valid=None, cluster=None, blocks=None, lib=None):
     if iou.dim() != 3 or iou.shape[1] != iou.shape[2] or scores.shape != iou.shape[:2]:
         raise ValueError(f"iou (B, K, K) and scores (B, K) expected, got {tuple(iou.shape)} "
                          f"and {tuple(scores.shape)}")
     b, k = scores.shape
+    _global_only(k, blocks, lib)
     if iou.device.type == "cpu":
         return nms_masked_plain(iou, scores, thresh, valid)
     _build.require(iou, torch.float32, "iou")
@@ -195,11 +255,12 @@ def nms_masked(iou: torch.Tensor, scores: torch.Tensor, thresh: float, valid=Non
         return torch.empty((b, k), dtype=torch.bool, device=iou.device)
     if k > MAX_BOXES:
         _no_cluster(cluster, k)
-        fn = _build.kernel("nms", "nms_matrix_global_launch", (_build.VP,) * 6 + (_build.INT,) * 2
-                           + (_build.FLOAT, _build.VP))
-        keep = _global(b, k, iou.device, lambda keep, scratch, mat: fn(
+        blocks = ROW_WARPS if blocks is None else blocks
+        fn = _entry(lib, "nms_matrix_global_launch", (_build.VP,) * 6 + (_build.INT,) * 2
+                    + (_build.FLOAT, _build.INT, _build.VP))
+        keep = _global(b, k, iou.device, lib, lambda keep, scratch, mat: fn(
             iou.data_ptr(), scores.data_ptr(), valid_ptr, keep.data_ptr(), scratch.data_ptr(),
-            mat.data_ptr(), b, k, float(thresh), _build.stream(iou)))
+            mat.data_ptr(), b, k, float(thresh), blocks, _build.stream(iou)))
         nms_masked.launches += 1
         return keep
     keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
@@ -213,3 +274,14 @@ def nms_masked(iou: torch.Tensor, scores: torch.Tensor, thresh: float, valid=Non
 
 
 nms_masked.launches = 0
+
+
+def global_run(kernel, args, blocks: Optional[int] = None, lib=None) -> torch.Tensor:
+    """The card tests' and measurements' hook into the global path:
+    ``kernel`` (``nms_boxes`` or ``nms_masked``) on its positional ``args``
+    past MAX_BOXES, with ``blocks`` in place of ``global_blocks``' plan
+    (the tile kernel's blocks a scene in the box modes, the rows kernel's
+    matrix rows a block in matrix mode) and ``lib``'s C entries in place of
+    the wrapper's library (csrc/nms.cu built with -DNMS_PHASES, say).
+    Counted as a call of ``kernel``; raises where the cluster path runs."""
+    return {nms_boxes: _boxes, nms_masked: _masked}[kernel](*args, blocks=blocks, lib=lib)

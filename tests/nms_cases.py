@@ -28,7 +28,15 @@ are (the heading only turns the rotated IoU's boxes).
 - ``LARGE``: K = 1,025 to 4,096, past the cluster path, where the kernel
   keeps the bit matrix in device memory: ``--cluster_sampling vote_fps
   --vote_factor 2`` gives 2,048 votes to sample proposals from, and the
-  CPU and the JAX package take any K.
+  CPU and the JAX package take any K. Besides the kinds above, for the
+  class segments of the class-aware mode: ``skewed`` (one class holding
+  a share of each scene, past 1,024 boxes), ``sized_classes`` (classes of
+  exactly given sizes: 1,024 and 1,025), one class and 300 classes,
+  ``extreme_labels`` (negative and large int64 classes, with boxes outside
+  ``valid``), ``nan_in_class`` (NaN bounds inside one class) and
+  ``class_cut`` (``valid`` cutting one class to 0 boxes and another to
+  half), and ``hash_pairs`` (classes whose 17-bit hashes in the kernel's
+  sort key agree, so that two classes share a segment).
 """
 import numpy as np
 
@@ -152,6 +160,73 @@ def all_neg_inf(seed, b, k):
     return case
 
 
+def skewed(seed, b, k, share):
+    """``clustered`` boxes of 18 classes, each box's class redrawn as 0 with
+    probability ``share``, as chairs fill ScanNet's rooms."""
+    case = clustered(seed, b, k, 18)
+    rng = np.random.RandomState(seed + 3000)
+    case["cls"] = np.where(rng.rand(b, k) < share, 0, case["cls"]).astype(np.int64)
+    return case
+
+
+def sized_classes(seed, sizes):
+    """One scene of ``clustered`` boxes whose classes hold exactly ``sizes``
+    boxes, shuffled."""
+    case = clustered(seed, 1, sum(sizes), 1)
+    cls = np.repeat(np.arange(len(sizes)), sizes)
+    case["cls"] = np.random.RandomState(seed + 4000).permutation(cls)[None].astype(np.int64)
+    return case
+
+
+# int64 classes at both ends and between; each is exact in float64 (the JAX
+# package's NumPy NMS compares classes as float64) but the largest, whose
+# float64 no other shares
+LABELS = np.array([np.iinfo(np.int64).min, -(2 ** 40), -3, 0, 5, 2 ** 62, 2 ** 63 - 1024,
+                   np.iinfo(np.int64).max], np.int64)
+
+
+def extreme_labels(seed, b, k):
+    """``clustered`` boxes whose classes are LABELS, a fifth of them outside
+    ``valid`` (whose keys the largest class's share its leading word)."""
+    case = clustered(seed, b, k, len(LABELS))
+    case["cls"] = LABELS[case["cls"]]
+    case["valid"] = np.random.RandomState(seed + 5000).rand(b, k) > 0.2
+    return case
+
+
+def nan_in_class(seed, b, k):
+    """``clustered`` boxes of 6 classes, a twentieth of class 1's with one
+    NaN bound."""
+    case = clustered(seed, b, k, 6)
+    rng = np.random.RandomState(seed + 6000)
+    pick = (case["cls"] == 1) & (rng.rand(b, k) < 0.05)
+    axis = rng.randint(0, 3, (b, k))
+    for key in ("mins", "maxs"):
+        case[key][pick & (axis == (0 if key == "mins" else 2))] = np.nan
+    return case
+
+
+def class_cut(seed, b, k):
+    """``clustered`` boxes of 6 classes, ``valid`` cutting class 2 to no box
+    and class 3 to about half."""
+    case = clustered(seed, b, k, 6)
+    rng = np.random.RandomState(seed + 7000)
+    case["valid"] = (case["cls"] != 2) & ~((case["cls"] == 3) & (rng.rand(b, k) < 0.5))
+    return case
+
+
+# pairs of classes whose hashes in csrc/nms.cu's sort key agree (the top 17
+# bits of class x 0x9E3779B97F4A7C15 modulo 2^64): 0 and 75,025, 18 and 75,043
+HASH_PAIRS = np.array([0, 75025, 7, 18, 75043], np.int64)
+
+
+def hash_pairs(seed, b, k):
+    """``clustered`` boxes whose classes are HASH_PAIRS."""
+    case = clustered(seed, b, k, len(HASH_PAIRS))
+    case["cls"] = HASH_PAIRS[case["cls"]]
+    return case
+
+
 CASES = {
     "clustered_k128": lambda: clustered(1, 4, 128, 4),
     "clustered_k256": lambda: clustered(2, 2, 256, 6),
@@ -193,6 +268,15 @@ LARGE = {
     "tied_k2048": lambda: clustered(27, 1, 2048, 4, ties=True),
     "negative_thresh_k1100": lambda: clustered(29, 1, 1100, 3, thresh=-0.1),
     "clustered_k4096": lambda: clustered(28, 1, 4096, 18),
+    "skewed_k2048": lambda: skewed(30, 1, 2048, 0.6),
+    "skewed_k4096": lambda: skewed(31, 1, 4096, 0.4),
+    "classes_1024_1025": lambda: sized_classes(32, (1024, 1025, 51)),
+    "one_class_k1500": lambda: one_class(33, 1, 1500),
+    "classes300_k2048": lambda: clustered(34, 1, 2048, 300),
+    "labels_k1200": lambda: extreme_labels(35, 2, 1200),
+    "nan_bounds_k1100": lambda: nan_in_class(36, 1, 1100),
+    "class_cut_k1300": lambda: class_cut(37, 2, 1300),
+    "hash_pairs_k1400": lambda: hash_pairs(38, 1, 1400),
 }
 
 

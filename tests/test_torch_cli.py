@@ -4,13 +4,15 @@ and ``--eval`` against the JAX driver.
 - Flag parity: ``vars(parse_args(argv))`` of each port driver equals the
   JAX driver's for ``[]`` and for ``tests/test_cli.py``'s argvs, but for
   JAX's ``platform`` and the port's ``device``.
-- Startup: with no CUDA and no ``--device`` a driver raises. No flag is
-  refused on the card: ``--bf16`` and ``--f32_gridconv`` run
-  (tests/test_torch_bf16_cli.py), and so does a ``--num_target`` past the
-  1,024 boxes of NMS's cluster path (``ops/nms.py::MAX_BOXES``):
-  ``driver_device`` accepts it on a mocked card, and the pretrain driver's
-  ``--eval`` at ``--cluster_sampling vote_fps --vote_factor 2`` with 1,025
-  and 2,048 proposals gives JAX's mAP and AR.
+- Startup: with no CUDA and no ``--device`` a driver raises. ``--bf16`` and
+  ``--f32_gridconv`` run on the card (tests/test_torch_bf16_cli.py), and
+  so does a ``--num_target`` past the 1,024 boxes of NMS's cluster path
+  (``ops/nms.py::MAX_BOXES``): ``driver_device`` accepts it on a mocked
+  card, and the pretrain driver's ``--eval`` at ``--cluster_sampling
+  vote_fps --vote_factor 2`` with 1,025 and 2,048 proposals gives JAX's
+  mAP and AR. Past the global path's ``GLOBAL_MAX_BOXES`` (14,016) both
+  drivers refuse ``--num_target`` on the card by name, before any log,
+  data or model; the CPU takes it.
 - The chain ``run_pretrain_torch.sh`` -> ``run_train_torch.sh`` ->
   ``run_eval_opt_torch.sh`` on ``--synthetic --tiny --device cpu`` in
   ``tmp_path`` (``tests/test_cli.py:75``'s recipe): every file the drivers
@@ -79,6 +81,30 @@ def test_no_cuda_raises_without_device_cpu(tmp_path, monkeypatch):
             driver.main(["--log_dir", str(tmp_path / "log")] + TINY)
     assert common.driver_device(pretrain.parse_args(CPU)) == torch.device("cpu")
     assert common.driver_device(pretrain.parse_args(CPU + ["--num_target", "1025"])).type == "cpu"
+
+
+@pytest.mark.parametrize("driver", [pretrain, train])
+@pytest.mark.parametrize("tiny", [False, True])
+def test_num_target_past_the_global_path(tmp_path, monkeypatch, driver, tiny):
+    """More proposals a scene than NMS's global path takes on the card
+    (GLOBAL_MAX_BOXES): refused at startup by name, on a mocked card as
+    without one, before any log, data or model; the global path's largest
+    count is taken, and the CPU takes any."""
+    from iou3dmatch_tpu_torch.ops.nms import GLOBAL_MAX_BOXES
+
+    past = ["--num_target", str(GLOBAL_MAX_BOXES + 1)] + (["--tiny"] if tiny else [])
+    log_dir = tmp_path / "log"
+    for available in (False, True):
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: available)
+            with pytest.raises(SystemExit, match="GLOBAL_MAX_BOXES"):
+                driver.main(["--log_dir", str(log_dir)] + past)
+    assert not log_dir.exists()
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        largest = ["--num_target", str(GLOBAL_MAX_BOXES)]
+        assert common.driver_device(driver.parse_args(largest)) == torch.device("cuda", 0)
+    assert common.driver_device(driver.parse_args(CPU + past)) == torch.device("cpu")
 
 
 def _events(d):

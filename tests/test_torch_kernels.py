@@ -25,8 +25,10 @@ exactly on every case of tests/nms_cases.py in its three box modes, both
 old_types and matrix mode, at the planned cluster size and at every size
 nms_plan can pick, K from 1 to 1,024 across the bit rows' words and the
 blocks' shares, 300 scenes, the plan's residency, past 1,024 on the
-global-matrix path (nms_cases.LARGE, K to 4,096, and K either side of the
-switch), the wrapper's refusals, and parse_predictions on the card
+global-matrix path (nms_cases.LARGE, K to 4,096 with the class segments'
+cases, and K either side of the switch, at the planned launch and every
+knob of the sweep, the same over two runs; the largest K it takes, and
+one more refused by name), the wrapper's refusals, and parse_predictions on the card
 against the NumPy parse; three_interpolate bit for bit at FP1's and FP2's
 shapes and on repeated, out-of-range and clamped indices, zero weights,
 one known row, ragged channels and a table off 16-byte alignment, with
@@ -70,7 +72,8 @@ from iou3dmatch_tpu_torch.ops.interpolate import (NN_LAUNCHES, InterpBwdLaunch, 
 from iou3dmatch_tpu_torch.ops.lhs import MAX_BOXES, SMALL_BOXES, lhs_3d_samecls
 from iou3dmatch_tpu_torch.ops.nms import GLOBAL_MAX_BOXES as NMS_GLOBAL_MAX_BOXES
 from iou3dmatch_tpu_torch.ops.nms import MAX_BOXES as NMS_MAX_BOXES
-from iou3dmatch_tpu_torch.ops.nms import NMS_CLUSTERS, nms_boxes, nms_masked
+from iou3dmatch_tpu_torch.ops.nms import (GLOBAL_ROWS_PER_BLOCK, GLOBAL_TILE_BLOCKS, NMS_CLUSTERS,
+                                          global_run, nms_boxes, nms_masked)
 from iou3dmatch_tpu_torch.ops.nms import max_active_clusters as nms_max_active_clusters
 from iou3dmatch_tpu_torch.ops.nms import planned_cluster as nms_planned_cluster
 from iou3dmatch_tpu_torch.ops.fps import (GLOBAL, REG_PPTS, SHARED, STREAM_THREADS, FpsLaunch,
@@ -811,12 +814,20 @@ def test_nms_kernel_refuses_bad_input(cuda):
                        nms_boxes(mins, maxs, scores, cls, None, "3d_cls", False, 0.25))
 
 
+def _global_blocks(matrix):
+    """The global path's planned launch (None), then every value of
+    ``global_run``'s blocks the sweep takes (rows a block in matrix mode,
+    tile blocks a scene else)."""
+    return (None,) + (GLOBAL_ROWS_PER_BLOCK if matrix else GLOBAL_TILE_BLOCKS)
+
+
 @pytest.mark.parametrize("mode", ["2d", "3d", "3d_cls", "matrix"])
 @pytest.mark.parametrize("case", sorted(NMS_LARGE))
 def test_nms_kernel_global_path_matches_plain(cuda, case, mode):
-    """Past the cluster path's 1,024 boxes (K 1,025 to 4,096): the global
-    matrix's keep masks equal the plain version's on the card, one launch
-    a call."""
+    """Past the cluster path's 1,024 boxes (K 1,025 to 4,096; the class
+    segments' cases among them): the global matrix's keep masks equal the
+    plain version's on the card at the planned launch and every knob of
+    the sweep, the same over two runs, one launch a call."""
     raw = NMS_LARGE[case]()
     t = _nms_on(cuda, raw)
     if mode == "matrix":
@@ -832,6 +843,9 @@ def test_nms_kernel_global_path_matches_plain(cuda, case, mode):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert got.dtype == torch.bool and torch.equal(got, want)
+    for blocks in _global_blocks(mode == "matrix"):
+        for _ in range(2):
+            assert torch.equal(global_run(kernel, args, blocks), want), blocks
 
 
 def test_nms_kernel_either_side_of_the_global_switch(cuda):
@@ -842,10 +856,38 @@ def test_nms_kernel_either_side_of_the_global_switch(cuda):
         t = _nms_on(cuda, raw)
         for mode in ("2d", "3d", "3d_cls"):
             args = (t["mins"], t["maxs"], t["scores"], t["cls"], None, mode, False, 0.25)
-            assert torch.equal(nms_boxes(*args), nms_boxes_plain(*args)), (k, mode)
+            want = nms_boxes_plain(*args)
+            assert torch.equal(nms_boxes(*args), want), (k, mode)
+            for blocks in _global_blocks(False) if k > NMS_MAX_BOXES else ():
+                assert torch.equal(global_run(nms_boxes, args, blocks), want), (k, mode, blocks)
         iou = nms_box_overlaps(t["mins"], t["maxs"], None, "3d", False).float().contiguous()
-        assert torch.equal(nms_masked(iou, t["scores"], 0.25),
-                           nms_masked_plain(iou, t["scores"], 0.25)), k
+        want = nms_masked_plain(iou, t["scores"], 0.25)
+        assert torch.equal(nms_masked(iou, t["scores"], 0.25), want), k
+        for blocks in _global_blocks(True) if k > NMS_MAX_BOXES else ():
+            assert torch.equal(global_run(nms_masked, (iou, t["scores"], 0.25), blocks),
+                               want), (k, blocks)
+
+
+def test_nms_kernel_global_limits(cuda):
+    """The global path's largest K (GLOBAL_MAX_BOXES, the sort's keys in one
+    block) runs and equals the plain version; one box more raises by name
+    in both entries, as do ``global_run``'s blocks below the switch or
+    out of range."""
+    k = NMS_GLOBAL_MAX_BOXES
+    t = _nms_on(cuda, nms_clustered(40, 1, k, 18))
+    args = (t["mins"], t["maxs"], t["scores"], t["cls"], None, "3d_cls", False, 0.25)
+    assert torch.equal(nms_boxes(*args), nms_boxes_plain(*args))
+    over = torch.zeros((1, k + 1, 3), device=cuda)
+    with pytest.raises(ValueError, match=f"at most {k} boxes"):
+        nms_boxes(over, over, over[..., 0].contiguous(), None, None, "3d", False, 0.25)
+    with pytest.raises(ValueError, match=f"at most {k} boxes"):
+        nms_masked(torch.zeros((1, k + 1, k + 1), device=cuda), over[..., 0].contiguous(), 0.25)
+    small = _nms_on(cuda, NMS_CASES["clustered_k37"]())
+    with pytest.raises(ValueError, match="global path's"):
+        global_run(nms_boxes, (small["mins"], small["maxs"], small["scores"], None, None, "3d",
+                               False, 0.25), 132)
+    with pytest.raises(ValueError, match="out of range"):
+        global_run(nms_boxes, args, 0)
 
 
 def test_parse_predictions_on_the_card_picks_what_the_numpy_parse_picks(cuda):

@@ -18,10 +18,12 @@ kernel against the plain version, on the CPU.
   without dividing, the leader's scan a 64-position word at a time with the
   all -inf rule of matrix mode), equals the plain version bit for bit at
   every cluster size ``nms_plan`` can pick; ``nms_plan`` keeps its rules.
-  Past MAX_BOXES it models the global-matrix path: the order of all K
-  keys, the 64 x 64 tiles on and above the diagonal below nv (rows past nv
-  zero), the scan a word at a time with each later word ORing its
-  winners' rows, on ``nms_cases.LARGE`` (K = 1,025 to 4,096).
+  Past MAX_BOXES ``global_model`` models the global-matrix path: the
+  sort by (class, key) into class segments (class-aware at thresh >= 0;
+  one segment a scene otherwise), the tiles each segment's words need (or
+  matrix mode's rows, each read once), and each segment's rounds with its
+  neighbours' positions removed, on ``nms_cases.LARGE`` (K = 1,025 to
+  4,096), against the plain versions and the JAX package's NumPy NMS.
 - Every K runs on the CPU: K from 257 to 4,096 gives the JAX package's
   picks (``LARGE`` in each box mode against its NumPy NMS, and matrix mode
   against ``_nms_jax``).
@@ -39,8 +41,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from iou3dmatch_tpu_torch.geometry import nms as pnms  # noqa: E402
 from iou3dmatch_tpu_torch.ops.nms import (GLOBAL_MAX_BOXES, MAX_BOXES, MIN_ROWS,  # noqa: E402
-                                          MODE_IDS, NMS_CLUSTERS, SMEM_MAX, nms_boxes,
-                                          nms_masked, nms_plan)
+                                          MODE_IDS, NMS_CLUSTERS, ROW_WARPS, SMEM_MAX,
+                                          global_blocks, global_run, nms_boxes, nms_masked,
+                                          nms_plan)
 
 MODES = ("2d", "3d", "3d_cls")
 
@@ -245,22 +248,18 @@ def kernel_model(case, mode, old_type):
       cut at the first winner scoring -inf other than the first valid box,
       which wins.
 
-    Past MAX_BOXES, the global-matrix path: the order over all K keys (no
-    cluster shares); the tiles (row word, column word) on and above the
-    diagonal and below nv write every row of their words, rows past nv as
-    zeros (the other words hold random bits, which must change nothing);
-    the scan decides each word's winners from its diagonal words, then a
-    warp for each later word ORs the winners' rows into it.
+    Past MAX_BOXES, ``global_model``.
 
     Returns (keep (B, K) bool, overlaps computed, overlaps skipped)."""
     scores, thresh = case["scores"], case["thresh"]
     b, k = scores.shape
+    if k > MAX_BOXES:
+        return global_model(case, mode, old_type)
     valid = np.ones((b, k), bool) if case["valid"] is None else case["valid"]
     keep = np.zeros((b, k), bool)
     matrix = mode == "matrix"
     iou = _iou_3d(case).numpy() if matrix else None
     skip = mode == "3d_cls" and not thresh < 0
-    glob = k > MAX_BOXES
     words = -(-k // 64)
     computed = skipped = 0
     for s in range(b):
@@ -269,7 +268,7 @@ def kernel_model(case, mode, old_type):
         label = case["cls"][s]
         n = int((key != 0).sum())
         pos_of = np.where(key != 0, (key[None, :] > key[:, None]).sum(1), -1)
-        for cluster in () if glob else NMS_CLUSTERS:  # each block's share covers every box once
+        for cluster in NMS_CLUSTERS:  # each block's share covers every box once
             share = k if k <= LOCAL_ORDER else -(-k // cluster)
             owners = [list(range(r * share, min(k, (r + 1) * share)))
                       for r in range(cluster if share < k else 1)]
@@ -295,15 +294,14 @@ def kernel_model(case, mode, old_type):
         computed += int(cand.sum())
         skipped += int((later & ~cand).sum())
         # the words of the leader's matrix the kernel writes: row q's from
-        # q // 64 on (the global path's tiles: every row of their words,
-        # rows past n zero). Every other word keeps whatever the memory
-        # held: here, random bits, which must change nothing
+        # q // 64 on. Every other word keeps whatever the memory held:
+        # here, random bits, which must change nothing
         words_n = -(-n // 64)
         halves = np.random.RandomState(s).randint(0, 2 ** 32, (64 * words, 2 * words), dtype=np.uint64)
         if n:
             exact = np.packbits(np.pad(rows, ((0, 64 * words - n), (0, 64 * words - n))), axis=1,
                                 bitorder="little").view("<u4").astype(np.uint64)
-            for q in range(64 * words_n if glob else n):
+            for q in range(n):
                 halves[q, 2 * (q // 64):2 * words_n] = exact[q, 2 * (q // 64):2 * words_n]
         mat = [[int(halves[q, 2 * v]) | int(halves[q, 2 * v + 1]) << 32 for v in range(words)]
                for q in range(64 * words)]
@@ -320,13 +318,6 @@ def kernel_model(case, mode, old_type):
                     rem |= mat[q][w]
                     mine |= bit
             removed[w] = rem
-            if glob:  # a warp a later word: the OR of the winners' rows
-                for v in range(w + 1, wn):
-                    for b in range(64):
-                        if mine >> b & 1:
-                            removed[v] |= mat[64 * w + b][v]
-                won[w] = mine
-                continue
             share = 64 * wide // 32  # lanes l with l % wide == v split the winners
             for v in range(w + 1, wn):
                 parts = [0] * (32 // wide)
@@ -347,6 +338,159 @@ def kernel_model(case, mode, old_type):
         for i in idx[pos_of >= 0]:
             p = int(pos_of[i])
             keep[s, i] = bool(won[p // 64] >> (p % 64) & 1)
+    return keep, computed, skipped
+
+
+SIGN = np.uint64(1 << 63)
+HASH_MUL = np.uint64(0x9E3779B97F4A7C15)  # csrc/nms.cu sort_key's class hash
+SEG_SHIFT, LOW_BITS = 46, 14  # csrc/nms.cu kSegShift, kLowBits
+
+
+def scan_word(diag, removed: int) -> int:
+    """csrc/nms.cu scan_word: a word's winners from its 64 diagonal rows
+    (Python ints). A position not yet removed when the scan reaches it wins
+    and its row (masked to the later positions) joins the mask; only the
+    winners whose rows hold a bit change the mask, so only those are
+    visited, lowest first, and the winners are the positions the mask never
+    took."""
+    full = 2 ** 64 - 1
+    nz = sum(1 << bit_at for bit_at in range(64) if int(diag[bit_at]))
+    visit = ~removed & nz & full
+    while visit:
+        bit_at = (visit & -visit).bit_length() - 1
+        later = ~((2 << bit_at) - 1) & full
+        removed |= int(diag[bit_at]) & later
+        visit = ~removed & nz & later
+    return ~removed & full
+
+
+def global_model(case, mode, old_type):
+    """csrc/nms.cu's global path (K > MAX_BOXES) step by step in NumPy:
+
+    - the sort: each box's 64-bit key ascending: the top bit for a box
+      outside ``valid``, bits 46-62 its class's hash (class-aware at thresh
+      >= 0, else 0), then the complements of order_key's high word and of
+      the index; box_at from the key's low 14 bits; the segments: the
+      positions below nv where the bits from 46 on change (classes of one
+      hash share one);
+    - the bit matrix mat[word][position] in memory holding random bits:
+      box modes write the tiles each row word needs (the column words up to
+      the end of the segment of its last valid position), every live pair
+      of one class (class-aware at thresh >= 0; every live pair otherwise),
+      at thresh >= 0 only the pairs whose float32 bounds overlap on every
+      axis, computed in the kernel's order of operations, the others and
+      rows past nv zero;
+      matrix mode writes each valid position's row from its own word on;
+    - each segment's rounds: the words it spans, its neighbours' positions
+      removed at the start, a word's winners from its diagonal rows
+      (``scan_word``), then ORed into the next word (the chain's warp) and,
+      a word later, into the words after it (the other warps); matrix
+      mode's all -inf rule; the keep flags of the segment's boxes.
+
+    Returns (keep (B, K) bool, overlaps computed, pairs of two classes
+    skipped)."""
+    scores, thresh = case["scores"], case["thresh"]
+    b, k = scores.shape
+    valid = np.ones((b, k), bool) if case["valid"] is None else case["valid"]
+    matrix = mode == "matrix"
+    segmented = mode == "3d_cls" and not thresh < 0
+    iou = _iou_3d(case).numpy() if matrix else None
+    words = -(-k // 64)
+    keep = np.ones((b, k), bool)  # every flag is written: a stale True would show
+    computed = skipped = 0
+    low_mask = np.uint64((1 << LOW_BITS) - 1)
+    for s in range(b):
+        idx = np.arange(k)
+        low = ((k - 1 - idx) if matrix else idx).astype(np.uint64)
+        cls = case["cls"][s].astype(np.int64)
+        hashed = (cls.view(np.uint64) * HASH_MUL) >> np.uint64(47)
+        seg_bits = np.where(valid[s] & segmented, hashed, np.uint64(0))
+        high = order_key(scores[s], low) >> np.uint64(32)
+        key = (np.where(valid[s], np.uint64(0), SIGN) | seg_bits << np.uint64(SEG_SHIFT)
+               | (~high & np.uint64(0xFFFFFFFF)) << np.uint64(LOW_BITS) | (low_mask - low))
+        key = np.sort(key)
+        got_low = (low_mask - (key & low_mask)).astype(np.int64)
+        box_at = (k - 1 - got_low) if matrix else got_low
+        nv = int(valid[s].sum())
+        keep[s, box_at[nv:]] = False
+        hs = key >> np.uint64(SEG_SHIFT)
+        heads = [p for p in range(nv) if p == 0 or hs[p] != hs[p - 1]]
+        seg = heads + [nv]
+        wn = -(-nv // 64)
+        mat = np.random.RandomState(s).randint(0, 2 ** 63, (words, 64 * words), dtype=np.int64)
+        mat = mat.view(np.uint64) | (np.uint64(1) << np.uint64(63))  # garbage, every word nonzero
+        box = box_at[:nv]
+        later = np.triu(np.ones((nv, nv), bool), 1)
+        if matrix:
+            over = iou[s][np.ix_(box, box)] > np.float32(thresh)
+            bits = np.zeros((64 * wn, 64 * wn), bool)
+            bits[:nv, :nv] = later & over
+            packed = np.packbits(bits, axis=1, bitorder="little").view("<u8")
+            for p in range(nv):
+                mat[p // 64:wn, p] = packed[p, p // 64:wn]
+            computed += int(later.sum())
+        else:
+            axes = [0, 2] if mode == "2d" else [0, 1, 2]
+            dtype = np.float64 if mode == "3d_cls" else np.float32
+            lo_b = case["mins"][s][box][:, axes].astype(dtype)
+            hi_b = case["maxs"][s][box][:, axes].astype(dtype)
+            d = hi_b - lo_b
+            area = d[:, 0] * d[:, 1]
+            if len(axes) == 3:
+                area = area * d[:, 2]
+            over = _overlap_rows(lo_b, hi_b, area, cls[box], mode == "3d_cls", dtype, old_type, thresh)
+            live = later & (cls[box][:, None] == cls[box][None]) if segmented else later
+            skipped += int((later & ~live).sum())
+            if not thresh < 0:  # only pairs that intersect: the others set no bit
+                f_lo = case["mins"][s][box][:, axes]
+                f_hi = case["maxs"][s][box][:, axes]
+                meet = ((f_hi[:, None] > f_lo[None]) & (f_hi[None] > f_lo[:, None])).all(-1)
+                assert not (live & ~meet & over).any()
+                live = live & meet
+            bits = np.zeros((64 * wn, 64 * wn), bool)
+            bits[:nv, :nv] = live & over
+            packed = np.packbits(bits, axis=1, bitorder="little").view("<u8")
+            tiles = 0
+            for rw in range(wn):
+                last = min(64 * rw + 63, nv - 1)
+                end = next(e for e in seg if e > last)  # the end of last's segment
+                for cw in range(rw, (end - 1) // 64 + 1):
+                    mat[cw, 64 * rw:64 * rw + 64] = packed[64 * rw:64 * rw + 64, cw]
+                    tiles += 1
+            assert tiles >= wn
+            computed += int(live.sum())
+        first = np.flatnonzero(valid[s])
+        pos_of = np.empty(k, np.int64)
+        pos_of[box_at] = idx
+        pf = int(pos_of[first.min()]) if first.size else 0
+        for s0, s1 in zip(seg[:-1], seg[1:]):
+            a, z = s0 // 64, (s1 - 1) // 64
+            removed = {v: 0 for v in range(a, z + 1)}
+            removed[a] |= (1 << (s0 % 64)) - 1
+            if s1 - 64 * z < 64:
+                removed[z] |= ~((1 << (s1 - 64 * z)) - 1) & (2 ** 64 - 1)
+            won = {}
+            for w in range(a, z + 1):
+                mine = scan_word(mat[w, 64 * w:64 * w + 64], removed[w])
+                rows = [64 * w + bit_at for bit_at in range(64) if mine >> bit_at & 1]
+                if w < z:  # the chain's warp: the winners' rows into the next word
+                    for q in rows:
+                        removed[w + 1] |= int(mat[w + 1, q])
+                if w > a:  # the other warps: the last word's winners into the later words
+                    for v in range(w + 1, z + 1):
+                        for q in (64 * (w - 1) + bit_at for bit_at in range(64)
+                                  if won[w - 1] >> bit_at & 1):
+                            removed[v] |= int(mat[v, q])
+                won[w] = mine
+            if matrix:  # the all -inf rule: cut at the first -inf winner but pf, which wins
+                neg = [int(high[box_at[q]]) == NEG_INF_HIGH for q in range(nv)]
+                hits = [q for q in range(nv) if won[q // 64] >> (q % 64) & 1 and neg[q] and q != pf]
+                if hits:
+                    for q in range(hits[0], nv):
+                        won[q // 64] &= ~(1 << (q % 64))
+                    won[pf // 64] |= 1 << (pf % 64)
+            for p in range(s0, s1):
+                keep[s, box_at[p]] = bool(won[p // 64] >> (p % 64) & 1)
     return keep, computed, skipped
 
 
@@ -398,9 +542,11 @@ def test_large_k_plain_matches_jax(name, mode, monkeypatch):
 @pytest.mark.parametrize("mode,old_type", [("2d", False), ("3d", True), ("3d_cls", False),
                                            ("3d_cls", True), ("matrix", False)])
 @pytest.mark.parametrize("name", sorted(LARGE))
-def test_kernel_model_global_path_matches_plain(name, mode, old_type):
+def test_kernel_model_global_path_matches_plain(name, mode, old_type, monkeypatch):
     """The model of the global-matrix path equals the plain version bit for
-    bit past MAX_BOXES; the class skip computes only same-class pairs."""
+    bit past MAX_BOXES, and in box mode the JAX package's NumPy NMS (under
+    the port's tie rule); the class segments compute only same-class
+    pairs."""
     case = LARGE[name]()
     assert case["scores"].shape[1] > MAX_BOXES
     if mode == "matrix":
@@ -408,6 +554,10 @@ def test_kernel_model_global_path_matches_plain(name, mode, old_type):
                                      _t(case["valid"])).numpy()
     else:
         want = _plain_boxes(case, mode, old_type)
+        with monkeypatch.context() as m:
+            if has_ties(case):
+                _stable_argsort(m)
+            np.testing.assert_array_equal(_jax_numpy_keep(case, mode, old_type), want)
     got, computed, skipped = kernel_model(case, mode, old_type)
     np.testing.assert_array_equal(got, want)
     assert computed > 0
@@ -437,6 +587,29 @@ def test_nms_plan():
             assert c in NMS_CLUSTERS and (c == 1 or (b * c <= 132 and c * MIN_ROWS <= k))
 
 
+def test_global_plan():
+    """The global path's launch: one wave of tile blocks (8 an SM) over the
+    scenes, a matrix row a warp; every count one a launch takes.
+    ``global_run``'s blocks are the global path's: it raises below the
+    switch and out of range."""
+    assert global_blocks(8, 132, False) == 132 and global_blocks(1, 132, False) == 1056
+    assert global_blocks(8, 132, True) == global_blocks(1, 132, True) == ROW_WARPS
+    for b in (1, 8, 33, 300, 1057, 65535):
+        assert 1 <= global_blocks(b, 132, False) <= 65535
+    case = CASES["clustered_k37"]()
+    args = (torch.from_numpy(case["mins"]), torch.from_numpy(case["maxs"]),
+            torch.from_numpy(case["scores"]), None, None, "3d", False, 0.25)
+    with pytest.raises(ValueError, match="global path's"):
+        global_run(nms_boxes, args, 132)
+    big = torch.zeros((1, MAX_BOXES + 1, 3))
+    with pytest.raises(ValueError, match="out of range"):
+        global_run(nms_boxes, (big, big, big[..., 0], None, None, "3d", False, 0.25), 0)
+    # on CPU tensors past the switch, the plain version
+    assert torch.equal(global_run(nms_boxes, (big, big, big[..., 0], None, None, "3d", False,
+                                              0.25), 132),
+                       pnms.nms_boxes_plain(big, big, big[..., 0], None, None, "3d", False, 0.25))
+
+
 def test_kernel_source_matches_wrapper():
     """The wrapper's limits are the source's."""
     from pathlib import Path
@@ -444,11 +617,15 @@ def test_kernel_source_matches_wrapper():
     src = (Path(pnms.__file__).parents[1] / "csrc" / "nms.cu").read_text()
     assert f"constexpr int kMaxBoxes = {MAX_BOXES};" in src
     assert f"constexpr int kMaxCluster = {max(NMS_CLUSTERS)};" in src
-    # the global path: its entries, and the shared memory that bounds its K
+    # the global path: its entries, the shared memory that bounds its K (the
+    # sort's 8-byte keys of a scene twice, a pad word every 32, in one
+    # block), its rows kernel's warps
     assert f"constexpr int kSmemMax = {SMEM_MAX};" in src
-    assert "return 8 + 64 * 8 + 3LL * words * 8;" in src  # rounds_smem, as GLOBAL_MAX_BOXES counts
-    assert GLOBAL_MAX_BOXES % 64 == 0 and (GLOBAL_MAX_BOXES // 64) ** 2 < 2 ** 31
-    for entry in ("nms_boxes_global_launch", "nms_matrix_global_launch"):
+    assert f"constexpr int kGlobalMaxBoxes = {GLOBAL_MAX_BOXES};" in src
+    assert 16 * (GLOBAL_MAX_BOXES + GLOBAL_MAX_BOXES // 32 + 1) < SMEM_MAX
+    assert GLOBAL_MAX_BOXES % 64 == 0 and GLOBAL_MAX_BOXES < 2 ** 14  # the key's index bits
+    assert f"constexpr int kRowsThreads = {32 * ROW_WARPS};" in src
+    for entry in ("nms_boxes_global_launch", "nms_matrix_global_launch", "nms_global_scratch_bytes"):
         assert f'extern "C" int {entry}(' in src
     for mode, i in MODE_IDS.items():
         name = {"2d": "k2D", "3d": "k3D", "3d_cls": "k3DCls", "matrix": "kMatrix"}[mode]
