@@ -1,0 +1,5 @@
+"""Percent: the bounds of the `csrc/` kernels whose work follows from shapes over their device time in the traced section, per request."""
+
+
+def read(r):
+    return r.roofline_pct()

@@ -1,0 +1,6 @@
+"""Training and evaluation losses."""
+from .labeled import get_labeled_loss
+from .supervised import get_loss
+from .unlabeled import get_unlabeled_loss
+
+__all__ = ["get_labeled_loss", "get_loss", "get_unlabeled_loss"]
