@@ -29,7 +29,7 @@ from ..ops.nms import GLOBAL_MAX_BOXES
 from ..parallel import distributed
 from ..train import checkpoint
 from ..train.schedules import get_bn_momentum, get_lr
-from ..utils import dump_helper
+from ..utils import dump_helper, trace
 from ..utils.tb_writer import Visualizer
 
 
@@ -297,11 +297,24 @@ def staged(loader, dev: torch.device):
     return prefetch(map(functools.partial(stage_batch, device=dev), iter(loader)))
 
 
-def _write_trace(profiler, log_dir: str, logger) -> None:
+def _write_trace(profiler, log_dir: str, logger, counters: dict, steps: int) -> None:
+    """Stops ``profiler``, writes its trace and logs the counters of
+    ``utils/trace.py`` a step over its ``steps`` steps: their totals less
+    ``counters``, those at its start."""
     profiler.stop()
     os.makedirs(os.path.join(log_dir, "profile"), exist_ok=True)
     profiler.export_chrome_trace(os.path.join(log_dir, "profile", "trace.json"))
     logger(f"profiler trace written to {log_dir}/profile")
+    now = trace.snapshot()["counters"]
+    logger(f"profiled steps {steps}, a step: " + " ".join(
+        f"{k} {(v - counters.get(k, 0)) / max(steps, 1):.2f}" for k, v in sorted(now.items())))
+
+
+def _span_line() -> str:
+    """The ``train.*`` spans' mean host ms over their rings."""
+    spans = trace.snapshot()["spans"]
+    return " host ms " + " ".join(f"{k}: {s['host_ms']:.2f}" for k, s in sorted(spans.items())
+                                  if k.startswith("train.") and s["host_ms"] is not None)
 
 
 def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
@@ -320,7 +333,11 @@ def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
     returns ``evaluate``'s triple), its mAPs to ``<log_dir>/tb/eval`` and,
     on a new best mAP sum, ``best_checkpoint_sum.tar`` and ``best.txt``.
     ``--profile_steps`` steps from the first epoch's second go to a
-    ``torch.profiler`` Chrome trace in ``<log_dir>/profile``.
+    ``torch.profiler`` Chrome trace in ``<log_dir>/profile``, which carries
+    the program's ranges (``utils/trace.py``: the step and its phases);
+    then the counters a profiled step are logged (pseudo labels passed and
+    kept, host syncs). Every ``print_interval`` steps one more line gives
+    the step's and its phases' mean host ms over their last calls.
 
     Under a data ``group`` (``parallel/``) every rank runs the loop on its
     rows, ``step`` returns the global metrics, so every rank takes the
@@ -341,13 +358,14 @@ def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
             bn_mom = get_bn_momentum(epoch, args.bn_decay_step, args.bn_decay_rate)
             logger(f"**** EPOCH {epoch:03d} ****  lr {lr:.6f}  bn_momentum {bn_mom:.4f}")
             averager = MetricAverager()
-            profiler = None
+            profiler, profiled, counters = None, 0, {}
             t0 = time.time()
             for bi, batch in enumerate(staged(loader, dev)):
                 if args.profile_steps and epoch == start_epoch and bi == 1 and lead:
                     profiler = torch.profiler.profile(activities=[
                         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
                         if dev.type == "cuda" else [torch.profiler.ProfilerActivity.CPU])
+                    counters = trace.snapshot()["counters"]
                     profiler.start()
                 metrics = fetch_metrics(step(state, batch, lr, bn_mom))  # one copy, one wait
                 loss_val = metrics["loss"]
@@ -358,20 +376,23 @@ def train_epochs(args, state, step, loader, eval_epoch, logger, ckpt_path: str,
                            f"batch {bi}; state saved to nan_checkpoint.tar")
                     raise FloatingPointError("non-finite training loss")
                 averager.update(metrics)
-                if profiler is not None and bi == args.profile_steps:
-                    _write_trace(profiler, args.log_dir, logger)
-                    profiler = None
+                if profiler is not None:
+                    profiled += 1
+                    if bi == args.profile_steps:
+                        _write_trace(profiler, args.log_dir, logger, counters, profiled)
+                        profiler = None
                 global_step += 1
                 if (bi + 1) % args.print_interval == 0:
                     means = averager.means()
                     logger(f" batch {bi + 1:04d} " + " ".join(
                         f"{k}: {v:.4f}" for k, v in sorted(means.items())
                         if "loss" in k or "acc" in k or "ratio" in k or "value" in k))
+                    logger(_span_line())
                     if lead:
                         viz_train.log_scalars(means, global_step)
                     averager.reset()
             if profiler is not None:  # the epoch ended first
-                _write_trace(profiler, args.log_dir, logger)
+                _write_trace(profiler, args.log_dir, logger, counters, profiled)
             logger(f"epoch time: {time.time() - t0:.1f}s")
 
             if (epoch + 1) % args.ckpt_interval == 0 or epoch + 1 == args.max_epoch:

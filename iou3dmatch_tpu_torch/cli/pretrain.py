@@ -13,7 +13,8 @@ Where it differs from the JAX driver (ROADMAP Queue 3):
   ``--platform``. Without CUDA it raises unless ``--device cpu`` is given.
 - On the card, ``--num_target`` above ``ops/nms.py::GLOBAL_MAX_BOXES`` (14,016) is refused
   at startup.
-- ``--profile_steps`` writes a ``torch.profiler`` Chrome trace.
+- ``--profile_steps`` writes a ``torch.profiler`` Chrome trace, with the
+  program's ranges (the step and its phases) and its counters a step logged.
 - One process, as JAX's pretrain driver has no mesh: under torchrun with
   ``WORLD_SIZE`` > 1 it refuses to start.
 
@@ -91,7 +92,8 @@ def parse_args(argv=None):
                         "in bfloat16; parameters, BN statistics and heads stay float32")
     p.add_argument("--profile_steps", type=int, default=0,
                    help="write a torch.profiler Chrome trace of this many steps (epoch 0, "
-                        "from its second step) into <log_dir>/profile")
+                        "from its second step) into <log_dir>/profile, with the program's "
+                        "ranges (the step and its phases); log its counters a step")
     return p.parse_args(argv)
 
 

@@ -23,7 +23,8 @@ Where it differs from the JAX driver (ROADMAP Queue 3):
   Run alone, the driver uses one card, the first by default.
 - On the card, ``--num_target`` above ``ops/nms.py::GLOBAL_MAX_BOXES`` (14,016) is refused
   at startup.
-- ``--profile_steps`` writes a ``torch.profiler`` Chrome trace.
+- ``--profile_steps`` writes a ``torch.profiler`` Chrome trace, with the
+  program's ranges (the step and its phases) and its counters a step logged.
 
 Run:  python -m iou3dmatch_tpu_torch.cli.train --dataset scannet \\
           --labeled_sample_list scannetv2_train_0.1.txt \\
@@ -131,7 +132,8 @@ def parse_args(argv=None):
                         "in bfloat16; parameters, BN statistics and heads stay float32")
     p.add_argument("--profile_steps", type=int, default=0,
                    help="write a torch.profiler Chrome trace of this many steps (epoch 0, "
-                        "from its second step) into <log_dir>/profile")
+                        "from its second step) into <log_dir>/profile, with the program's "
+                        "ranges (the step and its phases); log its counters a step")
     return p.parse_args(argv)
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..models.factory import resolve_device
+from ..utils import trace
 
 ALIGN = 16  # bytes: every leaf's offset, so that any dtype's view is aligned
 
@@ -37,6 +38,7 @@ def layout(batch: dict):
     return slots, offset
 
 
+@trace.span("data.stage")
 def stage_batch(batch: dict, device=None) -> dict:
     """Host batch (a dict of NumPy arrays) -> dict of tensors on ``device``,
     resolved as ``models/factory.py::resolve_device`` does (CUDA unless the

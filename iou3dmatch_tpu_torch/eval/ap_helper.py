@@ -33,6 +33,7 @@ from ..geometry.boxes import (flip_axis_to_camera, flip_axis_to_depth, get_3d_bo
                               get_3d_box_batch_tensor)
 from ..geometry.nms import nms_2d_faster, nms_3d_faster, nms_3d_faster_samecls
 from ..ops.nms import nms_boxes
+from ..utils import trace
 from .eval_det import eval_det_multiprocessing, get_iou_obb
 
 
@@ -188,6 +189,7 @@ def pack_predictions(ep, config_dict) -> np.ndarray:
     return packed.cpu().numpy()
 
 
+@trace.span("eval.parse_predictions")
 def parse_predictions(ep, config_dict):
     """NMS + per-class proposal lists (JAX ``ap_helper.py:59-157``,
     reference ``ap_helper.py:96-221``): ``pack_predictions`` on the
@@ -350,6 +352,7 @@ def groundtruths2corners3d(batch, config_dict):
     return corners, params
 
 
+@trace.span("eval.parse_groundtruths")
 def parse_groundtruths(batch, config_dict):
     """GT corners list (ap_helper.py:224-290), vectorized decode."""
     mask = _to_np(batch["box_label_mask"])
@@ -452,6 +455,7 @@ class APCalculator:
         self.processes = processes
         self.reset()
 
+    @trace.span("eval.ap_step")
     def step(self, batch_pred_map_cls, batch_gt_map_cls):
         assert len(batch_pred_map_cls) == len(batch_gt_map_cls)
         for i in range(len(batch_pred_map_cls)):

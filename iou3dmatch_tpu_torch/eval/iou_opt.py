@@ -16,7 +16,10 @@ Python step of a forward and a backward on the card.
 """
 import torch
 
+from ..utils import trace
 
+
+@trace.span("eval.iou_opt", device=True, sync_count=True)
 def iou_optimize(model, ep: dict, opt_rate: float, opt_step: int) -> dict:
     """``ep``, outputs of an eval forward that autograd may read (not
     inference tensors; ``train/steps.py::make_eval_loss``'s), -> a new dict

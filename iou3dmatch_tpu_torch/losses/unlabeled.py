@@ -19,6 +19,7 @@ from ..geometry.boxes import corners_aabb
 from ..geometry.nn_distance import huber_loss, nn_distance, nn_distance_withcls
 from ..ops.lhs import lhs_3d_samecls
 from ..parallel.collectives import all_reduce_sum
+from ..utils import trace
 from .common import (FAR_THRESHOLD, NEAR_THRESHOLD, OBJECTNESS_CLS_WEIGHTS, batch_mean,
                      cross_entropy, global_count, global_ratio, masked_mean, one_hot)
 from .iou_labels import iou_labels_from, proposal_gt_iou
@@ -120,6 +121,7 @@ def get_pseudo_labels(teacher: Dict, cfg, obj_threshold, cls_threshold, iou_thre
 
     final_mask = ((max_cls > _f32(cls_threshold)) & (pos_obj > _f32(obj_threshold))
                   & (iou_pred > _f32(iou_threshold)))
+    trace.count("pseudo.passed", final_mask)  # the boxes that pass the three thresholds
     # the top 64 by pos_obj * max_cls among the boxes that pass; masked keys
     # are all -0.0, so the stable sort alone orders them, as JAX's argsort
     sort_key = pos_obj * max_cls * final_mask.to(pos_obj.dtype)
@@ -194,6 +196,7 @@ def get_pseudo_labels(teacher: Dict, cfg, obj_threshold, cls_threshold, iou_thre
         metrics["final_coverage_0.5_value"] = global_ratio((best_cover > 0.5).float().sum(),
                                                            gt_count)
 
+    trace.count("pseudo.kept", final_mask_sorted)  # of those, a scene's top 64 after LHS
     label_mask = final_mask_sorted.int()
     return {
         "unlabeled_box_label_mask": label_mask,

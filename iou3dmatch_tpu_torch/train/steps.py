@@ -5,6 +5,11 @@ Counterpart of ``iou3dmatch_tpu/train/steps.py``: ``ema_update``
 (``:79-215``) and ``make_eval_forward`` (``:222-245``), whose outputs and
 eval-loss metrics the port splits into ``make_eval_forward`` and
 ``make_eval_loss``.
+
+A step is the span ``train.step`` of ``utils/trace.py``, which counts the
+host syncs inside it; its phases are the spans ``train.teacher``,
+``train.student``, ``train.loss``, ``train.backward`` and ``train.update``
+(the optimizer and the EMA). The eval loss is ``eval.forward``.
 """
 from typing import Optional, Tuple
 
@@ -17,6 +22,7 @@ from ..models.mlp import set_bn_momentum
 from ..ops import furthest_point_sample
 from ..parallel.collectives import all_reduce_grads, current
 from ..parallel.mesh import take_rows
+from ..utils import trace
 from .state import TrainState
 
 KEEP = (
@@ -70,6 +76,7 @@ def make_pretrain_step(cfg):
     ``noise`` have the global batch's shape, this rank takes its rows, and
     the gradient is summed over the ranks before Adam."""
 
+    @trace.span("train.step", sync_count=True)
     def step(state: TrainState, batch: dict, lr: float, bn_momentum: float,
              noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> dict:
         model, opt = state.model, state.optimizer
@@ -82,12 +89,16 @@ def make_pretrain_step(cfg):
         inds = None
         if current() is not None:
             inds, noise = _global_draws(model, state.generator, point_clouds.shape[0], 0, noise)
-        ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator, noise=noise,
-                                            sample_inds=inds)
-        loss, metrics = get_labeled_loss(ep, batch, cfg, point_clouds.shape[0])
-        loss.backward()
-        all_reduce_grads(model.parameters())
-        opt.step()
+        with trace.span("train.student"):
+            ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator,
+                                                noise=noise, sample_inds=inds)
+        with trace.span("train.loss"):
+            loss, metrics = get_labeled_loss(ep, batch, cfg, point_clouds.shape[0])
+        with trace.span("train.backward"):
+            loss.backward()
+        with trace.span("train.update"):
+            all_reduce_grads(model.parameters())
+            opt.step()
         state.step += 1
         metrics["loss"] = loss
         return {k: v.detach() for k, v in metrics.items()}
@@ -161,6 +172,7 @@ def make_ssl_step(cfg, num_labeled: int, *, unlabeled_weight: float = 2.0,
                      samecls_match=samecls_match, dataset=dataset, view_stats=view_stats,
                      ema_rows_are_unlabeled=not teacher_full)
 
+    @trace.span("train.step", sync_count=True)
     def step(state: TrainState, batch: dict, lr: float, bn_momentum: float,
              noise: Optional[Tuple[Tuple[torch.Tensor, torch.Tensor],
                                    Tuple[torch.Tensor, torch.Tensor]]] = None) -> dict:
@@ -191,7 +203,7 @@ def make_ssl_step(cfg, num_labeled: int, *, unlabeled_weight: float = 2.0,
             t_sample, t_noise = _global_draws(teacher, state.generator, nl if teacher_full else 0,
                                               nu, t_noise, jitter=jitter_full)
             s_sample, s_noise = _global_draws(model, state.generator, nl, nu, s_noise)
-        with torch.no_grad():
+        with trace.span("train.teacher"), torch.no_grad():
             if jitter_full:
                 ema_ep = teacher.forward_with_pred_jitter(
                     ema_clouds, generator=state.generator, noise=t_noise, sa1_inds=t_inds,
@@ -199,20 +211,24 @@ def make_ssl_step(cfg, num_labeled: int, *, unlabeled_weight: float = 2.0,
             else:
                 ema_ep = teacher(ema_clouds, sa1_inds=t_inds, generator=state.generator,
                                  sample_inds=t_sample)
-        ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator,
-                                            noise=s_noise, sa1_inds=s_inds,
-                                            jitter_rows=None if jitter_full else nl,
-                                            sample_inds=s_sample)
-        sup_loss, metrics = get_labeled_loss(ep, batch, cfg, nl)
-        unsup_loss, m2 = get_unlabeled_loss(ep, ema_ep, batch, cfg, nl, **loss_args)
-        loss = sup_loss + unlabeled_weight * unsup_loss
-        loss.backward()
-        all_reduce_grads(model.parameters())
-        opt.step()
+        with trace.span("train.student"):
+            ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator,
+                                                noise=s_noise, sa1_inds=s_inds,
+                                                jitter_rows=None if jitter_full else nl,
+                                                sample_inds=s_sample)
+        with trace.span("train.loss"):
+            sup_loss, metrics = get_labeled_loss(ep, batch, cfg, nl)
+            unsup_loss, m2 = get_unlabeled_loss(ep, ema_ep, batch, cfg, nl, **loss_args)
+            loss = sup_loss + unlabeled_weight * unsup_loss
+        with trace.span("train.backward"):
+            loss.backward()
         # the reference counts the step before the EMA (train.py:353-354)
         alpha = min(np.float32(1.0) - np.float32(1.0) / (np.float32(state.step) + np.float32(2.0)),
                     np.float32(ema_decay))
-        ema_update(teacher, model, alpha)
+        with trace.span("train.update"):
+            all_reduce_grads(model.parameters())
+            opt.step()
+            ema_update(teacher, model, alpha)
         state.step += 1
         metrics.update(m2)
         metrics["supervised_loss"] = sup_loss
@@ -248,6 +264,7 @@ def make_eval_loss(model, cfg, generator: Optional[torch.Generator] = None):
     these outputs, and autograd refuses to save inference tensors.
     ``generator`` draws ``random`` sampling's proposal indices."""
 
+    @trace.span("eval.forward", device=True, sync_count=True)
     def evaluate(point_clouds: torch.Tensor, labels: dict):
         model.eval()
         with torch.no_grad():

@@ -1,0 +1,17 @@
+"""Host ms a step of the program's span `train.loss`: `get_labeled_loss`, and
+in SSL `get_unlabeled_loss` with the pseudo labels and LHS
+(`train/steps.py`), the mean over its last 256 untraced calls."""
+
+
+def _snapshot():
+    try:
+        from iou3dmatch_tpu_torch.utils.trace import snapshot
+    except ImportError:  # a program without spans and counters
+        return None
+    return snapshot()
+
+
+def read(r):
+    s = _snapshot()
+    span = None if s is None else s["spans"].get("train.loss")
+    return None if span is None else span["host_ms"]
