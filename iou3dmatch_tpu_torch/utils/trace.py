@@ -24,7 +24,8 @@ block on every call, off or on, in the same ring, where CUDA is in use.
 
 ``count(name, tensor)`` adds to a counter while a profiler records, and
 does nothing otherwise: the tensor is summed on its device, without a
-sync, and the total resolved only by ``snapshot()``. So a counter's total is that of the
+sync, and the total resolved only by ``snapshot()``. ``tally(name, n)``
+adds a host number the same way. So a counter's total is that of the
 traced steps. ``snapshot()`` reads every span's mean host ms (and device
 ms) over its ring and its number of calls, and every counter's total;
 ``reset()`` forgets them.
@@ -58,7 +59,7 @@ class _Recorder:
         self.lock = threading.Lock()
         self.rings = {}  # name -> deque of (host ns or None, (start, end) events or None)
         self.calls = {}
-        self.totals = {}  # name -> host number (the syncs)
+        self.totals = {}  # name -> host number (the syncs, ``tally``)
         self.device_totals = {}  # (name, device) -> tensor on that device
 
     def record(self, name: str, host_ns, events) -> None:
@@ -160,6 +161,13 @@ def count(name: str, value: torch.Tensor) -> None:
     touches nothing."""
     if _profiling():
         _RECORDER.add_tensor(name, value)
+
+
+def tally(name: str, n: int = 1) -> None:
+    """Adds the host number ``n`` to the counter ``name`` while a profiler
+    records on this thread; otherwise touches nothing."""
+    if _profiling():
+        _RECORDER.add(name, n)
 
 
 def _mean(xs):

@@ -8,6 +8,8 @@
   student, loss, backward, update; pretrain without the teacher), and
   their outputs and updated state are bit for bit those of the same steps
   with no profiler.
+- ``tally`` adds host numbers only while a profiler records, beside the
+  tensor counters.
 - ``pseudo.passed`` and ``pseudo.kept`` equal the masks' sums computed
   apart, on teacher heads that pass boxes.
 - No span or counter of the program has the name of one of the
@@ -176,6 +178,18 @@ def test_on_a_counter_sums_its_tensors():
     counted("t.mask", torch.tensor([True, False]))
     counted("t.int", torch.tensor([3, 4]))
     assert trace.snapshot()["counters"] == {"t.mask": 5, "t.int": 7}
+
+
+def test_a_tally_adds_host_numbers_only_while_a_profiler_records():
+    trace.tally("t.host")
+    trace.tally("t.host", 5)
+    trace.count("t.mask", torch.tensor([True, True]))
+    assert trace.snapshot()["counters"] == {}
+    with cpu_profile():
+        trace.tally("t.host")
+        trace.tally("t.host", 2)
+        trace.count("t.mask", torch.tensor([True, False, True]))
+    assert trace.snapshot()["counters"] == {"t.host": 3, "t.mask": 2}
 
 
 def ssl_batch(points=512):
@@ -359,6 +373,7 @@ def test_no_program_span_has_a_benchmark_span_name():
     assert set(snap["spans"]) == SPANS
     assert set(snap["counters"]) == {"pseudo.passed", "pseudo.kept"}  # syncs: CUDA only
     assert not (set(snap["spans"]) | set(snap["counters"])) & harness
+    assert "iou_opt.graph_replays" not in harness  # counted on the card only
 
 
 # ---------------------------------------------------------------------- card
