@@ -17,9 +17,19 @@ Where it differs from the JAX driver (ROADMAP Queue 3):
   program's ranges (the step and its phases) and its counters a step logged.
 - One process, as JAX's pretrain driver has no mesh: under torchrun with
   ``WORLD_SIZE`` > 1 it refuses to start.
+- ``--model groupfree`` trains Group-Free-3D with the IoU branch
+  (``models/groupfree.py``, which the JAX package does not have) at
+  ``--num_decoder_layers`` and ``--width`` (by default its largest ScanNet
+  model's, L12-w2x), with its loss
+  (``losses/groupfree.py``) and AdamW, the decoder at a tenth of the lr;
+  ``--eval`` evaluates it, with ``--opt_step`` steps of test-time IoU
+  optimisation at ``--opt_rate``. It runs in float32 with KPS sampling:
+  ``--bf16``, ``--cluster_sampling`` and ``--vote_factor`` are VoteNet's.
 
 Run:  python -m iou3dmatch_tpu_torch.cli.pretrain --dataset scannet \\
           --labeled_sample_list scannetv2_train_0.1.txt --log_dir log_scannet
+Group-Free-3D L12-O256-w2x: add --model groupfree --num_target 256
+--num_point 50000 --learning_rate 0.006 --weight_decay 0.0005.
 On the CPU, with no dataset on disk: add --synthetic --tiny --device cpu.
 """
 import argparse
@@ -32,6 +42,12 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--dataset", default="scannet", choices=["scannet", "sunrgbd"])
+    p.add_argument("--model", default="votenet", choices=["votenet", "groupfree"],
+                   help="VoteNet-IoU, or Group-Free-3D with the IoU branch")
+    p.add_argument("--num_decoder_layers", type=int, default=12,
+                   help="Group-Free-3D's decoder layers (its largest ScanNet model's)")
+    p.add_argument("--width", type=int, default=2,
+                   help="Group-Free-3D's backbone width multiplier (its largest model's)")
     p.add_argument("--log_dir", default="log_pretrain")
     p.add_argument("--data_path", default=None, help="root holding the dataset dumps")
     p.add_argument("--checkpoint_path", default=None)
@@ -75,6 +91,10 @@ def parse_args(argv=None):
     p.add_argument("--overwrite", action="store_true",
                    help="confirm-and-wipe an existing log dir (pretrain.py:97-105)")
     p.add_argument("--eval", action="store_true", help="evaluate only, no training")
+    p.add_argument("--opt_step", type=int, default=0,
+                   help="--eval: steps of test-time IoU optimisation (eval/iou_opt.py)")
+    p.add_argument("--opt_rate", type=float, default=5e-4,
+                   help="--eval: the IoU optimisation's step size")
     p.add_argument("--synthetic", action="store_true",
                    help="train on generated scenes (no dataset dumps needed)")
     p.add_argument("--synthetic_scenes", type=int, default=64)
@@ -101,12 +121,17 @@ def main(argv=None):
     """Trains, or with ``--eval`` evaluates and returns ``evaluate``'s
     (metric means, {threshold: metrics}, mAP sum)."""
     args = parse_args(argv)
+    if args.model == "groupfree" and (args.bf16 or args.cluster_sampling != "seed_fps"
+                                      or args.vote_factor != 1):
+        raise SystemExit("--model groupfree runs in float32 and samples its queries by KPS: "
+                         "--bf16, --cluster_sampling and --vote_factor are VoteNet's")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise SystemExit(f"cli/pretrain.py runs in one process (WORLD_SIZE is "
                          f"{os.environ['WORLD_SIZE']}): the JAX pretrain driver has no mesh; "
                          "data parallelism is cli/train.py's")
     from ..data.loader import DataLoader
-    from ..models.factory import build_votenet
+    from ..losses import get_groupfree_eval_loss, get_groupfree_loss
+    from ..models.factory import build_groupfree, build_votenet
     from ..train import checkpoint
     from ..train.state import create_train_state
     from ..train.steps import make_eval_loss, make_pretrain_step
@@ -146,12 +171,20 @@ def main(argv=None):
         eval_loader = DataLoader(eval_ds, args.batch_size, shuffle=False,
                                  drop_last=False, num_workers=args.num_workers)
 
-        model, _ = build_votenet(
-            args.dataset, num_proposal=args.num_target,
-            input_feature_dim=(0 if args.no_height else 1) + (3 if args.use_color else 0),
-            sampling=args.cluster_sampling, tiny=args.tiny, vote_factor=args.vote_factor,
-            device=dev, generator=torch.Generator().manual_seed(args.seed),
-            **common.model_precision(args))
+        feature_dim = (0 if args.no_height else 1) + (3 if args.use_color else 0)
+        generator = torch.Generator().manual_seed(args.seed)
+        if args.model == "groupfree":
+            model, _ = build_groupfree(
+                args.dataset, num_proposal=args.num_target,
+                num_decoder_layers=args.num_decoder_layers, width=args.width,
+                input_feature_dim=feature_dim, tiny=args.tiny, device=dev, generator=generator)
+            train_loss, eval_loss_fn = get_groupfree_loss, get_groupfree_eval_loss
+        else:
+            model, _ = build_votenet(
+                args.dataset, num_proposal=args.num_target, input_feature_dim=feature_dim,
+                sampling=args.cluster_sampling, tiny=args.tiny, vote_factor=args.vote_factor,
+                device=dev, generator=generator, **common.model_precision(args))
+            train_loss = eval_loss_fn = None
         state = create_train_state(model, seed=args.seed + 1, weight_decay=args.weight_decay)
 
         start_epoch = 0
@@ -166,17 +199,19 @@ def main(argv=None):
         # random sampling's eval indices: a generator of their own, so that an
         # eval leaves the training draws (state.generator) where they were
         eval_loss = make_eval_loss(model, cfg,
-                                   generator=torch.Generator(device=dev).manual_seed(args.seed + 2))
+                                   generator=torch.Generator(device=dev).manual_seed(args.seed + 2),
+                                   loss=eval_loss_fn)
         config_dict = common.make_config_dict(cfg, args)
 
-        def eval_epoch(dump=None):
+        def eval_epoch(dump=None, opt_step=0):
             return common.evaluate(model, cfg, common.staged(eval_loader, dev), config_dict,
-                                   logger, eval_loss, (0.25, 0.5), dump_dir=dump)
+                                   logger, eval_loss, (0.25, 0.5), opt_rate=args.opt_rate,
+                                   opt_step=opt_step, dump_dir=dump)
 
         if args.eval:
-            return eval_epoch(dump_dir if args.dump_results else None)
-        common.train_epochs(args, state, make_pretrain_step(cfg), train_loader, eval_epoch,
-                            logger, ckpt_path, start_epoch, dev)
+            return eval_epoch(dump_dir if args.dump_results else None, args.opt_step)
+        common.train_epochs(args, state, make_pretrain_step(cfg, loss=train_loss), train_loader,
+                            eval_epoch, logger, ckpt_path, start_epoch, dev)
         return None
     finally:
         for ld in (train_loader, eval_loader):

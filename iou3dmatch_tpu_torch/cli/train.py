@@ -141,6 +141,9 @@ def main(argv=None):
     """Trains, or with ``--eval`` evaluates and returns ``evaluate``'s
     (metric means, {threshold: metrics}, mAP sum)."""
     args = parse_args(argv)
+    if args.model == "groupfree":
+        raise SystemExit("--model groupfree: the SSL step with a Group-Free-3D teacher is not "
+                         "ported; cli/pretrain.py trains and evaluates the model")
     if args.fast_step and args.reference_exact_step:
         raise SystemExit("--fast_step and --reference_exact_step conflict")
     from ..data.loader import DataLoader, SSLBatcher

@@ -5,6 +5,11 @@ Counterpart of ``iou3dmatch_tpu/models/backbone.py`` (reference
 (2048/1024/512/256 points, radii 0.2/0.4/0.8/1.2, nsample 64/32/16/16) and
 two FP layers; the seeds are fp2 (1024 points, 256-d features).
 
+``width`` multiplies every SA and FP width (Group-Free-3D's ``width``,
+its ``backbone_module.py``) and ``seed_feat_dim`` sets FP2's output:
+Group-Free-3D's w2x backbone is ``width=2, seed_feat_dim=288``. The
+defaults, 1 and 256, are VoteNet's.
+
 With ``fps_prefix`` (the default) SA2-SA4 take the "prefix" path: their
 input is FPS-ordered, so FPS over it picks its first npoint points in order
 and the kernel is skipped. ``fps_prefix=False`` runs FPS in each of them,
@@ -28,18 +33,19 @@ class Pointnet2Backbone(nn.Module):
                  sa_npoints: Sequence[int] = (2048, 1024, 512, 256),
                  sa_radii: Sequence[float] = (0.2, 0.4, 0.8, 1.2),
                  sa_nsamples: Sequence[int] = (64, 32, 16, 16), fps_prefix: bool = True,
-                 dtype=None):
+                 dtype=None, width: int = 1, seed_feat_dim: int = 256):
         super().__init__()
         self.fps_prefix = fps_prefix
-        mlps = ((input_feature_dim, 64, 64, 128), (128, 128, 128, 256),
-                (256, 128, 128, 256), (256, 128, 128, 256))
+        w = width
+        mlps = ((input_feature_dim, 64 * w, 64 * w, 128 * w), (128 * w, 128 * w, 128 * w, 256 * w),
+                (256 * w, 128 * w, 128 * w, 256 * w), (256 * w, 128 * w, 128 * w, 256 * w))
         for i, (npoint, radius, nsample, mlp) in enumerate(
                 zip(sa_npoints, sa_radii, sa_nsamples, mlps), start=1):
             self.add_module(f"sa{i}", PointnetSAModuleVotes(
                 mlp=mlp, npoint=npoint, radius=radius, nsample=nsample,
                 generator=generator, dtype=dtype, bitcast_gather=i >= 3))
-        self.fp1 = PointnetFPModule((256 + 256, 256, 256), generator, dtype=dtype)
-        self.fp2 = PointnetFPModule((256 + 256, 256, 256), generator, dtype=dtype)
+        self.fp1 = PointnetFPModule((512 * w, 256 * w, 256 * w), generator, dtype=dtype)
+        self.fp2 = PointnetFPModule((512 * w, 256 * w, seed_feat_dim), generator, dtype=dtype)
 
     def forward(self, pointcloud: torch.Tensor,
                 sa1_inds: Optional[torch.Tensor] = None) -> dict:

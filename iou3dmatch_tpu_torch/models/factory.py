@@ -1,9 +1,10 @@
 """Model construction."""
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from ..data.config import get_config
+from .groupfree import GroupFreeDetector
 from .votenet import VoteNet
 
 # Tiny geometry for CPU tests: same architecture, fewer points.
@@ -55,8 +56,39 @@ def build_votenet(dataset: str = "scannet", num_proposal: Optional[int] = None,
         sa_npoints=TINY_SA_NPOINTS if tiny else (2048, 1024, 512, 256), sampling=sampling,
         query_feats=query_feats, fps_prefix=fps_prefix, compute_dtype=compute_dtype,
         f32_gridconv=f32_gridconv)
+    return _placed(model, device), cfg
+
+
+def _placed(model, device: torch.device):
+    """``model`` in eval mode on ``device``; on CUDA with TF32 off and bf16
+    products accumulated in f32."""
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    return model.to(device).eval(), cfg
+    return model.to(device).eval()
+
+
+def build_groupfree(dataset: str = "scannet", num_proposal: Optional[int] = None,
+                    num_decoder_layers: int = 12, width: int = 2, input_feature_dim: int = 1,
+                    tiny: bool = False, device=None,
+                    generator: Optional[torch.Generator] = None,
+                    sa_npoints: Optional[Sequence[int]] = None):
+    """Returns (Group-Free-3D with the IoU branch, ``models/groupfree.py``,
+    in eval mode on ``device``, dataset config). Defaults are the release's
+    largest ScanNet model, L12-O256-w2x: 256 queries (16 when tiny), 12
+    decoder layers, width 2. ``sa_npoints`` defaults to VoteNet's SA
+    centers (the tiny ones when tiny). Weights and device as
+    ``build_votenet``."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    cfg = get_config(dataset)
+    model = GroupFreeDetector(
+        num_class=cfg.num_class, num_heading_bin=cfg.num_heading_bin,
+        num_size_cluster=cfg.num_size_cluster, mean_size_arr=cfg.mean_size_arr,
+        generator=generator, input_feature_dim=input_feature_dim, width=width,
+        num_proposal=num_proposal or (16 if tiny else 256),
+        num_decoder_layers=num_decoder_layers,
+        sa_npoints=sa_npoints or (TINY_SA_NPOINTS if tiny else (2048, 1024, 512, 256)))
+    return _placed(model, device), cfg

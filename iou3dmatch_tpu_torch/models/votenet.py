@@ -38,37 +38,14 @@ from .voting import VotingModule
 COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
 
-class VoteNet(nn.Module):
-    def __init__(self, num_class: int, num_heading_bin: int, num_size_cluster: int,
-                 mean_size_arr, generator: torch.Generator, input_feature_dim: int = 0,
-                 num_proposal: int = 128, vote_factor: int = 1,
-                 sa_npoints=(2048, 1024, 512, 256), sampling: str = "seed_fps",
-                 query_feats: str = "seed", fps_prefix: bool = True,
-                 compute_dtype=None, f32_gridconv: bool = False):
-        super().__init__()
-        if compute_dtype not in COMPUTE_DTYPES:
-            raise ValueError(f"compute_dtype is one of {COMPUTE_DTYPES}, not {compute_dtype!r}")
-        mp_dtype = COMPUTE_DTYPES[compute_dtype]
-        self.compute_dtype = mp_dtype or torch.float32
-        self.f32_gridconv = f32_gridconv
-        if query_feats == "seed+vote" and vote_factor != 1:
-            raise ValueError("query_feats='seed+vote' pairs each seed with one vote: it needs "
-                             f"vote_factor 1, not {vote_factor} (the JAX GridConv fails on "
-                             "the shapes)")
-        self.num_heading_bin = num_heading_bin
-        self.register_buffer(
-            "mean_size", torch.as_tensor(np.asarray(mean_size_arr), dtype=torch.float32),
-            persistent=False)
-        self.backbone_net = Pointnet2Backbone(input_feature_dim, generator,
-                                              sa_npoints=sa_npoints, fps_prefix=fps_prefix,
-                                              dtype=mp_dtype)
-        self.vgen = VotingModule(vote_factor, 256, generator)
-        self.pnet = ProposalModule(num_class, num_heading_bin, num_size_cluster,
-                                   mean_size_arr, generator, num_proposal=num_proposal,
-                                   sampling=sampling, fps_prefix=fps_prefix)
-        self.grid_conv = GridConv(num_class, num_heading_bin, num_size_cluster, generator,
-                                  query_feats=query_feats,
-                                  dtype=None if f32_gridconv else mp_dtype)
+class IoUDetector(nn.Module):
+    """What VoteNet and Group-Free-3D (``models/groupfree.py``) share: the
+    argmax-class box decode of the heads, GridConv on the detached boxes,
+    the jittered training forward and the IoU branch alone. A subclass
+    holds ``num_heading_bin``, the ``mean_size`` buffer and ``grid_conv``,
+    and gives ``forward_backbone(point_clouds, sa1_inds, generator,
+    sample_inds) -> end_points`` with the heads under the keys
+    ``calculate_bbox`` reads and the seeds GridConv reads."""
 
     def class2angle(self, cls: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         """Heading decode; ScanNet (1 bin) is always 0."""
@@ -76,22 +53,6 @@ class VoteNet(nn.Module):
             return torch.zeros(cls.shape, dtype=residual.dtype, device=cls.device)
         angle = cls.float() * (2 * math.pi / self.num_heading_bin) + residual
         return angle - 2 * math.pi * (angle > math.pi).float()
-
-    def forward_backbone(self, point_clouds: torch.Tensor,
-                         sa1_inds: Optional[torch.Tensor] = None,
-                         generator: Optional[torch.Generator] = None,
-                         sample_inds: Optional[torch.Tensor] = None) -> dict:
-        """(B, N, 3+C) -> end_points (votenet_iou_branch.py:75-109).
-        ``generator`` and ``sample_inds`` go to the proposal module."""
-        ep = self.backbone_net(point_clouds, sa1_inds=sa1_inds)
-        ep["seed_inds"] = ep["fp2_inds"]
-        ep["seed_xyz"] = ep["fp2_xyz"]
-        ep["seed_features"] = ep["fp2_features"]
-        xyz, features = self.vgen(ep["seed_xyz"], ep["seed_features"])
-        features = features / torch.linalg.norm(features, dim=-1, keepdim=True)
-        ep["vote_xyz"] = xyz
-        ep["vote_features"] = features
-        return self.pnet(xyz, features, ep, generator=generator, sample_inds=sample_inds)
 
     def calculate_bbox(self, ep: dict):
         """Argmax-class box decode; HALF sizes with negative components
@@ -185,3 +146,52 @@ class VoteNet(nn.Module):
         gradient reaches ``center`` and ``size`` and not the seeds, which
         GridConv detaches."""
         return self.grid_conv(center, size, heading, dict(ep))
+
+
+class VoteNet(IoUDetector):
+    def __init__(self, num_class: int, num_heading_bin: int, num_size_cluster: int,
+                 mean_size_arr, generator: torch.Generator, input_feature_dim: int = 0,
+                 num_proposal: int = 128, vote_factor: int = 1,
+                 sa_npoints=(2048, 1024, 512, 256), sampling: str = "seed_fps",
+                 query_feats: str = "seed", fps_prefix: bool = True,
+                 compute_dtype=None, f32_gridconv: bool = False):
+        super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype is one of {COMPUTE_DTYPES}, not {compute_dtype!r}")
+        mp_dtype = COMPUTE_DTYPES[compute_dtype]
+        self.compute_dtype = mp_dtype or torch.float32
+        self.f32_gridconv = f32_gridconv
+        if query_feats == "seed+vote" and vote_factor != 1:
+            raise ValueError("query_feats='seed+vote' pairs each seed with one vote: it needs "
+                             f"vote_factor 1, not {vote_factor} (the JAX GridConv fails on "
+                             "the shapes)")
+        self.num_heading_bin = num_heading_bin
+        self.register_buffer(
+            "mean_size", torch.as_tensor(np.asarray(mean_size_arr), dtype=torch.float32),
+            persistent=False)
+        self.backbone_net = Pointnet2Backbone(input_feature_dim, generator,
+                                              sa_npoints=sa_npoints, fps_prefix=fps_prefix,
+                                              dtype=mp_dtype)
+        self.vgen = VotingModule(vote_factor, 256, generator)
+        self.pnet = ProposalModule(num_class, num_heading_bin, num_size_cluster,
+                                   mean_size_arr, generator, num_proposal=num_proposal,
+                                   sampling=sampling, fps_prefix=fps_prefix)
+        self.grid_conv = GridConv(num_class, num_heading_bin, num_size_cluster, generator,
+                                  query_feats=query_feats,
+                                  dtype=None if f32_gridconv else mp_dtype)
+
+    def forward_backbone(self, point_clouds: torch.Tensor,
+                         sa1_inds: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         sample_inds: Optional[torch.Tensor] = None) -> dict:
+        """(B, N, 3+C) -> end_points (votenet_iou_branch.py:75-109).
+        ``generator`` and ``sample_inds`` go to the proposal module."""
+        ep = self.backbone_net(point_clouds, sa1_inds=sa1_inds)
+        ep["seed_inds"] = ep["fp2_inds"]
+        ep["seed_xyz"] = ep["fp2_xyz"]
+        ep["seed_features"] = ep["fp2_features"]
+        xyz, features = self.vgen(ep["seed_xyz"], ep["seed_features"])
+        features = features / torch.linalg.norm(features, dim=-1, keepdim=True)
+        ep["vote_xyz"] = xyz
+        ep["vote_features"] = features
+        return self.pnet(xyz, features, ep, generator=generator, sample_inds=sample_inds)

@@ -8,6 +8,11 @@ the math is the same). The optimizer runs its ``foreach`` implementation:
 a few multi-tensor kernels a step over all parameters. For the SSL stage
 the state also holds the teacher, ``ema_model``: the JAX ``ema_params``
 and ``ema_batch_stats`` as a module of their own.
+
+A model that names its own parameter groups (``optimizer_groups()``,
+Group-Free-3D's) trains with AdamW over them, as its release does: the
+weight decay decoupled, each group's lr the step's times its ``lr_scale``
+(``train/steps.py``).
 """
 import copy
 from dataclasses import dataclass
@@ -50,7 +55,11 @@ def create_train_state(model: nn.Module, seed: int = 0, weight_decay: float = 0.
     ema_model = None
     if with_ema:
         ema_model = copy.deepcopy(model).requires_grad_(False)
-    return TrainState(model=model,
-                      optimizer=make_optimizer(model.parameters(), weight_decay, adam_eps),
+    if hasattr(model, "optimizer_groups"):
+        optimizer = torch.optim.AdamW(model.optimizer_groups(), lr=0.0, betas=(0.9, 0.999),
+                                      eps=adam_eps, weight_decay=weight_decay, foreach=True)
+    else:
+        optimizer = make_optimizer(model.parameters(), weight_decay, adam_eps)
+    return TrainState(model=model, optimizer=optimizer,
                       generator=torch.Generator(device=device).manual_seed(seed),
                       ema_model=ema_model)

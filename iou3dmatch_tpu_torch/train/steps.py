@@ -62,12 +62,15 @@ def _global_draws(model, generator, num_labeled: int, num_unlabeled: int, noise=
     return inds, noise
 
 
-def make_pretrain_step(cfg):
+def make_pretrain_step(cfg, loss=None):
     """Returns ``step(state, batch, lr, bn_momentum, noise=None) ->
     metrics``, one supervised pretrain step (pretrain.py:310-347):
     ``forward_with_pred_jitter`` in train mode with BN momentum
-    ``bn_momentum``, ``get_labeled_loss`` over every scene of the batch,
-    the backward pass, then Adam at ``lr``. It updates ``state`` in place
+    ``bn_momentum``, the model's ``loss(ep, batch, cfg, num_labeled) ->
+    (loss, metrics)`` over every scene of the batch (VoteNet's
+    ``get_labeled_loss`` by default), the backward pass, then the
+    optimizer at ``lr``, times the ``lr_scale`` of a parameter group that
+    has one (``train/state.py``). It updates ``state`` in place
     and returns the loss metrics, ``loss`` included, as detached tensors
     on the model's device, without waiting for the card. ``noise``
     optionally gives the two jitter draws; else they come from
@@ -75,6 +78,7 @@ def make_pretrain_step(cfg):
     sampling. Under ``parallel/mesh.py::shard_train_step`` the draws and
     ``noise`` have the global batch's shape, this rank takes its rows, and
     the gradient is summed over the ranks before Adam."""
+    loss_fn = get_labeled_loss if loss is None else loss
 
     @trace.span("train.step", sync_count=True)
     def step(state: TrainState, batch: dict, lr: float, bn_momentum: float,
@@ -83,7 +87,7 @@ def make_pretrain_step(cfg):
         model.train()
         set_bn_momentum(model, bn_momentum)
         for group in opt.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_scale", 1.0)
         opt.zero_grad(set_to_none=True)
         point_clouds = batch["point_clouds"]
         inds = None
@@ -93,14 +97,14 @@ def make_pretrain_step(cfg):
             ep = model.forward_with_pred_jitter(point_clouds, generator=state.generator,
                                                 noise=noise, sample_inds=inds)
         with trace.span("train.loss"):
-            loss, metrics = get_labeled_loss(ep, batch, cfg, point_clouds.shape[0])
+            total, metrics = loss_fn(ep, batch, cfg, point_clouds.shape[0])
         with trace.span("train.backward"):
-            loss.backward()
+            total.backward()
         with trace.span("train.update"):
             all_reduce_grads(model.parameters())
             opt.step()
         state.step += 1
-        metrics["loss"] = loss
+        metrics["loss"] = total
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
@@ -254,23 +258,25 @@ def make_eval_forward(model, generator: Optional[torch.Generator] = None):
     return forward
 
 
-def make_eval_loss(model, cfg, generator: Optional[torch.Generator] = None):
+def make_eval_loss(model, cfg, generator: Optional[torch.Generator] = None, loss=None):
     """Returns ``evaluate(point_clouds, labels) -> (outputs, metrics)``, the
     JAX ``make_eval_forward``: one eval-mode forward under
     ``torch.no_grad()``, the outputs ``make_eval_forward`` keeps, and the
-    eval-loss metrics of ``losses/supervised.py::get_loss`` on the GT dict
-    ``labels``, ``loss`` among them. Not ``inference_mode``: test-time IoU
+    eval-loss metrics of ``loss(ep, labels, cfg)`` (by default
+    ``losses/supervised.py::get_loss``) on the GT dict ``labels``, ``loss``
+    among them. Not ``inference_mode``: test-time IoU
     optimisation (``eval/iou_opt.py``) differentiates through GridConv on
     these outputs, and autograd refuses to save inference tensors.
     ``generator`` draws ``random`` sampling's proposal indices."""
+    loss_fn = get_loss if loss is None else loss
 
     @trace.span("eval.forward", device=True, sync_count=True)
     def evaluate(point_clouds: torch.Tensor, labels: dict):
         model.eval()
         with torch.no_grad():
             ep = model(point_clouds, generator=generator)
-            loss, metrics = get_loss(ep, labels, cfg)
-        metrics["loss"] = loss
+            total, metrics = loss_fn(ep, labels, cfg)
+        metrics["loss"] = total
         return {k: ep[k] for k in KEEP if k in ep}, metrics
 
     return evaluate
